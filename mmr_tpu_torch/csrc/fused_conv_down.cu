@@ -1,4 +1,5 @@
-// K2: fused 3x3 stride-2 pad-(1,1) convolution, forward (eval).
+// K2: fused 3x3 stride-2 pad-(1,1) convolution, forward, with the optional
+// BN moments of its output.
 //
 // Replaces the TPU kernel `_down_fwd_kernel` reached through
 // `mmr_tpu/ops/pallas/packed_chain.py::fused_conv_down` (`_down_fwd_call`,
@@ -8,7 +9,10 @@
 // source rows/cols 2r-1 .. 2r+1 of pro(x) * W (+ bias), with the same
 // optional prologue pro(v) = act(s*v + t) as K1 (f32, rounded to bf16 before
 // the multiply-accumulate; zero padding AFTER the prologue), f32
-// accumulation and y stored raw in bf16. Two specialisations:
+// accumulation and y stored raw in bf16. With mom != null it also emits
+// mom[0][c] += sum y, mom[1][c] += sum y^2 from the f32 values (bias
+// included) before the rounding: per-block shared sums, then f32 atomics.
+// Two specialisations:
 //
 // - dense (the mbv3 stem, Cin = 3): one thread per output pixel computes
 //   all output channels from the 9 x Cin source values it reads once
@@ -25,15 +29,10 @@
 // reads each input byte from device memory about once (the overlapping 3x3
 // windows hit L1/L2) and writes each output once.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-enum Act { kNone = 0, kRelu = 1, kHswish = 2, kLinear = 3 };
-
-constexpr int kThreads = 256;
 constexpr int kCoBlock = 16;
 
 struct DownParams {
@@ -44,38 +43,27 @@ struct DownParams {
   const __nv_bfloat16* wt;  // dense: (9, cin, cout); depthwise: (9, cin)
   const float* bias;        // (cout,) or null
   __nv_bfloat16* y;         // (n, ho, wo, cout)
+  float* mom;               // (2, cout) or null
   int n, h, w, cin, cout, ho, wo;
 };
 
-__device__ __forceinline__ float prologue(float v, float s, float t, int act) {
-  v = __fadd_rn(__fmul_rn(v, s), t);
-  if (act == kRelu) return fmaxf(v, 0.f);
-  if (act == kHswish) {
-    const float g = fminf(fmaxf(__fadd_rn(v, 3.f), 0.f), 6.f);
-    return __fmul_rn(__fmul_rn(v, g), 1.f / 6.f);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float load_act(const DownParams& p, size_t idx,
-                                          int c) {
-  const float v = __bfloat162float(p.x[idx]);
-  if (p.act == kNone) return v;
-  return __bfloat162float(__float2bfloat16_rn(
-      prologue(v, p.scale[c], p.shift[c], p.act)));
-}
-
 __global__ void __launch_bounds__(kThreads) down_dense_kernel(
     const DownParams p) {
-  extern __shared__ float wsm[];  // (9, cin, cout) f32
+  extern __shared__ float wsm[];  // (9, cin, cout) f32, then (2, cout) sums
+  float* msm = wsm + 9 * p.cin * p.cout;
   const int nw = 9 * p.cin * p.cout;
   for (int i = threadIdx.x; i < nw; i += blockDim.x)
     wsm[i] = __bfloat162float(p.wt[i]);
+  for (int i = threadIdx.x; i < 2 * p.cout; i += blockDim.x) msm[i] = 0.f;
   __syncthreads();
 
+  const int lane = threadIdx.x & 31;
   const long long total = (long long)p.n * p.ho * p.wo;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+  // block-uniform trip count: the moments' warp shuffles need every lane
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
+       base += (long long)gridDim.x * blockDim.x) {
+    const long long idx = base + threadIdx.x;
+    const bool ok = idx < total;
     const int ox = (int)(idx % p.wo);
     const long long t = idx / p.wo;
     const int oy = (int)(t % p.ho);
@@ -85,40 +73,62 @@ __global__ void __launch_bounds__(kThreads) down_dense_kernel(
       float acc[kCoBlock];
 #pragma unroll
       for (int k = 0; k < kCoBlock; ++k) acc[k] = 0.f;
-      for (int tap = 0; tap < 9; ++tap) {
+      for (int tap = 0; tap < 9 && ok; ++tap) {
         const int iy = 2 * oy - 1 + tap / 3;
         const int ix = 2 * ox - 1 + tap % 3;
         if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w) continue;
-        const size_t base = ((size_t)(b * p.h + iy) * p.w + ix) * p.cin;
+        const size_t base_i = ((size_t)(b * p.h + iy) * p.w + ix) * p.cin;
         for (int ci = 0; ci < p.cin; ++ci) {
-          const float v = load_act(p, base + ci, ci);
+          const float v = load_act(p.x, p.scale, p.shift, p.act, base_i + ci,
+                                   ci);
           const float* wr = wsm + (tap * p.cin + ci) * p.cout + co0;
 #pragma unroll
           for (int k = 0; k < kCoBlock; ++k)
             if (co0 + k < p.cout) acc[k] = fmaf(v, wr[k], acc[k]);
         }
       }
-      __align__(16) __nv_bfloat16 o[kCoBlock];
 #pragma unroll
-      for (int k = 0; k < kCoBlock; ++k) {
-        float v = acc[k];
-        if (p.bias != nullptr && co0 + k < p.cout) v += p.bias[co0 + k];
-        o[k] = __float2bfloat16_rn(v);
+      for (int k = 0; k < kCoBlock; ++k)
+        if (p.bias != nullptr && co0 + k < p.cout) acc[k] += p.bias[co0 + k];
+      if (ok) {
+        __align__(16) __nv_bfloat16 o[kCoBlock];
+#pragma unroll
+        for (int k = 0; k < kCoBlock; ++k) o[k] = __float2bfloat16_rn(acc[k]);
+        __nv_bfloat16* d = dst + co0;
+        if (co0 + kCoBlock <= p.cout &&
+            reinterpret_cast<uintptr_t>(d) % 16 == 0) {
+          reinterpret_cast<uint4*>(d)[0] = reinterpret_cast<const uint4*>(o)[0];
+          reinterpret_cast<uint4*>(d)[1] = reinterpret_cast<const uint4*>(o)[1];
+        } else {
+          for (int k = 0; k < kCoBlock && co0 + k < p.cout; ++k) d[k] = o[k];
+        }
       }
-      __nv_bfloat16* d = dst + co0;
-      if (co0 + kCoBlock <= p.cout &&
-          reinterpret_cast<uintptr_t>(d) % 16 == 0) {
-        reinterpret_cast<uint4*>(d)[0] = reinterpret_cast<const uint4*>(o)[0];
-        reinterpret_cast<uint4*>(d)[1] = reinterpret_cast<const uint4*>(o)[1];
-      } else {
-        for (int k = 0; k < kCoBlock && co0 + k < p.cout; ++k) d[k] = o[k];
+      if (p.mom != nullptr) {
+#pragma unroll
+        for (int k = 0; k < kCoBlock; ++k) {
+          const float v = (ok && co0 + k < p.cout) ? acc[k] : 0.f;
+          const float s1 = warp_sum(v);
+          const float s2 = warp_sum(v * v);
+          if (lane == 0 && co0 + k < p.cout) {
+            atomicAdd(&msm[co0 + k], s1);
+            atomicAdd(&msm[p.cout + co0 + k], s2);
+          }
+        }
       }
     }
+  }
+  if (p.mom != nullptr) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * p.cout; i += blockDim.x)
+      atomicAdd(&p.mom[i], msm[i]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads) down_dw_kernel(
     const DownParams p) {
+  extern __shared__ float msm[];  // (2, cin) block sums
+  for (int i = threadIdx.x; i < 2 * p.cin; i += blockDim.x) msm[i] = 0.f;
+  __syncthreads();
   const long long total = (long long)p.n * p.ho * p.wo * p.cin;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
@@ -134,24 +144,35 @@ __global__ void __launch_bounds__(kThreads) down_dw_kernel(
       const int iy = 2 * oy - 1 + tap / 3;
       const int ix = 2 * ox - 1 + tap % 3;
       if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w) continue;
-      const float v =
-          load_act(p, ((size_t)(b * p.h + iy) * p.w + ix) * p.cin + c, c);
+      const float v = load_act(p.x, p.scale, p.shift, p.act,
+                               ((size_t)(b * p.h + iy) * p.w + ix) * p.cin + c,
+                               c);
       acc = fmaf(v, __bfloat162float(p.wt[tap * p.cin + c]), acc);
     }
     if (p.bias != nullptr) acc += p.bias[c];
     p.y[idx] = __float2bfloat16_rn(acc);
+    if (p.mom != nullptr) {
+      atomicAdd(&msm[c], acc);
+      atomicAdd(&msm[p.cin + c], acc * acc);
+    }
+  }
+  if (p.mom != nullptr) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * p.cin; i += blockDim.x)
+      atomicAdd(&p.mom[i], msm[i]);
   }
 }
 
 }  // namespace
 
 // Host entry (plain C interface, bound with ctypes). depthwise != 0 selects
-// the depthwise kernel (then cout == cin). Returns a cudaError_t.
+// the depthwise kernel (then cout == cin). mom: a zeroed (2, cout) f32
+// buffer or null. Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
                                    const void* shift, int act, const void* wt,
-                                   const void* bias, void* y, int n, int h,
-                                   int w, int cin, int cout, int depthwise,
-                                   void* stream) {
+                                   const void* bias, void* y, void* mom, int n,
+                                   int h, int w, int cin, int cout,
+                                   int depthwise, void* stream) {
   DownParams p{};
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.scale = static_cast<const float*>(scale);
@@ -160,6 +181,7 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.bias = static_cast<const float*>(bias);
   p.y = static_cast<__nv_bfloat16*>(y);
+  p.mom = static_cast<float*>(mom);
   p.n = n;
   p.h = h;
   p.w = w;
@@ -175,9 +197,10 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
   if (blocks < 1) blocks = 1;
   if (depthwise) {
     if (cout != cin) return (int)cudaErrorInvalidValue;
-    down_dw_kernel<<<(int)blocks, kThreads, 0, s>>>(p);
+    down_dw_kernel<<<(int)blocks, kThreads, 2 * cin * (int)sizeof(float), s>>>(
+        p);
   } else {
-    const int smem = 9 * cin * cout * (int)sizeof(float);
+    const int smem = (9 * cin * cout + 2 * cout) * (int)sizeof(float);
     if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     down_dense_kernel<<<(int)blocks, kThreads, smem, s>>>(p);
   }

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package to the port.
+"""Carry weights between the JAX package and the port.
 
 :func:`from_jax_variables` maps flax variables ``{"params": ...,
 "batch_stats": ...}`` — nested dicts of numpy arrays, as ``jax.device_get``
@@ -6,8 +6,9 @@ returns them — to the port's ``state_dict``. Module names mirror the flax
 tree, so the mapping is mechanical: the path joins with ``.``, conv
 ``kernel`` HWIO (3×3, depthwise (k,k,1,C), 1×1) becomes ``weight`` OIHW,
 BN ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
-``running_mean``/``running_var``. The plain and fused paths of both
-packages share one tree.
+``running_mean``/``running_var``. :func:`to_jax_variables` is its inverse
+(so tests can hold updated params and BN statistics against the JAX
+step's). The plain and fused paths of both packages share one tree.
 """
 
 from __future__ import annotations
@@ -43,4 +44,29 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
 
     walk(variables["params"], ())
     walk(variables.get("batch_stats", {}), ())
+    return out
+
+
+def to_jax_variables(state_dict: Mapping) -> dict:
+    """The port's ``state_dict`` -> flax ``{"params", "batch_stats"}`` as
+    nested dicts of f32 numpy arrays: OIHW ``weight`` becomes HWIO
+    ``kernel``, a 1-D ``weight`` a BN ``scale``, ``running_mean``/
+    ``running_var`` the ``batch_stats`` ``mean``/``var``."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, v in state_dict.items():
+        *path, leaf = name.split(".")
+        a = v.detach().cpu().float().numpy()
+        if leaf == "weight":
+            leaf, a = ("kernel", a.transpose(2, 3, 1, 0)) if a.ndim == 4 \
+                else ("scale", a)
+            tree = out["params"]
+        elif leaf == "bias":
+            tree = out["params"]
+        elif leaf in ("running_mean", "running_var"):
+            leaf, tree = leaf[len("running_"):], out["batch_stats"]
+        else:
+            raise KeyError(f"unknown state_dict entry {name}")
+        for k in path:
+            tree = tree.setdefault(k, {})
+        tree[leaf] = np.ascontiguousarray(a)
     return out

@@ -6,7 +6,9 @@ Topology, concat order and module names replicate the JAX
 :func:`smp_unetpp_plan`). ``fused=True`` runs every node whose output
 H·W ≥ ``packed_min_hw`` as two K1 launches (:mod:`fused_blocks`) and the
 head as a third; smaller nodes stay on cuDNN. The plain and fused paths
-share one ``state_dict``.
+share one ``state_dict``. In train mode with ``labels`` the fused model
+runs the head as the fused head + loss kernel (:mod:`..ops.head_loss`) and
+returns the loss partials instead of logits.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from torch import nn
 from mmr_tpu_torch.models.encoders import get_encoder
 from mmr_tpu_torch.models.fused_blocks import (FusedConvBN, Pending, as_array,
                                                as_pending, up_lazy)
+from mmr_tpu_torch.models.fused_blocks import hwio
 from mmr_tpu_torch.models.layers import nchw, nhwc
+from mmr_tpu_torch.ops.head_loss import fused_head_loss
 from mmr_tpu_torch.ops.resize import upsample2x
 
 
@@ -51,6 +55,13 @@ class SegmentationHead(FusedConvBN):
     def forward(self, x):
         return super().forward(x).float()
 
+    def fused_loss(self, top: Pending, labels: torch.Tensor,
+                   with_conf: bool = True):
+        """Head conv + DiceCE statistics in one K5a launch (K5b backward):
+        ``(logp, stats, conf)`` (``packed_blocks.py::PackedHeadLoss``)."""
+        return fused_head_loss(top, hwio(self.conv.weight), self.conv.bias,
+                               labels, with_conf)
+
 
 def smp_unetpp_plan(enc_ch: tuple[int, ...], dec_ch: tuple[int, ...]):
     """smp ``UnetPlusPlusDecoder``'s exact block plan: ``{(d, l): (in_ch,
@@ -83,7 +94,11 @@ class UnetPlusPlusModel(nn.Module):
     ``dtype`` is the compute dtype (parameters stay f32). ``fused=True``
     (bf16 only) runs the fine-resolution nodes and the head on the fused
     K1 kernel; ``fused_frontend=True`` (needs ``fused``) also runs the
-    encoder stem and b0_0 on K2. Eval mode only in this slice."""
+    encoder stem and b0_0 on K2. In train mode BN takes batch statistics
+    and the kernels' backward runs under autograd; ``labels`` (the (B, H,
+    W) class ids; fused model only) routes the head through the fused head
+    + loss kernel and ``forward`` returns ``{"stats", "conf", "n_pixels",
+    "logp"}`` (``packed_chain.assemble_dice_ce`` reads the first three)."""
 
     def __init__(self, num_classes: int,
                  encoder_name: str = "tu-mobilenetv3_small_100",
@@ -112,12 +127,15 @@ class UnetPlusPlusModel(nn.Module):
     def _node(self, d: int, l: int) -> DecoderBlock:
         return getattr(self, f"x_{d}_{l}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
+                with_conf: bool = True):
+        if labels is not None and not self.fused:
+            raise ValueError("labels route the fused head + loss: fused=True only")
         x = nchw(x.to(self.dtype).contiguous())
         fr = self.encoder(x)[::-1]             # [f5 .. f1], smp order
         depth = self.depth
         if self.fused:
-            return self._fused_decoder(fr, depth)
+            return self._fused_decoder(fr, depth, labels, with_conf)
         dense: dict[tuple[int, int], torch.Tensor] = {}
         for layer in range(depth):
             for d in range(depth - layer):
@@ -132,7 +150,7 @@ class UnetPlusPlusModel(nn.Module):
         dense[(0, depth)] = self._node(0, depth)(dense[(0, depth - 1)])
         return nhwc(self.head(dense[(0, depth)]))
 
-    def _fused_decoder(self, fr, depth: int) -> torch.Tensor:
+    def _fused_decoder(self, fr, depth: int, labels=None, with_conf=True):
         """Same topology; nodes at an output scale with H·W ≥
         ``packed_min_hw`` run as K1 launches over Pending inputs (lazy ×2
         upsample of the node input, skips consumed raw with their BN
@@ -158,5 +176,12 @@ class UnetPlusPlusModel(nn.Module):
                 dense[(d, l)] = run_node(d, l, x_in, skips)
         top = run_node(0, depth, dense[(0, depth - 1)], [])
         if isinstance(top, Pending):
+            if labels is not None:
+                logp, stats, conf = self.head.fused_loss(top, labels, with_conf)
+                return {"stats": stats, "conf": conf,
+                        "n_pixels": labels.numel(), "logp": logp}
             return self.head.fused([top]).raw.float()
+        if labels is not None:
+            raise ValueError("the fused head + loss needs the top node fused "
+                             "(its output H·W >= packed_min_hw)")
         return nhwc(self.head(top))

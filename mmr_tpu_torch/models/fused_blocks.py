@@ -7,6 +7,11 @@ the consuming kernel's prologue, and a node's concat never materializes
 (one multi-input K1 launch). Parameters are those of the plain modules
 (:class:`FusedConvBN` *is* a ``ConvBN``), so the plain and fused paths share
 one ``state_dict``.
+
+In train mode a conv emits its BN moments (Σy, Σy² from K1) and its BN
+normalizes with the batch statistics they give, ``var = max(E[y²] −
+E[y]², 0)`` (``packed_blocks.py::DeferredBN``); gradients flow back into
+the moments through K3.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import dataclasses
 import torch
 
 from mmr_tpu_torch.models.layers import PROLOGUE_ACT, ConvBN, nchw, nhwc
-from mmr_tpu_torch.ops.fused_conv import Pending, apply_act, fused_conv
+from mmr_tpu_torch.ops.fused_conv import (Pending, apply_act, fused_conv,
+                                          fused_conv_ad)
 from mmr_tpu_torch.ops.resize import upsample2x
 
 __all__ = ["Pending", "FusedConvBN", "as_array", "as_pending", "up_lazy",
@@ -62,14 +68,22 @@ class FusedConvBN(ConvBN):
     """A 3×3 stride-1 ``ConvBN`` that can also run fused: :meth:`fused`
     convolves the concat of Pending inputs in one K1 launch and returns the
     raw output with this module's eval BN + activation pending
-    (``use_bn=False``: with the conv bias, no prologue)."""
+    (``use_bn=False``: with the conv bias, no prologue). In train mode the
+    launch is differentiable and the BN takes the batch moments."""
 
     def fused(self, inputs: list[Pending]) -> Pending:
         w = hwio(self.conv.weight)
         parts = list(torch.split(w, [p.c for p in inputs], dim=2))
-        y = fused_conv(inputs, parts, self.conv.bias)
-        if self.bn is None:
-            return Pending(y)
-        s, t = self.bn.affine()
+        if not self.training:
+            y = fused_conv(inputs, parts, self.conv.bias)
+            if self.bn is None:
+                return Pending(y)
+            s, t = self.bn.affine()
+        elif self.bn is None:
+            return Pending(fused_conv_ad(inputs, parts, self.conv.bias))
+        else:
+            y, mom = fused_conv_ad(inputs, parts, self.conv.bias,
+                                   emit_moments=True)
+            s, t = self.bn.batch_affine(mom, y.shape[0] * y.shape[1] * y.shape[2])
         return Pending(y, s.contiguous(), t.contiguous(),
                        PROLOGUE_ACT[self.act])

@@ -7,9 +7,12 @@ Conventions:
 - Parameters are f32; a conv casts them to its input's dtype, so the model's
   compute dtype (bf16 by default) is the dtype of the tensors it is fed
   (flax ``nn.Conv(dtype=...)`` semantics).
-- BatchNorm runs in eval mode only in this slice: the running statistics
-  are folded to one per-channel affine. Batch statistics (training) come
-  with the train slice (ROADMAP).
+- BatchNorm follows flax (``mmr_tpu/models/layers.py::FusedBatchNorm``):
+  train mode normalizes with the batch's f32 statistics from one pass of
+  Σx and Σx² (biased variance ``max(E[x²] − E[x]², 0)``) and updates the
+  running statistics with flax momentum 0.9 (torch's 0.1); eval mode folds
+  the running statistics. Either way the normalization is one per-channel
+  affine. ``F.batch_norm`` is not used: it stores the unbiased variance.
 """
 
 from __future__ import annotations
@@ -65,11 +68,25 @@ class Conv3x3(Conv2d):
         super().__init__(cin, cout, 3, 1, 1, bias=bias)
 
 
+# flax convention: running = MOMENTUM·running + (1 − MOMENTUM)·batch
+# (torch's momentum 0.1); every BN of the reference models uses it
+MOMENTUM = 0.9
+
+
+def moments_to_stats(mom: torch.Tensor, count: int):
+    """(2, C) [Σx, Σx²] over ``count`` values per channel -> (mean, biased
+    var), flax ``nn.BatchNorm`` semantics
+    (``packed_chain.py::moments_to_stats``)."""
+    mean = mom[0] / count
+    return mean, torch.clamp_min(mom[1] / count - mean * mean, 0.0)
+
+
 class FusedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm with the running statistics folded to
-    ``s = γ·rsqrt(var + eps)``, ``t = β − mean·s`` (f32), applied as
-    ``x·s + t`` in the input's dtype. State-dict keys: ``weight``, ``bias``,
-    ``running_mean``, ``running_var``."""
+    """BatchNorm as one per-channel affine ``x·s + t`` in the input's dtype,
+    ``s = γ·rsqrt(var + eps)``, ``t = β − mean·s`` (f32): batch statistics
+    in train mode (:meth:`batch_affine`), running statistics in eval mode
+    (:meth:`affine`). State-dict keys: ``weight``, ``bias``,
+    ``running_mean``, ``running_var`` (biased, as flax keeps it)."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -83,12 +100,24 @@ class FusedBatchNorm(nn.Module):
         s = self.weight * torch.rsqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
 
+    def batch_affine(self, mom: torch.Tensor, count: int):
+        """(s, t) from the batch moments ``mom`` (2, C) f32 over ``count``
+        values per channel (gradients flow into ``mom``); updates the
+        running statistics in place (``packed_blocks.py::DeferredBN``)."""
+        mean, var = moments_to_stats(mom, count)
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
+            self.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
+        s = self.weight * torch.rsqrt(var + self.eps)
+        return s, self.bias - mean * s
+
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics (training) are not ported yet; "
-                "call .eval()")
-        s, t = self.affine()
+            xf = x.float()
+            mom = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+            s, t = self.batch_affine(mom, x.numel() // x.shape[1])
+        else:
+            s, t = self.affine()
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
 
 

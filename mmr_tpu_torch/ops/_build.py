@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``mmr_tpu_torch/csrc/*.cu``).
 
 Each source is compiled by its own ``nvcc`` process for ``sm_90a`` (all
-started together), then linked into one shared library with a plain C
+started together; the shared device code of ``csrc/*.cuh`` is included by
+each), then linked into one shared library with a plain C
 interface that :mod:`ctypes` loads. The library lands in
 ``mmr_tpu_torch/_build/`` under a name keyed on a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused. The
@@ -32,10 +33,13 @@ _I = ctypes.c_int
 # C entry points and their argument types (every pointer, array and the
 # stream as c_void_p; ints as c_int); each returns a cudaError_t
 SIGNATURES = {
-    "mmr_fused_conv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
-    "mmr_fused_conv_down": [_P, _P, _P, _I, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P],
+    "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],
+    "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "mmr_fused_conv_down_bwd": [_P] * 3 + [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "mmr_head_loss_fwd": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P],
+    "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 8
+                          + [_I] * 4 + [_P]),
 }
 
 
@@ -50,7 +54,7 @@ def _nvcc() -> str:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

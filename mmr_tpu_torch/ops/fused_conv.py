@@ -1,18 +1,25 @@
-"""The fused conv kernels K1 (:func:`fused_conv`) and K2
-(:func:`fused_conv_down`), their plain PyTorch versions, and the
+"""The fused conv kernels K1 (:func:`fused_conv`), K2
+(:func:`fused_conv_down`), their backward kernels K3
+(:func:`fused_conv_bwd`) and K4 (:func:`fused_conv_down_bwd`), their plain
+PyTorch versions, the autograd functions that join them, and the
 :class:`Pending` tensor they consume.
 
 Counterparts of ``mmr_tpu/ops/pallas/packed_chain.py::fused_conv`` and
-``::fused_conv_down`` (forward, eval: no BN moments, no dx threading). The
-TPU packing (lane blocks, baked halos, Toeplitz taps, phase splits) is not
-ported: tensors are plain NHWC bf16, and the kernels
-(``mmr_tpu_torch/csrc/fused_conv.cu``, ``fused_conv_down.cu``) keep the
-same things out of device memory — the concat of a node's inputs, the
-BN-activated inputs and the ×2-upsampled inputs.
+``::fused_conv_down`` with their custom VJPs (BN moments included; the
+``thru`` dx threading is not ported: autograd sums a surface's cotangents).
+The TPU packing (lane blocks, baked halos, Toeplitz taps, phase splits) is
+not ported: tensors are plain NHWC bf16, and the kernels
+(``mmr_tpu_torch/csrc/fused_conv*.cu``) keep the same things out of device
+memory — the concat of a node's inputs, the BN-activated inputs and the
+×2-upsampled inputs.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; any other device raises. ``<wrapper>.launches``
-counts kernel launches.
+counts kernel launches. The plain backward versions are explicit functions
+(not autograd of the plain forward), so the card can hold the backward
+kernels against them. Every plain version takes ``dtype``: the storage
+type whose rounding it reproduces (bf16, as the kernels); ``torch.float32``
+drops the roundings, for checks against autograd.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.nn.grad import conv2d_input, conv2d_weight
 
 from mmr_tpu_torch.ops import _build
 from mmr_tpu_torch.ops.resize import upsample2x
 
 ACTS = {"relu": 1, "hswish": 2, "linear": 3}
+BF16 = torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +73,55 @@ def apply_act(v: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown prologue act {act!r}")
 
 
-def activated(p: Pending) -> torch.Tensor:
-    """The prologue applied in f32 and rounded to bf16 (where the kernels
-    round), returned as f32 at the raw tensor's resolution."""
+def act_grad(v: torch.Tensor, act: str) -> torch.Tensor:
+    """d act / dv (``packed_chain.py::_act_grad``): hardswish takes 0 at
+    v ≤ −3 and 1 at v ≥ 3."""
+    if act == "relu":
+        return (v > 0.0).float()
+    if act == "hswish":
+        return torch.where(v <= -3.0, 0.0,
+                           torch.where(v >= 3.0, 1.0, (2.0 * v + 3.0) / 6.0))
+    if act == "linear":
+        return torch.ones_like(v)
+    raise ValueError(f"unknown prologue act {act!r}")
+
+
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype).float()
+
+
+def activated(p: Pending, dtype: torch.dtype = BF16) -> torch.Tensor:
+    """The prologue applied in f32 and rounded to ``dtype`` (where the
+    kernels round), returned as f32 at the raw tensor's resolution."""
     x = p.raw.float()
     if p.scale is not None:
         x = apply_act(x * p.scale + p.shift, p.act)
-    return x.to(torch.bfloat16).float()
+    return _round(x, dtype)
+
+
+def moments(y: torch.Tensor) -> torch.Tensor:
+    """(2, C) f32: Σy and Σy² over every pixel of an NHWC tensor."""
+    y = y.float()
+    return torch.stack([y.sum((0, 1, 2)), (y * y).sum((0, 1, 2))])
+
+
+def _corrected_dy(dy, y, dmom):
+    """dy + dm0 + 2·y·dm1 in f32: the moments' cotangent folded into dy
+    (``packed_chain.py:808-814``)."""
+    g = dy.float()
+    if dmom is not None:
+        g = g + dmom[0] + 2.0 * y.float() * dmom[1]
+    return g
+
+
+def _prologue_bwd(ga: torch.Tensor, p: Pending):
+    """Backward through act(s·x + t) (``packed_chain.py::_prologue_bwd``):
+    (d raw in f32, (d scale, d shift) or None)."""
+    if p.scale is None:
+        return ga, None
+    x = p.raw.float()
+    gm = ga * act_grad(x * p.scale + p.shift, p.act)
+    return gm * p.scale, ((gm * x).sum((0, 1, 2)), gm.sum((0, 1, 2)))
 
 
 # ------------------------------------------------------------ validation
@@ -79,7 +130,7 @@ def _check_pending(p: Pending, device: torch.device, batch: int):
     x = p.raw
     if x.device != device:
         raise ValueError(f"input on {x.device}, expected {device}")
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
+    if x.dtype != BF16 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("kernel inputs must be contiguous NHWC bf16 "
                          f"(got {x.dtype}, shape {tuple(x.shape)}, "
                          f"contiguous={x.is_contiguous()})")
@@ -100,6 +151,19 @@ def _check_pending(p: Pending, device: torch.device, batch: int):
 def _check_bias(bias, cout: int, device: torch.device):
     if bias is not None and (bias.shape != (cout,) or bias.device != device):
         raise ValueError(f"bias must be ({cout},) on {device}")
+
+
+def _check_grad(name: str, t: torch.Tensor, shape, device: torch.device):
+    if (t.shape != shape or t.device != device or t.dtype != BF16
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous bf16 {tuple(shape)} on "
+                         f"{device} (got {t.dtype} {tuple(t.shape)})")
+
+
+def _check_dmom(dmom, cout: int, device: torch.device):
+    if dmom is not None and (dmom.shape != (2, cout) or dmom.device != device
+                             or dmom.dtype != torch.float32):
+        raise ValueError(f"dmom must be f32 (2, {cout}) on {device}")
 
 
 def _launch_device(device: torch.device) -> bool:
@@ -125,21 +189,15 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-# ------------------------------------------------------------------- K1
+def _arr(ctype, vals):
+    return ctypes.cast((ctype * len(vals))(*vals), ctypes.c_void_p)
 
-def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
-                   bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of :func:`fused_conv`: prologues in f32 rounded to
-    bf16, ×2 upsample by ``repeat_interleave``, ``torch.cat``, one f32
-    ``F.conv2d`` (padding 1) over bf16-rounded weights, + bias, rounded to
-    bf16. NHWC in, NHWC out."""
-    xs = [activated(p) for p in inputs]
-    xs = [upsample2x(x) if p.up2x else x for x, p in zip(xs, inputs)]
-    x = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
-    w = torch.cat([w.to(torch.bfloat16).float() for w in weights], dim=2)
-    y = F.conv2d(x, w.permute(3, 2, 0, 1), None if bias is None else bias.float(),
-                 padding=1)
-    return y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+
+def _fragments(cout: int) -> tuple[int, int]:
+    """(nf, np): 16-channel output fragments per block (1, 2, 4 or 8) and
+    cout padded to a multiple of 16·nf."""
+    nf = min(8, 1 << max(0, (-(-cout // 16) - 1).bit_length()))
+    return nf, -(-cout // (16 * nf)) * 16 * nf
 
 
 def _pack_weights(weights: list[torch.Tensor], cout: int, np_: int):
@@ -149,19 +207,57 @@ def _pack_weights(weights: list[torch.Tensor], cout: int, np_: int):
     for w in weights:
         c = w.shape[2]
         nch = -(-c // 16)
-        wp = F.pad(w.to(torch.bfloat16), (0, np_ - cout, 0, nch * 16 - c))
+        wp = F.pad(w.to(BF16), (0, np_ - cout, 0, nch * 16 - c))
         parts.append(wp.reshape(9, nch, 16, np_).permute(1, 0, 2, 3))
     return torch.cat(parts).contiguous()
 
 
+def _pack_transposed(w: torch.Tensor):
+    """HWIO (3,3,c,cout) -> the dx taps of a backward kernel: flipped and
+    transposed, packed as (cout chunks, 9, 16, np) over the c channels.
+    Returns (pack, nf, np)."""
+    c = w.shape[2]
+    nf, np_ = _fragments(c)
+    wt = w.flip(0, 1).transpose(2, 3)
+    return _pack_weights([wt], c, np_), nf, np_
+
+
+def _unpack_dw(dwp: torch.Tensor, chunk0: int, c: int, cout: int):
+    """(chunks, 9, 16, np) f32 kernel output -> one input's HWIO dW."""
+    nch = -(-c // 16)
+    d = dwp[chunk0:chunk0 + nch].permute(1, 0, 2, 3).reshape(9, nch * 16, -1)
+    return d[:, :c, :cout].reshape(3, 3, c, cout)
+
+
+# ------------------------------------------------------------------- K1
+
+def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
+                   bias: torch.Tensor | None = None,
+                   emit_moments: bool = False, dtype: torch.dtype = BF16):
+    """Plain version of :func:`fused_conv`: prologues in f32 rounded to
+    ``dtype``, ×2 upsample by ``repeat_interleave``, ``torch.cat``, one f32
+    ``F.conv2d`` (padding 1) over rounded weights, + bias; moments from the
+    f32 result, y rounded to ``dtype``. NHWC in, NHWC out."""
+    xs = [activated(p, dtype) for p in inputs]
+    xs = [upsample2x(x) if p.up2x else x for x, p in zip(xs, inputs)]
+    x = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
+    w = torch.cat([_round(w, dtype) for w in weights], dim=2)
+    y = F.conv2d(x, w.permute(3, 2, 0, 1), None if bias is None else bias.float(),
+                 padding=1).permute(0, 2, 3, 1)
+    out = y.to(dtype).contiguous()
+    return (out, moments(y)) if emit_moments else out
+
+
 def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
-               bias: torch.Tensor | None = None) -> torch.Tensor:
+               bias: torch.Tensor | None = None, emit_moments: bool = False):
     """y = Σ_j conv3×3_SAME(act_j(s_j·x_j + t_j) [×2-nearest if up2x_j], W_j)
     + bias: one launch for all of a node's concat inputs.
 
     ``inputs``: the node's inputs in concat order; ``weights``: one HWIO
     (3, 3, C_j, Cout) slice per input; ``bias``: (Cout,) or None. Returns
-    the raw y as contiguous NHWC bf16 at the inputs' (fine) resolution."""
+    the raw y as contiguous NHWC bf16 at the inputs' (fine) resolution, and
+    with ``emit_moments`` also its (2, Cout) f32 moments [Σy, Σy²] taken
+    before the bf16 rounding. Not differentiable: see :func:`fused_conv_ad`."""
     if not inputs or len(inputs) != len(weights):
         raise ValueError("one weight slice per input")
     if len(inputs) > 8:
@@ -179,59 +275,200 @@ def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
                              f"channels {p.c} / cout {cout} on {device}")
     _check_bias(bias, cout, device)
     if not _launch_device(device):
-        return fused_conv_ref(inputs, weights, bias)
+        return fused_conv_ref(inputs, weights, bias, emit_moments)
 
-    nf = min(8, 1 << max(0, (-(-cout // 16) - 1).bit_length()))
-    np_ = -(-cout // (16 * nf)) * 16 * nf
+    nf, np_ = _fragments(cout)
     wt = _pack_weights(weights, cout, np_)
     bias_f = None if bias is None else bias.float().contiguous()
-    y = torch.empty((batch, h, w, cout), dtype=torch.bfloat16, device=device)
-    n = len(inputs)
-    ptrs = lambda vals: (ctypes.c_void_p * n)(*vals)
-    ints = lambda vals: (ctypes.c_int * n)(*vals)
-    xs = ptrs([p.raw.data_ptr() for p in inputs])
-    scales = ptrs([_ptr(p.scale) for p in inputs])
-    shifts = ptrs([_ptr(p.shift) for p in inputs])
-    cs = ints([p.c for p in inputs])
-    acts = ints([0 if p.scale is None else ACTS[p.act] for p in inputs])
-    ups = ints([int(p.up2x) for p in inputs])
+    y = torch.empty((batch, h, w, cout), dtype=BF16, device=device)
+    mom = (torch.zeros((2, cout), dtype=torch.float32, device=device)
+           if emit_moments else None)
+    P, I = ctypes.c_void_p, ctypes.c_int
     err = _build.library().mmr_fused_conv(
-        n, ctypes.cast(xs, ctypes.c_void_p), ctypes.cast(scales, ctypes.c_void_p),
-        ctypes.cast(shifts, ctypes.c_void_p), ctypes.cast(cs, ctypes.c_void_p),
-        ctypes.cast(acts, ctypes.c_void_p), ctypes.cast(ups, ctypes.c_void_p),
-        wt.data_ptr(), _ptr(bias_f), y.data_ptr(), batch, h, w, cout, np_, nf,
-        _stream())
+        len(inputs), _arr(P, [p.raw.data_ptr() for p in inputs]),
+        _arr(P, [_ptr(p.scale) for p in inputs]),
+        _arr(P, [_ptr(p.shift) for p in inputs]),
+        _arr(I, [p.c for p in inputs]),
+        _arr(I, [0 if p.scale is None else ACTS[p.act] for p in inputs]),
+        _arr(I, [int(p.up2x) for p in inputs]),
+        wt.data_ptr(), _ptr(bias_f), y.data_ptr(), _ptr(mom), batch, h, w,
+        cout, np_, nf, _stream())
     _raise_on(err, "fused_conv")
     fused_conv.launches += 1
-    return y
+    return (y, mom) if emit_moments else y
 
 
 fused_conv.launches = 0
+
+
+# ------------------------------------------------------------------- K3
+
+def fused_conv_bwd_ref(inputs: list[Pending], weights: list[torch.Tensor],
+                       y: torch.Tensor | None, dy: torch.Tensor,
+                       dmom: torch.Tensor | None = None,
+                       has_bias: bool = False, dtype: torch.dtype = BF16):
+    """Plain version of :func:`fused_conv_bwd`, written out: dye = dy +
+    dm0 + 2·y·dm1 (f32; dbias = Σdye), rounded to ``dtype``; per input the
+    weight gradient ``conv2d_weight`` and the input gradient
+    ``conv2d_input`` (f32) of the forward's rounded prologue'd input (×2
+    upsampled for a lazy input, whose gradient is then 2×2-summed back to
+    source resolution), then the prologue backward."""
+    g = _corrected_dy(dy, y, dmom)
+    dbias = g.sum((0, 1, 2)) if has_bias else None
+    g = _round(g, dtype).permute(0, 3, 1, 2)
+    dxs, dws, dpros = [], [], []
+    for p, w in zip(inputs, weights):
+        a = activated(p, dtype)
+        if p.up2x:
+            a = upsample2x(a)
+        a = a.permute(0, 3, 1, 2)
+        wr = _round(w, dtype).permute(3, 2, 0, 1)
+        dws.append(conv2d_weight(a, wr.shape, g, padding=1).permute(2, 3, 1, 0))
+        ga = conv2d_input(a.shape, wr, g, padding=1).permute(0, 2, 3, 1)
+        if p.up2x:
+            b, h, w2, c = ga.shape
+            ga = ga.reshape(b, h // 2, 2, w2 // 2, 2, c).sum((2, 4))
+        dx, dpro = _prologue_bwd(ga, p)
+        dxs.append(dx.to(p.raw.dtype).contiguous())
+        dpros.append(dpro)
+    return dxs, dws, dpros, dbias
+
+
+def fused_conv_bwd(inputs: list[Pending], weights: list[torch.Tensor],
+                   y: torch.Tensor | None, dy: torch.Tensor,
+                   dmom: torch.Tensor | None = None, has_bias: bool = False):
+    """K1's backward (K3): from the forward's inputs and weights, its bf16
+    output ``y`` (read only with ``dmom``), the output gradient ``dy``
+    (contiguous NHWC bf16) and the moments cotangent ``dmom`` (2, Cout) f32
+    or None, returns ``(dxs, dws, dpros, dbias)``: per input the bf16
+    gradient of the raw tensor (at source resolution for a lazy ×2 input),
+    the f32 HWIO weight gradient and (d scale, d shift) f32 or None; the
+    f32 bias gradient when ``has_bias``."""
+    x0 = inputs[0].raw
+    device, batch = x0.device, x0.shape[0]
+    h, w = inputs[0].hw
+    cout = weights[0].shape[3]
+    _check_grad("dy", dy, (batch, h, w, cout), device)
+    if dmom is not None:
+        _check_grad("y", y, (batch, h, w, cout), device)
+    _check_dmom(dmom, cout, device)
+    for p in inputs:
+        _check_pending(p, device, batch)
+    if not _launch_device(device):
+        return fused_conv_bwd_ref(inputs, weights, y, dy, dmom, has_bias)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    nf, np_ = _fragments(cout)
+    chunks = [-(-p.c // 16) for p in inputs]
+    dwp = torch.zeros((sum(chunks), 9, 16, np_), **f32)
+    packs = [_pack_transposed(wj) for wj in weights]
+    dxs = [torch.empty_like(p.raw) for p in inputs]
+    dpros = [None if p.scale is None else (torch.zeros(p.c, **f32),
+                                           torch.zeros(p.c, **f32))
+             for p in inputs]
+    dbias = torch.zeros(cout, **f32) if has_bias else None
+    dye = torch.empty_like(dy) if dmom is not None else None
+    dmom_c = None if dmom is None else dmom.contiguous()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    err = _build.library().mmr_fused_conv_bwd(
+        len(inputs), _arr(P, [p.raw.data_ptr() for p in inputs]),
+        _arr(P, [_ptr(p.scale) for p in inputs]),
+        _arr(P, [_ptr(p.shift) for p in inputs]),
+        _arr(I, [p.c for p in inputs]),
+        _arr(I, [0 if p.scale is None else ACTS[p.act] for p in inputs]),
+        _arr(I, [int(p.up2x) for p in inputs]),
+        _arr(P, [k[0].data_ptr() for k in packs]),
+        _arr(I, [k[1] for k in packs]), _arr(I, [k[2] for k in packs]),
+        _arr(P, [d.data_ptr() for d in dxs]),
+        _arr(P, [None if d is None else d[0].data_ptr() for d in dpros]),
+        _arr(P, [None if d is None else d[1].data_ptr() for d in dpros]),
+        dy.data_ptr(), _ptr(y), _ptr(dmom_c), _ptr(dye), _ptr(dbias),
+        dwp.data_ptr(), nf, np_, batch, h, w, cout, _stream())
+    _raise_on(err, "fused_conv_bwd")
+    fused_conv_bwd.launches += 1
+    starts = [sum(chunks[:j]) for j in range(len(inputs))]
+    dws = [_unpack_dw(dwp, s0, p.c, cout) for s0, p in zip(starts, inputs)]
+    return dxs, dws, dpros, dbias
+
+
+fused_conv_bwd.launches = 0
+
+
+def _grad_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(BF16).contiguous()
+
+
+class FusedConvFn(torch.autograd.Function):
+    """K1 forward, K3 backward. ``forward(ctx, spec, *tensors)`` with
+    ``spec = (n_inputs, acts, ups, has_bias, emit_moments)`` and
+    ``tensors`` = raws, scales, shifts, weights (n each; None where absent),
+    bias. Returns (y, moments or an empty tensor)."""
+
+    @staticmethod
+    def forward(ctx, spec, *tensors):
+        n, acts, ups, has_bias, emit = spec
+        inputs = [Pending(r, s, t, a, u) for r, s, t, a, u
+                  in zip(tensors[:n], tensors[n:2 * n], tensors[2 * n:3 * n],
+                         acts, ups)]
+        weights, bias = list(tensors[3 * n:4 * n]), tensors[4 * n]
+        out = fused_conv(inputs, weights, bias, emit_moments=emit)
+        y, mom = out if emit else (out, None)
+        ctx.spec = spec
+        ctx.save_for_backward(*tensors[:4 * n], y)
+        if mom is None:
+            mom = y.new_zeros((0,), dtype=torch.float32)
+            ctx.mark_non_differentiable(mom)
+        return y, mom
+
+    @staticmethod
+    def backward(ctx, dy, dmom):
+        n, acts, ups, has_bias, emit = ctx.spec
+        saved = ctx.saved_tensors
+        inputs = [Pending(r, s, t, a, u) for r, s, t, a, u
+                  in zip(saved[:n], saved[n:2 * n], saved[2 * n:3 * n],
+                         acts, ups)]
+        weights, y = list(saved[3 * n:4 * n]), saved[4 * n]
+        dxs, dws, dpros, dbias = fused_conv_bwd(
+            inputs, weights, y, _grad_bf16(dy), dmom if emit else None,
+            has_bias)
+        ds = [None if d is None else d[0] for d in dpros]
+        dt = [None if d is None else d[1] for d in dpros]
+        return (None, *dxs, *ds, *dt, *dws, dbias)
+
+
+def fused_conv_ad(inputs: list[Pending], weights: list[torch.Tensor],
+                  bias: torch.Tensor | None = None,
+                  emit_moments: bool = False):
+    """Differentiable :func:`fused_conv` (K1 forward, K3 backward): the
+    gradients reach every raw input, prologue vector, weight slice and the
+    bias, the moments' cotangent included. Returns y, or (y, moments)."""
+    spec = (len(inputs), tuple(p.act for p in inputs),
+            tuple(p.up2x for p in inputs), bias is not None, emit_moments)
+    y, mom = FusedConvFn.apply(
+        spec, *[p.raw for p in inputs], *[p.scale for p in inputs],
+        *[p.shift for p in inputs], *weights, bias)
+    return (y, mom) if emit_moments else y
 
 
 # ------------------------------------------------------------------- K2
 
 def fused_conv_down_ref(x: Pending, w: torch.Tensor,
                         bias: torch.Tensor | None = None,
-                        depthwise: bool = False) -> torch.Tensor:
+                        depthwise: bool = False, emit_moments: bool = False,
+                        dtype: torch.dtype = BF16):
     """Plain version of :func:`fused_conv_down`: prologue in f32 rounded to
-    bf16, one f32 ``F.conv2d`` (stride 2, padding 1, ``groups=C`` when
-    depthwise) over bf16-rounded weights, + bias, rounded to bf16."""
-    a = activated(x).permute(0, 3, 1, 2)
-    wf = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)
+    ``dtype``, one f32 ``F.conv2d`` (stride 2, padding 1, ``groups=C`` when
+    depthwise) over rounded weights, + bias; moments from the f32 result,
+    y rounded to ``dtype``."""
+    a = activated(x, dtype).permute(0, 3, 1, 2)
+    wf = _round(w, dtype).permute(3, 2, 0, 1)
     y = F.conv2d(a, wf, None if bias is None else bias.float(), stride=2,
-                 padding=1, groups=x.c if depthwise else 1)
-    return y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+                 padding=1, groups=x.c if depthwise else 1).permute(0, 2, 3, 1)
+    out = y.to(dtype).contiguous()
+    return (out, moments(y)) if emit_moments else out
 
 
-def fused_conv_down(x: Pending, w: torch.Tensor,
-                    bias: torch.Tensor | None = None,
-                    depthwise: bool = False) -> torch.Tensor:
-    """3×3 stride-2 pad-(1,1) conv of ``act(s·x + t)`` (+ bias).
-
-    ``w``: HWIO (3, 3, Cin, Cout), or (3, 3, 1, C) with ``depthwise`` (a
-    true per-channel conv). Returns raw y as contiguous NHWC bf16 at
-    ((H+1)//2, (W+1)//2)."""
+def _check_down(x: Pending, w: torch.Tensor, bias, depthwise: bool):
     if x.up2x:
         raise ValueError("fused_conv_down does not take a lazily upsampled input")
     device, batch = x.raw.device, x.raw.shape[0]
@@ -242,27 +479,163 @@ def fused_conv_down(x: Pending, w: torch.Tensor,
         raise ValueError(f"weight {tuple(w.shape)} on {w.device}, expected "
                          f"{want} on {device}")
     cout = cin if depthwise else w.shape[3]
-    if not depthwise and 9 * cin * cout * 4 > 48 * 1024:
+    if not depthwise and (9 * cin + 2) * cout * 4 > 48 * 1024:
         raise ValueError("the dense stride-2 kernel holds its weights in 48 KB "
-                         "of shared memory: Cin*Cout must be <= 1365")
+                         "of shared memory: (9*Cin+2)*Cout must be <= 12288")
     _check_bias(bias, cout, device)
+    return device, batch, cout
+
+
+def _down_weights(w: torch.Tensor, depthwise: bool) -> torch.Tensor:
+    cin = w.shape[2] if not depthwise else w.shape[3]
+    return w.to(BF16).reshape(9, cin * (1 if depthwise else w.shape[3])).contiguous()
+
+
+def fused_conv_down(x: Pending, w: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    depthwise: bool = False, emit_moments: bool = False):
+    """3×3 stride-2 pad-(1,1) conv of ``act(s·x + t)`` (+ bias).
+
+    ``w``: HWIO (3, 3, Cin, Cout), or (3, 3, 1, C) with ``depthwise`` (a
+    true per-channel conv). Returns raw y as contiguous NHWC bf16 at
+    ((H+1)//2, (W+1)//2), and with ``emit_moments`` its (2, Cout) f32
+    moments. Not differentiable: see :func:`fused_conv_down_ad`."""
+    device, batch, cout = _check_down(x, w, bias, depthwise)
     if not _launch_device(device):
-        return fused_conv_down_ref(x, w, bias, depthwise)
+        return fused_conv_down_ref(x, w, bias, depthwise, emit_moments)
 
     h, wd = x.raw.shape[1], x.raw.shape[2]
-    wt = w.to(torch.bfloat16).reshape(9, cin * (1 if depthwise else cout))
-    wt = wt.contiguous()
+    wt = _down_weights(w, depthwise)
     bias_f = None if bias is None else bias.float().contiguous()
     y = torch.empty((batch, (h + 1) // 2, (wd + 1) // 2, cout),
-                    dtype=torch.bfloat16, device=device)
+                    dtype=BF16, device=device)
+    mom = (torch.zeros((2, cout), dtype=torch.float32, device=device)
+           if emit_moments else None)
     act = 0 if x.scale is None else ACTS[x.act]
     err = _build.library().mmr_fused_conv_down(
         x.raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
-        _ptr(bias_f), y.data_ptr(), batch, h, wd, cin, cout, int(depthwise),
-        _stream())
+        _ptr(bias_f), y.data_ptr(), _ptr(mom), batch, h, wd, x.c, cout,
+        int(depthwise), _stream())
     _raise_on(err, "fused_conv_down")
     fused_conv_down.launches += 1
-    return y
+    return (y, mom) if emit_moments else y
 
 
 fused_conv_down.launches = 0
+
+
+# ------------------------------------------------------------------- K4
+
+def fused_conv_down_bwd_ref(x: Pending, w: torch.Tensor,
+                            y: torch.Tensor | None, dy: torch.Tensor,
+                            dmom: torch.Tensor | None = None,
+                            has_bias: bool = False, depthwise: bool = False,
+                            need_dx: bool = True, dtype: torch.dtype = BF16):
+    """Plain version of :func:`fused_conv_down_bwd`, written out: dye (f32;
+    dbias = Σdye) rounded to ``dtype``; ``conv2d_weight`` and
+    ``conv2d_input`` (stride 2, padding 1, grouped when depthwise) of the
+    rounded prologue'd input; the prologue backward."""
+    g = _corrected_dy(dy, y, dmom)
+    dbias = g.sum((0, 1, 2)) if has_bias else None
+    g = _round(g, dtype).permute(0, 3, 1, 2)
+    a = activated(x, dtype).permute(0, 3, 1, 2)
+    wr = _round(w, dtype).permute(3, 2, 0, 1)
+    groups = x.c if depthwise else 1
+    dw = conv2d_weight(a, wr.shape, g, stride=2, padding=1,
+                       groups=groups).permute(2, 3, 1, 0)
+    dx = dpro = None
+    if need_dx:
+        ga = conv2d_input(a.shape, wr, g, stride=2, padding=1,
+                          groups=groups).permute(0, 2, 3, 1)
+        dx, dpro = _prologue_bwd(ga, x)
+        dx = dx.to(x.raw.dtype).contiguous()
+    return dx, dw, dpro, dbias
+
+
+def fused_conv_down_bwd(x: Pending, w: torch.Tensor, y: torch.Tensor | None,
+                        dy: torch.Tensor, dmom: torch.Tensor | None = None,
+                        has_bias: bool = False, depthwise: bool = False,
+                        need_dx: bool = True):
+    """K2's backward (K4): returns ``(dx or None, dW (f32 HWIO), (d scale,
+    d shift) or None, dbias or None)``. The dense kernel computes dW only
+    (the stem's input is the image): a dense ``need_dx`` on the card
+    raises."""
+    device, batch, cout = _check_down(x, w, None, depthwise)
+    h, wd = x.raw.shape[1], x.raw.shape[2]
+    shape = (batch, (h + 1) // 2, (wd + 1) // 2, cout)
+    _check_grad("dy", dy, shape, device)
+    if dmom is not None:
+        _check_grad("y", y, shape, device)
+    _check_dmom(dmom, cout, device)
+    if not _launch_device(device):
+        return fused_conv_down_bwd_ref(x, w, y, dy, dmom, has_bias,
+                                       depthwise, need_dx)
+    if not depthwise and need_dx:
+        raise NotImplementedError(
+            "the dense stride-2 backward kernel computes dW only")
+    if depthwise and 256 % x.c:
+        raise ValueError("the depthwise backward kernels need 256 % C == 0")
+
+    f32 = dict(dtype=torch.float32, device=device)
+    wt = _down_weights(w, depthwise)
+    dwp = torch.zeros(wt.shape, **f32)
+    dx = torch.empty_like(x.raw) if need_dx else None
+    with_pro = need_dx and x.scale is not None
+    dpro = (torch.zeros(x.c, **f32), torch.zeros(x.c, **f32)) if with_pro else None
+    dbias = torch.zeros(cout, **f32) if has_bias else None
+    dye = torch.empty_like(dy) if dmom is not None else None
+    act = 0 if x.scale is None else ACTS[x.act]
+    err = _build.library().mmr_fused_conv_down_bwd(
+        x.raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
+        dy.data_ptr(), _ptr(y), _ptr(None if dmom is None else dmom.contiguous()),
+        _ptr(dye), _ptr(dbias), _ptr(dx),
+        _ptr(dpro[0] if dpro else None), _ptr(dpro[1] if dpro else None),
+        dwp.data_ptr(), batch, h, wd, x.c, cout, int(depthwise), _stream())
+    _raise_on(err, "fused_conv_down_bwd")
+    fused_conv_down_bwd.launches += 1
+    return dx, dwp.reshape(w.shape), dpro, dbias
+
+
+fused_conv_down_bwd.launches = 0
+
+
+class FusedConvDownFn(torch.autograd.Function):
+    """K2 forward, K4 backward. ``forward(ctx, spec, raw, scale, shift, w,
+    bias)`` with ``spec = (act, depthwise, emit_moments)``; returns (y,
+    moments or an empty tensor). dx is computed only when the raw input
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, spec, raw, scale, shift, w, bias):
+        act, depthwise, emit = spec
+        x = Pending(raw, scale, shift, act)
+        out = fused_conv_down(x, w, bias, depthwise, emit_moments=emit)
+        y, mom = out if emit else (out, None)
+        ctx.spec = spec
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(raw, scale, shift, w, y)
+        if mom is None:
+            mom = y.new_zeros((0,), dtype=torch.float32)
+            ctx.mark_non_differentiable(mom)
+        return y, mom
+
+    @staticmethod
+    def backward(ctx, dy, dmom):
+        act, depthwise, emit = ctx.spec
+        raw, scale, shift, w, y = ctx.saved_tensors
+        need_dx = any(ctx.needs_input_grad[1:4])
+        dx, dw, dpro, dbias = fused_conv_down_bwd(
+            Pending(raw, scale, shift, act), w, y, _grad_bf16(dy),
+            dmom if emit else None, ctx.has_bias, depthwise, need_dx)
+        ds, dt = dpro if dpro is not None else (None, None)
+        return None, dx, ds, dt, dw, dbias
+
+
+def fused_conv_down_ad(x: Pending, w: torch.Tensor,
+                       bias: torch.Tensor | None = None,
+                       depthwise: bool = False, emit_moments: bool = False):
+    """Differentiable :func:`fused_conv_down` (K2 forward, K4 backward).
+    Returns y, or (y, moments)."""
+    y, mom = FusedConvDownFn.apply((x.act, depthwise, emit_moments), x.raw,
+                                   x.scale, x.shift, w, bias)
+    return (y, mom) if emit_moments else y

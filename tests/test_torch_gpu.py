@@ -9,16 +9,26 @@ it also runs there without the JAX-side conftest:
 
 Kernel tolerance: atol = rtol = 2e-2 — both sides read the same bf16
 inputs and round the prologue at the same place; accumulation order and
-one bf16 rounding of y remain.
+one bf16 rounding of y remain. Moments: rtol 1e-3 of the largest moment
+(f32 sums in another order; the kernels add block sums by atomics).
+Backward outputs (dx, dW, d(scale, shift), dbias): max|Δ| / max|ref| and
+‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16 inputs and round
+at the same places; summation order (the kernels add block partials by
+atomics) and one bf16 rounding of dx remain, so a dropped tap or a lost
+correction term fails.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv,
-                                          fused_conv_down, fused_conv_down_ref,
-                                          fused_conv_ref)
+from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv, fused_conv_bwd,
+                                          fused_conv_bwd_ref, fused_conv_down,
+                                          fused_conv_down_bwd,
+                                          fused_conv_down_bwd_ref,
+                                          fused_conv_down_ref, fused_conv_ref)
+from mmr_tpu_torch.ops.head_loss import (head_loss_bwd, head_loss_bwd_ref,
+                                         head_loss_fwd, head_loss_fwd_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +151,154 @@ def test_run_inference_on_card(dev):
                         preprocess=get_preprocessing(), save_plots=False)
     assert fused_conv_down.launches > before
     assert np.isfinite(rep["overall_mean_iou"]) and rep["videos"]["v0"]["fps"] > 0
+
+
+# ------------------------------------------------- training kernels K1-K5
+
+def _mom_close(got, want):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+
+
+def _grad_close(name, got, want):
+    torch.cuda.synchronize()
+    d, w = got.float() - want.float(), want.float()
+    rel = (d.abs().max() / w.abs().max()).item()
+    l2 = (d.norm() / w.norm()).item()
+    assert rel < 1e-2 and l2 < 1e-2, (name, rel, l2)
+
+
+def _rand(g, dev, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+
+# (input channels, lazily upsampled?) per input, cout, (H, W) of the output,
+# batch: small shapes, then train-path shapes of the 512x640 flagship
+TRAIN_CONVS = [
+    ([(16, True), (24, False)], 24, (16, 32), 2),
+    ([(5, True), (7, False)], 10, (18, 40), 2),        # ragged channels / tiles
+    ([(256, True), (24, False), (24, False)], 128, (64, 80), 8),  # x_0_1.conv1
+    ([(32, True)], 16, (512, 640), 8),                            # x_0_4.conv1
+]
+
+
+@pytest.mark.parametrize("spec,cout,hw,batch", TRAIN_CONVS)
+def test_k1_moments_and_k3(dev, spec, cout, hw, batch):
+    g = torch.Generator(device=dev).manual_seed(3)
+    H, W = hw
+    ins, ws = [], []
+    for j, (c, up) in enumerate(spec):
+        h, w = (H // 2, W // 2) if up else (H, W)
+        x = _rand(g, dev, batch, h, w, c, dtype=torch.bfloat16)
+        s = torch.rand(c, device=dev, generator=g) + 0.5
+        t = _rand(g, dev, c, scale=0.3)
+        ins.append(Pending(x, s, t, ["relu", "hswish", "linear"][j % 3], up))
+        ws.append(_rand(g, dev, 3, 3, c, cout, scale=0.1))
+    y, mom = fused_conv(ins, ws, emit_moments=True)
+    y_ref, mom_ref = fused_conv_ref(ins, ws, emit_moments=True)
+    _close(y, y_ref)
+    _mom_close(mom, mom_ref)
+
+    dy = _rand(g, dev, batch, H, W, cout, dtype=torch.bfloat16)
+    dmom = _rand(g, dev, 2, cout, scale=1e-3)
+    before = fused_conv_bwd.launches
+    got = fused_conv_bwd(ins, ws, y, dy, dmom, has_bias=True)
+    assert fused_conv_bwd.launches == before + 1
+    want = fused_conv_bwd_ref(ins, ws, y, dy, dmom, has_bias=True)
+    for j in range(len(ins)):
+        _grad_close(f"dx{j}", got[0][j], want[0][j])
+        _grad_close(f"dw{j}", got[1][j], want[1][j])
+        for a, b in zip(got[2][j], want[2][j]):
+            _grad_close(f"dpro{j}", a, b)
+    _grad_close("dbias", got[3], want[3])
+
+
+@pytest.mark.parametrize("depthwise,hw,batch", [
+    (False, (34, 66), 2), (True, (34, 66), 2),
+    (False, (512, 640), 8), (True, (256, 320), 8)])     # the stem, b0_0
+def test_k2_moments_and_k4(dev, depthwise, hw, batch):
+    g = torch.Generator(device=dev).manual_seed(4)
+    c = 16 if depthwise else 3
+    x = _rand(g, dev, batch, *hw, c, dtype=torch.bfloat16)
+    s = torch.rand(c, device=dev, generator=g) + 0.5
+    t = _rand(g, dev, c, scale=0.3)
+    p = Pending(x, s, t, "hswish") if depthwise else Pending(x)
+    w = _rand(g, dev, 3, 3, 1 if depthwise else c, 16, scale=0.3)
+    w = w[..., :c] if depthwise else w
+    y, mom = fused_conv_down(p, w, depthwise=depthwise, emit_moments=True)
+    y_ref, mom_ref = fused_conv_down_ref(p, w, depthwise=depthwise,
+                                         emit_moments=True)
+    _close(y, y_ref)
+    _mom_close(mom, mom_ref)
+    dy = _rand(g, dev, *y.shape, dtype=torch.bfloat16)
+    dmom = _rand(g, dev, 2, y.shape[-1], scale=1e-3)
+    before = fused_conv_down_bwd.launches
+    got = fused_conv_down_bwd(p, w, y, dy, dmom, depthwise=depthwise,
+                              need_dx=depthwise)
+    assert fused_conv_down_bwd.launches == before + 1
+    want = fused_conv_down_bwd_ref(p, w, y, dy, dmom, depthwise=depthwise,
+                                   need_dx=depthwise)
+    _grad_close("dw", got[1], want[1])
+    if depthwise:
+        _grad_close("dx", got[0], want[0])
+        for a, b in zip(got[2], want[2]):
+            _grad_close("dpro", a, b)
+
+
+@pytest.mark.parametrize("hw,batch,nc", [((20, 40), 2, 3), ((512, 640), 8, 10)])
+def test_k5_head_loss(dev, hw, batch, nc):
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = 16
+    x = Pending(_rand(g, dev, batch, *hw, c, dtype=torch.bfloat16),
+                torch.rand(c, device=dev, generator=g) + 0.5,
+                _rand(g, dev, c, scale=0.3), "relu")
+    w = _rand(g, dev, 3, 3, c, nc, scale=0.3)
+    bias = _rand(g, dev, nc, scale=0.1)
+    labels = torch.randint(0, nc, (batch, *hw), device=dev, generator=g)
+    logp, stats, conf = head_loss_fwd(x, w, bias, labels)
+    logp_r, stats_r, conf_r = head_loss_fwd_ref(x, w, bias, labels)
+    _close(logp, logp_r)
+    torch.testing.assert_close(stats, stats_r, rtol=2e-2, atol=1e-3 * stats_r.abs().max().item())
+    assert (conf - conf_r).abs().sum().item() <= 1e-3 * conf_r.sum().item()
+    assert conf.sum().item() == batch * hw[0] * hw[1]
+    dstats = _rand(g, dev, batch, 4, nc, scale=1e-4)
+    dstats[:, 3] = 1.0 / labels.numel()
+    before = head_loss_bwd.launches
+    got = head_loss_bwd(x, w, logp, labels, dstats)
+    assert head_loss_bwd.launches == before + 1
+    want = head_loss_bwd_ref(x, w, logp, labels, dstats)
+    for name, a, b in zip(["dx", "dw", "dscale", "dshift", "dbias"],
+                          [got[0], got[1], *got[2], got[3]],
+                          [want[0], want[1], *want[2], want[3]]):
+        _grad_close(name, a, b)
+
+
+def test_fused_train_step_on_card(dev):
+    """A few fused train steps at a small size: every training kernel
+    launches, the loss is finite and falls."""
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    model = create_model(classes=10, device=dev, fused=True,
+                         fused_frontend=True, packed_min_hw=0)
+    opt = build_optimizer("adamw", clip_grad_norm=12.0)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, dice_ce_loss, 10)
+    g = torch.Generator().manual_seed(6)
+    images = torch.randint(0, 256, (1, 2, 128, 256, 3), generator=g, dtype=torch.uint8)
+    masks = torch.randint(0, 10, (1, 2, 128, 256), generator=g)
+    counts = [f.launches for f in (fused_conv, fused_conv_bwd, fused_conv_down,
+                                   fused_conv_down_bwd, head_loss_fwd,
+                                   head_loss_bwd)]
+    losses = []
+    for _ in range(4):
+        state, m = step(state, images, masks, 1e-3)
+        losses.append(float(m["loss"]))
+    now = [f.launches for f in (fused_conv, fused_conv_bwd, fused_conv_down,
+                                fused_conv_down_bwd, head_loss_fwd, head_loss_bwd)]
+    assert [b - a for a, b in zip(counts, now)] == [4 * 22, 4 * 22, 8, 8, 4, 4]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -139,9 +139,16 @@ def test_unported_options_raise():
         create_model("Segformer", device="cpu")
     with pytest.raises(NotImplementedError):
         create_model(encoder_name="resnet18", device="cpu")
-    model = create_model(classes=NC, device="cpu").train()
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.steps import make_train_step
+
     with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 64, 64, 3))
+        build_optimizer("sgd")
+    model = create_model(classes=NC, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_train_step(model, build_optimizer("adamw"), dice_ce_loss, NC,
+                        augment=object(), device="cpu")
 
 
 def _imported_roots(path: Path) -> set[str]:
