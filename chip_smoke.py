@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``mmr_tpu_torch``) on one NVIDIA card.
 
-Two paths of the UNet++/MobileNetV3 flagship at full width (10 classes,
+Two paths of the UNet++/MobileNetV3 flagship and two of Path A's
+UNet++/ResNet-18. The flagship at full width (10 classes,
 3,714,090 random weights from ``--seed``, BN perturbed away from
 identity): serving — full-HD 1080×1920 sliding-window inference, roi
 512×640, overlap 0.5, Gaussian blend, bf16, 6-frame temporal batches — and
@@ -42,6 +43,29 @@ front-end and head + loss).
    library call (cuDNN ``convolution_backward`` on the materialized input
    for K3/K4; ``F.conv2d`` + log-softmax + DiceCE under autograd for K5).
 
+7. Path-A training: Path A's canonical configuration (smp UNet++ over
+   ResNet-18, 10 classes, full width, random weights from ``--seed``, BN
+   perturbed) through ``make_train_step`` at 256×256, B=8, Adam lr 1e-3
+   with coupled L2 1e-5, the blended CE + Dice loss (0.5), StepLR epoch 0
+   and the Path-A augmentation. One recorded step: every K6a launch
+   (``conv3x3``: the 16 decoder convs and the head at H·W ≥ 4096, forward
+   and again for dx) and every K6b (``conv3x3_dw``, dW) held against its
+   plain version (forward atol = rtol = 2e-2, dx and dW at ``GRAD_REL``);
+   34 K6a + 17 K6b launches; the step vs the plain f32 step on the same
+   weights, batch and augmentation draws (loss rtol 2e-2); five steps (the
+   loss falls); step median, host issue, device busy, top device events.
+8. Path-A evaluation: ``evaluate_checkpoint`` of that model over three
+   synthetic 4×256×256 batches (uint8 masks): every K7 launch
+   (``confusion_stats``) equals its plain version exactly, every K6a
+   launch within 2e-2 (17 per forward); the returned mean IoU equals the
+   one from the plain K7 on the same id maps.
+
+Times of every new kernel beside its plain version, its bound and one
+library call (``F.conv2d`` for K6a, ``convolution_backward`` for K6b,
+``torch.bincount`` on ``gt·C + pred`` for K7; never used by the port).
+Phases 5 and 6 run their plain-bf16 yardsticks with
+``conv3x3_packed._FORCE = False``: the library conv they always measured.
+
 Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line, as does a machine without CUDA. Run: ``python3 chip_smoke.py``.
@@ -51,8 +75,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib
 import inspect
+import io
 import json
 import math
 import subprocess
@@ -64,6 +90,7 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_OPS = 67e12       # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 ROI = (512, 640)
 FRAME = (1080, 1920)
@@ -172,6 +199,12 @@ KERNELS = {  # kind -> (module, wrapper, plain version, source, TPU kernel)
             "mmr_tpu_torch/csrc/head_loss.cu", "mmr_tpu/ops/pallas/packed_chain.py:2491"),
     "K5b": ("mmr_tpu_torch.ops.head_loss", "head_loss_bwd", "head_loss_bwd_ref",
             "mmr_tpu_torch/csrc/head_loss.cu", "mmr_tpu/ops/pallas/packed_chain.py:2540"),
+    "K6a": ("mmr_tpu_torch.ops.conv3x3_packed", "conv3x3", "conv3x3_ref",
+            "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3_packed.py:283"),
+    "K6b": ("mmr_tpu_torch.ops.conv3x3_packed", "conv3x3_dw", "conv3x3_dw_ref",
+            "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3_packed.py:323"),
+    "K7": ("mmr_tpu_torch.ops.confusion", "confusion_stats", "confusion_stats_ref",
+           "mmr_tpu_torch/csrc/confusion.cu", "mmr_tpu/ops/pallas/confusion.py:81"),
 }
 # modules that bind a wrapper under its own name (besides its defining module)
 BINDERS = {"K1": ("mmr_tpu_torch.models.fused_blocks",),
@@ -213,14 +246,27 @@ def _tensors(out):
     return []
 
 
+def _in_backward() -> bool:
+    """Whether the wrapper was called from an autograd ``backward`` (K6a's
+    dx launches) rather than a forward."""
+    f = sys._getframe(2)
+    for _ in range(4):
+        if f is None:
+            return False
+        if f.f_code.co_name == "backward":
+            return True
+        f = f.f_back
+    return False
+
+
 @contextlib.contextmanager
 def recording():
     """Stand a recorder in for every kernel wrapper, wherever the port binds
-    it. Each call is kept as (kind, its arguments by name, its outputs),
-    cloned: the optimizer updates the weights in place. A wrapper counts its
-    launches under its module-level name, so while the recorder stands there
-    they land on the recorder's ``launches``, which starts at 0. Yields
-    (records, {kind: recorder})."""
+    it. Each call is kept as (kind, its arguments by name, its outputs,
+    whether a backward made it), cloned: the optimizer updates the weights
+    in place. A wrapper counts its launches under its module-level name, so
+    while the recorder stands there they land on the recorder's
+    ``launches``, which starts at 0. Yields (records, {kind: recorder})."""
     records, recorders, saved = [], {}, []
     for kind, (mod, name, *_) in KERNELS.items():
         fn = wrapper(kind)
@@ -230,7 +276,8 @@ def recording():
             out = _fn(*a, **kw)
             args = _sig.bind(*a, **kw)
             args.apply_defaults()
-            records.append((_kind, _clone(args.arguments), _clone(out)))
+            records.append((_kind, _clone(args.arguments), _clone(out),
+                            _in_backward()))
             return out
         wrapped.launches = 0
         recorders[kind] = wrapped
@@ -270,6 +317,20 @@ def _library(kind, args):
     from mmr_tpu_torch.ops.fused_conv import activated
 
     conv_bwd = torch.ops.aten.convolution_backward
+    if kind == "K6a":
+        x, w = args["x"].permute(0, 3, 1, 2), _oihw([args["w"]])
+        b = _bf16(args["bias"])
+        return lambda: F.conv2d(x, w, b, padding=1)
+    if kind == "K6b":
+        x, dy = args["x"].permute(0, 3, 1, 2), args["g"].permute(0, 3, 1, 2)
+        w = torch.empty((dy.shape[1], x.shape[1], 3, 3), dtype=torch.bfloat16,
+                        device=x.device).contiguous(memory_format=torch.channels_last)
+        return lambda: conv_bwd(dy, x, w, None, [1, 1], [1, 1], [1, 1], False,
+                                [0, 0], 1, [False, True, False])
+    if kind == "K7":
+        nc = args["num_classes"]
+        pred, gt = args["pred_ids"].reshape(-1), args["gt_ids"].reshape(-1)
+        return lambda: torch.bincount(gt.long() * nc + pred, minlength=nc * nc)
     if kind in ("K1", "K3"):
         x, w = _materialized(args["inputs"]), _oihw(args["weights"])
         if kind == "K1":
@@ -307,12 +368,24 @@ def _library(kind, args):
 
 
 def _work(kind, args, out):
-    """(operations, bytes) of the function on these inputs: each input read
-    once (weights as the kernels read them, bf16), each output written once.
-    A backward does the work of two convolutions where it forms dx and dW."""
+    """(operations, bytes, the card's peak rate for those operations) of
+    the function on these inputs: each input read once (weights as the
+    kernels read them, bf16), each output written once. A backward does
+    the work of two convolutions where it forms dx and dW; the confusion
+    counts do three integer compares a pixel (held to the f32 rate)."""
     nb = lambda t: 0 if t is None else t.numel() * t.element_size()
     pending = lambda p: nb(p.raw) + (8 * p.c if p.scale is not None else 0)
     written = sum(nb(t) for t in _tensors(out))
+    if kind == "K7":
+        return (3 * args["pred_ids"].numel(),
+                nb(args["pred_ids"]) + nb(args["gt_ids"]) + written, PEAK_F32_OPS)
+    if kind in ("K6a", "K6b"):
+        x = args["x"]
+        cout = args["w"].shape[-1] if kind == "K6a" else args["g"].shape[-1]
+        macs = math.prod(x.shape[:3]) * 9 * x.shape[3] * cout
+        read = nb(x) + (2 * 9 * x.shape[3] * cout + nb(args["bias"])
+                        if kind == "K6a" else nb(args["g"]))
+        return 2 * macs, read + written, PEAK_BF16_FLOPS
     if kind in ("K1", "K3"):
         ins, cout = args["inputs"], args["weights"][0].shape[-1]
         grid = (_tensors(out)[0] if kind == "K1" else args["dy"]).shape[:3]
@@ -330,21 +403,23 @@ def _work(kind, args, out):
         macs = labels.numel() * 9 * x.c * w.shape[-1]
         read = pending(x) + 2 * w.numel() + nb(labels)
     if kind in ("K1", "K2", "K5a"):
-        return 2 * macs, read + nb(args["bias"]) + written
+        return 2 * macs, read + nb(args["bias"]) + written, PEAK_BF16_FLOPS
     if kind == "K5b":
-        return 4 * macs, read + nb(args["logp"]) + nb(args["dstats"]) + written
+        return (4 * macs, read + nb(args["logp"]) + nb(args["dstats"]) + written,
+                PEAK_BF16_FLOPS)
     both = kind == "K3" or args["need_dx"]
     read += nb(args["dy"]) + (0 if args["dmom"] is None
                               else nb(args["y"]) + nb(args["dmom"]))
-    return (4 if both else 2) * macs, read + written
+    return (4 if both else 2) * macs, read + written, PEAK_BF16_FLOPS
 
 
-def _hold(kind, out, ref):
+def _hold(kind, out, ref, backward=False):
     """Hold a launch's outputs against its plain version. Forward outputs
     (y, logp) atol = rtol = 2e-2, moments rtol 1e-3 of the largest, the
     head's statistics rtol 2e-2 and confusion within 1e-3 of its total;
-    backward outputs (dx, dW, d(scale, shift), dbias) max|Δ| / max|ref| and
-    ‖Δ‖ / ‖ref‖ both < GRAD_REL. Returns (max abs error of the first output,
+    backward outputs (dx, dW, d(scale, shift), dbias; K6a launched by a
+    backward, K6b) max|Δ| / max|ref| and ‖Δ‖ / ‖ref‖ both < GRAD_REL; K7's
+    integer counts exactly. Returns (max abs error of the first output,
     the worst max|Δ| / max|ref|, the worst ‖Δ‖ / ‖ref‖)."""
     got, want = _tensors(out), _tensors(ref)
     check(len(got) == len(want), f"{kind}: {len(got)} outputs vs {len(want)}")
@@ -358,13 +433,15 @@ def _hold(kind, out, ref):
         rel = d.max().item() / scale
         l2 = d.norm().item() / max(w.norm().item(), 1e-30)
         worst, worst_l2 = max(worst, rel), max(worst_l2, l2)
-        if kind in ("K1", "K2") and i == 1:
+        if kind == "K7":
+            ok = bool(torch.equal(g, w))
+        elif kind in ("K1", "K2") and i == 1:
             ok = bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale))
         elif kind == "K5a" and i == 1:
             ok = bool(torch.allclose(g, w, rtol=2e-2, atol=1e-3 * scale))
         elif kind == "K5a" and i == 2:
             ok = d.sum().item() <= 1e-3 * max(w.sum().item(), 1.0)
-        elif kind in ("K1", "K2", "K5a"):
+        elif kind in ("K1", "K2", "K5a") or (kind == "K6a" and not backward):
             ok = bool(torch.allclose(g, w, atol=2e-2, rtol=2e-2))
         else:
             ok = rel < GRAD_REL and l2 < GRAD_REL
@@ -378,15 +455,17 @@ def hold_records(phase, records, labels=None) -> list[dict]:
     """Hold every recorded launch against its plain version on the same
     inputs; returns one case per launch with its work."""
     cases = []
-    for kind, args, out in records:
+    for kind, args, out, backward in records:
         with torch.no_grad():
             ref = plain(kind)(**args)
-        max_abs, rel, l2 = _hold(kind, out, ref)
-        ops, nbytes = _work(kind, args, out)
+        max_abs, rel, l2 = _hold(kind, out, ref, backward)
+        ops, nbytes, peak = _work(kind, args, out)
         n = sum(c["kind"] == kind for c in cases) + 1
         label = next(labels[kind]) if labels else f"#{n}"
+        if kind == "K6a" and backward:
+            label += " dx"
         cases.append({"kind": kind, "label": label, "args": args,
-                      "max_abs": max_abs, "ops_ms": ops / PEAK_BF16_FLOPS * 1e3,
+                      "max_abs": max_abs, "ops_ms": ops / peak * 1e3,
                       "bytes_ms": nbytes / PEAK_BYTES * 1e3})
         print(f"[{phase}] {kind:3s} {label:14s} out {tuple(_tensors(out)[0].shape)} "
               f"max_abs {max_abs:.3e} rel-to-max {rel:.3e} rel-L2 {l2:.3e} ok",
@@ -425,7 +504,22 @@ def kernel_entry(kind, cases, launches, per) -> dict:
 # ------------------------------------------------------------- training
 
 N_EPOCHS = 200   # config.py:51; PolynomialLR(total_iters=200, power=0.9)
-TRAIN_COUNTS = {"K1": 20, "K2": 2, "K3": 20, "K4": 2, "K5a": 1, "K5b": 1}
+TRAIN_COUNTS = {"K1": 20, "K2": 2, "K3": 20, "K4": 2, "K5a": 1, "K5b": 1,
+                "K6a": 0, "K6b": 0, "K7": 0}
+FLAGSHIP = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+
+
+@contextlib.contextmanager
+def library_conv3x3():
+    """Every ``Conv3x3`` on the library conv (K6 off): the plain-bf16
+    yardstick of phases 5 and 6, as measured before K6 existed."""
+    from mmr_tpu_torch.ops import conv3x3_packed
+
+    old, conv3x3_packed._FORCE = conv3x3_packed._FORCE, False
+    try:
+        yield
+    finally:
+        conv3x3_packed._FORCE = old
 
 
 def train_phase(model, dev, rng) -> dict:
@@ -465,7 +559,7 @@ def train_phase(model, dev, rng) -> dict:
     for m in (fused, plain, plain16):
         m.load_state_dict(sd0)
         m.train()
-    with torch.no_grad():
+    with torch.no_grad(), library_conv3x3():
         img = pre(images[0].to(dev).float() / 255.0)
         want = plain(img).argmax(-1)
         agree, agree16 = ((m(img).argmax(-1) == want).float().mean().item()
@@ -487,7 +581,7 @@ def train_phase(model, dev, rng) -> dict:
     loss1 = float(met["loss"])
     print(f"[6] launches in one train step: {launches}", flush=True)
     check(launches == TRAIN_COUNTS, f"expected {TRAIN_COUNTS} launches")
-    k1_mom = sum(1 for k, args, _ in records if k == "K1" and args["emit_moments"])
+    k1_mom = sum(1 for k, args, *_ in records if k == "K1" and args["emit_moments"])
     check(k1_mom == TRAIN_COUNTS["K1"], f"{k1_mom} K1 launches emitted moments")
     cases = hold_records(6, records)
 
@@ -534,7 +628,174 @@ def train_phase(model, dev, rng) -> dict:
 
     time_cases(6, cases)
     per = f"sum over the launches of one train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]})"
-    return {kind: kernel_entry(kind, cases, launches[kind], per) for kind in KERNELS}
+    return {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
+
+
+# ------------------------------------------------------------- Path A
+
+PATH_A_HW, PATH_A_BATCH = (256, 256), 8   # train_sarrarp50.sh: 256x256, B=8
+PATH_A_LR, PATH_A_WD, PATH_A_EPOCHS = 1e-3, 1e-5, 20   # Adam, StepLR(lr_steps 2)
+EVAL_BATCHES, EVAL_BATCH = 3, 4
+K6_PER_FORWARD = 17   # 16 decoder convs + the head at output H·W >= 4096
+
+
+def _counts(**nonzero) -> dict:
+    return {k: nonzero.get(k, 0) for k in KERNELS}
+
+
+def _path_a_batch(rng, n):
+    """n synthetic images (f32 in [0, 1]) and their uint8 masks."""
+    from mmr_tpu_torch.data.synthetic import render_frame
+
+    frames = [render_frame(rng, *PATH_A_HW, N_CLASSES - 1) for _ in range(n)]
+    return (torch.from_numpy(np.stack([f[0] for f in frames])),
+            torch.from_numpy(np.stack([f[1] for f in frames])))
+
+
+def _timed_steps(phase, run, n):
+    """Median step time, host issue time, device busy and top events."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    ts.sort()
+    med = ts[len(ts) // 2]
+    issue = host_issue_ms(run, 5)
+    busy, top = device_profile(run, 3)
+    idle = f"{1 - busy / med:.3f}" if busy > 0 else "not measured"
+    print(f"[{phase}] median {med:.3f} ms, min {ts[0]:.3f}, max {ts[-1]:.3f}, "
+          f"{len(ts)} runs; host issue median {issue:.3f} ms; device busy "
+          f"{busy:.3f} ms per run (torch.profiler, 3 runs); device idle share "
+          f"of the median {idle}", flush=True)
+    for key, t, cnt in top:
+        print(f"[{phase}]     {t:8.3f} ms  x{cnt:5.1f}  {key}", flush=True)
+    return med
+
+
+def path_a_train_phase(dev, seed):
+    """Phase 7; returns (the trained model, {K6a, K6b: kernel entry})."""
+    from mmr_tpu_torch.data.augment import augment_path_a_batch
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.schedules import step_lr
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    model = create_model("smp_UNet++", classes=N_CLASSES, device=dev, generator=gen)
+    perturb(model, gen)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    images, masks = _path_a_batch(np.random.RandomState(seed + 1), PATH_A_BATCH)
+    images, masks = images[None], masks.long()[None]
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+    lr = step_lr(PATH_A_LR, PATH_A_EPOCHS, 2, 0.1)(0)
+    draws = lambda: torch.Generator(device=dev).manual_seed(seed)
+
+    def trainer(m):
+        opt = build_optimizer("adam", weight_decay=PATH_A_WD)
+        return TrainState.create(m, opt), make_train_step(
+            m, opt, loss_fn, N_CLASSES, augment=augment_path_a_batch, device=dev)
+
+    # ---- 7a. one recorded step: every launch vs its plain version ----------
+    state, step = trainer(model)
+    with recording() as (records, recorders):
+        state, met = step(state, images, masks, lr, draws())
+        torch.cuda.synchronize()
+    launches = {k: r.launches for k, r in recorders.items()}
+    print(f"[7] smp_UNet++ / resnet18: {n_params} parameters; launches in one "
+          f"train step: {launches}", flush=True)
+    n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
+    print(f"[7] K6a: {launches['K6a'] - n_dx} forward + {n_dx} dx launches, "
+          f"K6b: {launches['K6b']} dW launches", flush=True)
+    check(launches == _counts(K6a=2 * K6_PER_FORWARD, K6b=K6_PER_FORWARD)
+          and n_dx == K6_PER_FORWARD, "unexpected launch counts")
+    cases = hold_records(7, records)
+    loss1 = float(met["loss"])
+
+    # ---- 7b. the step vs the plain f32 step (same weights, batch, draws) -----
+    plain = create_model("smp_UNet++", classes=N_CLASSES, device=dev,
+                         dtype=torch.float32)
+    plain.load_state_dict(sd0)
+    pstate, pstep = trainer(plain)
+    pstate, pmet = pstep(pstate, images, masks, lr, draws())
+    ploss = float(pmet["loss"])
+    print(f"[7] step 1 loss: bf16 with K6 {loss1:.5f} (IoU {float(met['iou']):.4f}), "
+          f"plain f32 {ploss:.5f} (IoU {float(pmet['iou']):.4f})", flush=True)
+    check(abs(loss1 - ploss) <= 2e-2 * abs(ploss), "Path-A loss disagrees with plain f32")
+    del plain, pstate, pstep
+
+    # ---- 7c. five steps: the loss falls --------------------------------------
+    images_d, masks_d = images.to(dev), masks.to(dev)
+    g = draws()
+    losses = [loss1]
+    for _ in range(4):
+        state, met = step(state, images_d, masks_d, lr, g)
+        losses.append(float(met["loss"]))
+    print(f"[7] losses over 5 steps: {[round(v, 5) for v in losses]}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the loss did not fall over five steps")
+
+    # ---- 7d. times -------------------------------------------------------------
+    print(f"[7] Path-A train step (B={PATH_A_BATCH}, {PATH_A_HW[0]}x{PATH_A_HW[1]}, "
+          f"bf16, augmentation on):", flush=True)
+    med = _timed_steps(7, lambda: step(state, images_d, masks_d, lr, g), TRAIN_STEPS)
+    print(f"[7] {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
+    time_cases(7, cases)
+    per = (f"sum over the launches of one Path-A train step (B={PATH_A_BATCH}, "
+           f"{PATH_A_HW[0]}x{PATH_A_HW[1]}): forward and dx for K6a")
+    return model, {k: kernel_entry(k, cases, launches[k], per) for k in ("K6a", "K6b")}
+
+
+def path_a_eval_phase(model, dev, seed) -> dict:
+    """Phase 8; returns {K6a, K7: kernel entry}."""
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.ops.confusion import confusion_stats_ref
+
+    rng = np.random.RandomState(seed + 2)
+    batches = [_path_a_batch(rng, EVAL_BATCH) for _ in range(EVAL_BATCHES)]
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+    with recording() as (records, recorders):
+        report = evaluate_checkpoint(model, batches, N_CLASSES, loss_fn=loss_fn,
+                                     device=dev)
+        torch.cuda.synchronize()
+    launches = {k: r.launches for k, r in recorders.items()}
+    print(f"[8] launches in evaluate_checkpoint over {EVAL_BATCHES} batches of "
+          f"{EVAL_BATCH}x{PATH_A_HW[0]}x{PATH_A_HW[1]}: {launches}", flush=True)
+    check(launches == _counts(K6a=K6_PER_FORWARD * EVAL_BATCHES, K7=EVAL_BATCHES),
+          "unexpected launch counts")
+    cases = hold_records(8, records)
+
+    counts = np.zeros((3, N_CLASSES), np.float64)
+    for k, args, *_ in records:
+        if k == "K7":
+            counts += np.stack([t.cpu().double().numpy()
+                                for t in confusion_stats_ref(**args)])
+    per_class = counts[0] / (counts.sum(0) + 1e-15)
+    miou = float(per_class.mean())
+    print(f"[8] mean IoU {report['mean_iou']:.6f} (plain K7: {miou:.6f}), "
+          f"mean F1 {report['mean_f1']:.6f}, loss {report['loss']:.5f}", flush=True)
+    check(report["mean_iou"] == miou, "mean IoU differs from the plain K7's")
+    check(np.isfinite(report["loss"]), "non-finite eval loss")
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):   # the class-wise table
+            evaluate_checkpoint(model, batches[:1], N_CLASSES, device=dev)
+
+    med = _timed_steps(8, run, 5)
+    print(f"[8] evaluate_checkpoint of one {EVAL_BATCH}x{PATH_A_HW[0]}x"
+          f"{PATH_A_HW[1]} batch: median {med:.3f} ms "
+          f"({EVAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
+    first = cases[:K6_PER_FORWARD] + [c for c in cases if c["kind"] == "K7"][:1]
+    time_cases(8, first)
+    per = (f"sum over the launches of one eval batch ({EVAL_BATCH}x{PATH_A_HW[0]}x"
+           f"{PATH_A_HW[1]}); launches over {EVAL_BATCHES} batches")
+    return {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
 
 
 def main() -> int:
@@ -664,7 +925,7 @@ def main() -> int:
 
     # ---- 5. times ----------------------------------------------------------
     time_cases(5, cases)
-    with torch.inference_mode():
+    with torch.inference_mode(), library_conv3x3():
         for name, m in (("fused", model), ("plain bf16 cuDNN", plain16)):
             ts = sorted(cuda_ms(lambda: m(windows), 1, warmup=0 if i else 2)
                         for i in range(REPS))
@@ -690,6 +951,13 @@ def main() -> int:
                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                    "bound_by", "library_ms")})
     kernels += [train[k] for k in ("K3", "K4", "K5a", "K5b")]
+    # ---- 7. Path-A training, 8. Path-A evaluation ------------------------
+    path_a, entries = path_a_train_phase(dev, args.seed)
+    evals = path_a_eval_phase(path_a, dev, args.seed)
+    entries["K6a"].update({f"eval_{k}": evals["K6a"][k] for k in
+                           ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "per")})
+    kernels += [entries["K6a"], entries["K6b"], evals["K7"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
-"""Serving entry point — :func:`run_inference`, counterpart of
-``mmr_tpu/infer/evaluator.py::run_inference`` (the reference's
-``SegModel.run_inference``): sliding-window prediction over whole-video
-frame batches, per-video FPS, and per-frame per-class IoU with the
-background dropped by the ``preds-1 / masks-1 / ignore_index=-1`` shift.
+"""Evaluation entry points, counterparts of ``mmr_tpu/infer/evaluator.py``:
+
+- :func:`run_inference` (the reference's ``SegModel.run_inference``):
+  sliding-window prediction over whole-video frame batches, per-video FPS,
+  and per-frame per-class IoU with the background dropped by the
+  ``preds-1 / masks-1 / ignore_index=-1`` shift;
+- :func:`evaluate_checkpoint` (Path A's standalone evaluation): whole-image
+  eval forwards and the streaming :class:`~mmr_tpu_torch.metrics.Evaluate`
+  metrics.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 from mmr_tpu_torch.core.device import resolve_device
 from mmr_tpu_torch.infer.sliding_window import make_sliding_window_fn
 from mmr_tpu_torch.metrics.confusion import segmentation_stats
+from mmr_tpu_torch.metrics.evaluate import Evaluate
 from mmr_tpu_torch.metrics.iou import iou_score
 
 
@@ -101,4 +106,46 @@ def run_inference(model, dataset, config: dict, preprocess=None,
         "per_class_iou": overall.mean(axis=0).tolist() if len(overall) else [],
         "videos": video_stats,
         "total_time_s": total,
+    }
+
+
+def evaluate_checkpoint(model, batches, num_classes: int, loss_fn=None,
+                        preprocess=None, device=None) -> dict:
+    """Path-A standalone evaluation of ``model`` (which holds the weights of
+    the checkpoint): whole-image eval-mode forwards and streaming metrics.
+
+    ``batches``: iterable of (images NHWC f32, masks NHW int), tensors or
+    numpy arrays, moved to ``device`` (``None``: CUDA). Prints the
+    class-wise IoU, precision, recall and F1 and returns ``{"loss" (mean
+    of ``loss_fn`` over the batches, or None), "iou_per_class", "mean_iou",
+    "precision", "recall", "f1", "mean_f1"}``."""
+    dev = resolve_device(device)
+    ev = Evaluate(num_classes)
+    losses = []
+    model.eval()
+    with torch.inference_mode():
+        for images, masks in batches:
+            imgs = torch.as_tensor(images).to(dev)
+            msk = torch.as_tensor(masks).to(dev)
+            if preprocess is not None:
+                imgs = preprocess(imgs)
+            logits = model(imgs)
+            if loss_fn is not None:
+                losses.append(float(loss_fn(logits, msk)))
+            ev.add_batch(logits, msk)
+    per_class_iou, miou = ev.iou()
+    p, r, f1 = ev.precision_recall_f1()
+    print("Class-wise metrics:")
+    for c in range(num_classes):
+        print(f"  class {c}: IoU {per_class_iou[c]:.4f} P {p[c]:.4f} "
+              f"R {r[c]:.4f} F1 {f1[c]:.4f}")
+    print(f"Mean IoU: {miou:.4f}  Mean F1: {float(f1.mean()):.4f}")
+    return {
+        "loss": float(np.mean(losses)) if losses else None,
+        "iou_per_class": per_class_iou.tolist(),
+        "mean_iou": miou,
+        "precision": p.tolist(),
+        "recall": r.tolist(),
+        "f1": f1.tolist(),
+        "mean_f1": float(f1.mean()),
     }

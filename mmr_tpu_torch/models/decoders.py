@@ -88,7 +88,10 @@ def smp_unetpp_plan(enc_ch: tuple[int, ...], dec_ch: tuple[int, ...]):
 
 class UnetPlusPlusModel(nn.Module):
     """UNet++ — smp-exact nested dense decoder; 3,714,090 parameters with
-    the mbv3-small encoder and 10 classes.
+    the mbv3-small encoder and 10 classes. Over ``resnet18`` (Path A's
+    ``smp_UNet++``) the same generic plan runs with encoder channels (64,
+    64, 128, 256, 512). Every registered encoder has five feature levels,
+    so the head's upsampling is 1 (``decoders.py:324``).
 
     ``forward`` takes an NHWC image batch and returns NHWC f32 logits.
     ``dtype`` is the compute dtype (parameters stay f32). ``fused=True``

@@ -1,12 +1,14 @@
 """Model factory (counterpart of ``mmr_tpu/models/factory.py``).
 
 ``create_model(arch="UnetPlusPlus", encoder_name="tu-mobilenetv3_small_100",
-classes=10)`` builds the flagship; other architectures are not ported yet
-(ROADMAP). Weights are initialised from an explicit ``torch.Generator``
-(lecun-normal convs, as flax initialises them; BN at identity) and the model
-is returned in eval mode on ``device`` (default CUDA; never the CPU unless
-asked). Pretrained encoder weights and other input channel counts wait for
-the CLI slice (ROADMAP).
+classes=10)`` builds the flagship; the Path-A zoo string ``smp_UNet++``
+builds UNet++ over ``resnet18`` (``factory.py:60``). Other architectures
+and zoo strings are not ported yet and raise (ROADMAP). Weights are
+initialised from an explicit ``torch.Generator`` (lecun-normal convs, as
+flax initialises them; BN at identity) and the model is returned in eval
+mode on ``device`` (default CUDA; never the CPU unless asked). Pretrained
+encoder weights and other input channel counts wait for the CLI slice
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ from mmr_tpu_torch.models.decoders import UnetPlusPlusModel
 from mmr_tpu_torch.models.encoders import IMAGENET_MEAN, IMAGENET_STD, get_encoder
 
 _ARCHES = {"unetplusplus": UnetPlusPlusModel, "unet++": UnetPlusPlusModel}
+# Path-A zoo strings (``ModelTraining.py:238-280``) -> (architecture, its
+# fixed encoder); the zoo's others (segnet, unet, resnet18/34, smp_unet18,
+# smp_DeepLabV3+, smp_MANet) are not ported
+_PATH_A_ZOO = {"smp_unet++": (UnetPlusPlusModel, "resnet18")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,22 +65,29 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def create_model(arch: str = "UnetPlusPlus",
-                 encoder_name: str = "tu-mobilenetv3_small_100",
+def create_model(arch: str = "UnetPlusPlus", encoder_name: str | None = None,
                  classes: int = 10, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None,
                  **kwargs) -> nn.Module:
-    """Build a segmentation model on ``device`` in eval mode. ``kwargs`` go
-    to the architecture (for UNet++: ``fused``, ``fused_frontend``,
-    ``packed_min_hw``, ``decoder_channels``)."""
+    """Build a segmentation model on ``device`` in eval mode.
+    ``encoder_name`` defaults to the architecture's own
+    (``tu-mobilenetv3_small_100`` for UnetPlusPlus, ``resnet18`` for
+    ``smp_UNet++``). ``kwargs`` go to the architecture (for UNet++:
+    ``fused``, ``fused_frontend``, ``packed_min_hw``, ``decoder_channels``)."""
     dev = resolve_device(device)
-    key = arch.lower().replace("-", "").replace(" ", "").replace("_", "")
-    if key not in _ARCHES:
+    zoo = arch.lower().replace("-", "").replace(" ", "")
+    key = zoo.replace("_", "")
+    if zoo in _PATH_A_ZOO:
+        cls, default_encoder = _PATH_A_ZOO[zoo]
+    elif key in _ARCHES:
+        cls, default_encoder = _ARCHES[key], "tu-mobilenetv3_small_100"
+    else:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ported: UnetPlusPlus; the "
-            "others are listed in ROADMAP.md)")
-    model = _ARCHES[key](classes, encoder_name=encoder_name, dtype=dtype,
-                         **kwargs)
+            f"arch {arch!r} is not ported yet (ported: UnetPlusPlus and the "
+            "Path-A zoo string smp_UNet++; the others are listed in "
+            "ROADMAP.md)")
+    model = cls(classes, encoder_name=encoder_name or default_encoder,
+                dtype=dtype, **kwargs)
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(dev).eval()

@@ -1,16 +1,19 @@
 """Train and eval steps (counterpart of ``mmr_tpu/train/steps.py``), on
 one device.
 
-One train step: per microbatch uint8 → /255 → ``preprocess`` → forward in
-train mode → loss → backward (gradients summed over the ``n_accum``
-microbatches as the mean, BN running statistics updated microbatch by
-microbatch, as the JAX scan carries them) → clip + optimizer update. With
-the default DiceCE loss a fused model runs the head as the fused head +
-loss kernel (``steps.py:85-87``): loss and the per-batch macro IoU come
-from its statistics and confusion, and the NHWC logits never exist. The
-step updates the model's parameters and BN statistics and the optimizer
-state in place. Augmentation is not ported yet: ``augment`` must be None
-(batches arrive augmented).
+One train step: per microbatch uint8 → /255 → ``preprocess`` →
+``augment`` → forward in train mode → loss → backward (gradients summed
+over the ``n_accum`` microbatches as the mean, BN running statistics
+updated microbatch by microbatch, as the JAX scan carries them) → clip +
+optimizer update. With the default DiceCE loss a fused model runs the head
+as the fused head + loss kernel (``steps.py:85-87``): loss and the
+per-batch macro IoU come from its statistics and confusion, and the NHWC
+logits never exist. The step updates the model's parameters and BN
+statistics and the optimizer state in place. ``augment`` is a callable
+``augment(generator, images, masks) -> (images, masks)``, as the JAX step
+takes a custom callable (the Path-A hook, ``cli/train_path_a.py:239-251``;
+:func:`mmr_tpu_torch.data.augment.augment_path_a_batch`); Path B's
+``AugmentConfig`` pipeline is not ported yet.
 """
 
 from __future__ import annotations
@@ -58,16 +61,19 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
                     preprocess: Callable | None = None,
                     compute_iou: bool = True,
                     fused_head_loss: bool | None = None, device=None):
-    """Returns ``step(state, images, masks, lr) -> (state, metrics)``.
+    """Returns ``step(state, images, masks, lr, generator=None) -> (state,
+    metrics)``.
 
     ``images``: (n_accum, B, H, W, C) uint8 or f32 in [0, 1]; ``masks``:
-    (n_accum, B, H, W) int; ``state.model`` is ``model``. ``metrics`` holds
-    0-d device tensors ``loss`` and ``iou`` (means over the microbatches).
-    ``device=None`` is CUDA."""
-    if augment is not None:
+    (n_accum, B, H, W) int; ``state.model`` is ``model``; ``generator``
+    (a ``torch.Generator``, needed with ``augment``) supplies the
+    augmentation draws. ``metrics`` holds 0-d device tensors ``loss`` and
+    ``iou`` (means over the microbatches). ``device=None`` is CUDA."""
+    if augment is not None and not callable(augment):
         raise NotImplementedError(
-            "train-time augmentation (mmr_tpu/data/augment.py) is not ported "
-            "yet: pass augmented batches and augment=None (ROADMAP.md)")
+            "only a callable augment(generator, images, masks) is ported; "
+            "the AugmentConfig pipeline (mmr_tpu/data/augment.py) is not "
+            "(ROADMAP.md)")
     dev = resolve_device(device)
     if fused_head_loss is None:
         fused_head_loss = loss_fn is dice_ce_loss and getattr(model, "fused", False)
@@ -75,9 +81,11 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
     params = list(params)
     mult = optimizer.lr_mult(list(names), params)
 
-    def micro(images, masks):
+    def micro(images, masks, generator):
         img = _prepare(images, dev, preprocess)
         msk = masks.to(dev, non_blocking=True)
+        if augment is not None:
+            img, msk = augment(generator, img, msk)
         if fused_head_loss:
             res = model(img, labels=msk, with_conf=compute_iou)
             loss, conf = assemble_dice_ce(res["stats"], res["conf"], res["n_pixels"])
@@ -89,17 +97,20 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
                    else loss.new_zeros(()))
         return loss, iou
 
-    def step(state, images, masks, lr: float):
+    def step(state, images, masks, lr: float,
+             generator: torch.Generator | None = None):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was built for")
         if images.shape[0] != n_accum or masks.shape[0] != n_accum:
             raise ValueError(f"expected {n_accum} stacked microbatches")
+        if augment is not None and generator is None:
+            raise ValueError("augment needs a generator for its draws")
         model.train()
         for p in params:
             p.grad = None
         loss_sum = iou_sum = 0.0
         for i in range(n_accum):
-            loss, iou = micro(images[i], masks[i])
+            loss, iou = micro(images[i], masks[i], generator)
             (loss / n_accum).backward()
             loss_sum = loss_sum + loss.detach()
             iou_sum = iou_sum + iou

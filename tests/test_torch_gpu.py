@@ -15,7 +15,7 @@ Backward outputs (dx, dW, d(scale, shift), dbias): max|Δ| / max|ref| and
 ‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16 inputs and round
 at the same places; summation order (the kernels add block partials by
 atomics) and one bf16 rounding of dx remain, so a dropped tap or a lost
-correction term fails.
+correction term fails. The confusion kernel counts in integers: exact.
 """
 
 import numpy as np
@@ -27,6 +27,10 @@ from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv, fused_conv_bwd,
                                           fused_conv_down_bwd,
                                           fused_conv_down_bwd_ref,
                                           fused_conv_down_ref, fused_conv_ref)
+from mmr_tpu_torch.ops.confusion import confusion_stats, confusion_stats_ref
+from mmr_tpu_torch.ops.conv3x3_packed import (conv3x3, conv3x3_dw,
+                                              conv3x3_dw_ref, conv3x3_ref,
+                                              conv3x3p_bias_act)
 from mmr_tpu_torch.ops.head_loss import (head_loss_bwd, head_loss_bwd_ref,
                                          head_loss_fwd, head_loss_fwd_ref)
 
@@ -302,3 +306,120 @@ def test_fused_train_step_on_card(dev):
                                 fused_conv_down_bwd, head_loss_fwd, head_loss_bwd)]
     assert [b - a for a, b in zip(counts, now)] == [4 * 22, 4 * 22, 8, 8, 4, 4]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ------------------------------------------- Path-A kernels K6a, K6b, K7
+
+# (B, H, W, Cin, Cout): ragged small shapes, then convs of Path A's 256x256
+# B=8 step: x_0_2.conv1, x_0_3.conv1, a 64 -> 64 conv2, x_0_4.conv2, the
+# head, and the head's dx (K6a over its cotangent: Cin 10 -> Cout 16)
+K6_CONVS = [(2, 18, 40, 5, 10), (2, 16, 32, 24, 200),
+            (8, 64, 64, 320, 64), (8, 128, 128, 320, 32),
+            (8, 128, 128, 64, 64), (8, 256, 256, 16, 16),
+            (8, 256, 256, 16, 10), (8, 256, 256, 10, 16)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", K6_CONVS)
+def test_k6a_k6b(dev, b, h, w, cin, cout):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _rand(g, dev, b, h, w, cin, dtype=torch.bfloat16)
+    wt = _rand(g, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    bias = _rand(g, dev, cout, scale=0.5)
+    before = conv3x3.launches
+    for relu, bb in ((False, bias), (True, None)):
+        y = conv3x3(x, wt, bb, relu)
+        assert y.shape == (b, h, w, cout) and y.dtype == torch.bfloat16
+        _close(y, conv3x3_ref(x, wt, bb, relu))
+    assert conv3x3.launches == before + 2
+    gy = _rand(g, dev, b, h, w, cout, dtype=torch.bfloat16)
+    before = conv3x3_dw.launches
+    dw = conv3x3_dw(x, gy)
+    assert conv3x3_dw.launches == before + 1
+    _grad_close("dw", dw, conv3x3_dw_ref(x, gy))
+
+
+def test_k6_autograd_op(dev):
+    """``conv3x3p_bias_act`` on the card: forward K6a, backward K6a (dx) +
+    K6b (dW) + Σg, held against the plain versions of the same steps."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(g, dev, 4, 64, 64, 96, dtype=torch.bfloat16).requires_grad_()
+    w = _rand(g, dev, 3, 3, 96, 32, scale=0.03).requires_grad_()
+    bias = _rand(g, dev, 32, scale=0.5).requires_grad_()
+    gy = _rand(g, dev, 4, 64, 64, 32, dtype=torch.bfloat16)
+    k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    y = conv3x3p_bias_act(x, w, bias, relu=True)
+    y.backward(gy)
+    assert conv3x3.launches - k6a == 2 and conv3x3_dw.launches - k6b == 1
+    with torch.no_grad():
+        gm = torch.where(y > 0, gy.float(), 0.0)
+        gin = gm.to(torch.bfloat16)
+        _grad_close("dx", x.grad, conv3x3_ref(gin, w.flip(0, 1).transpose(2, 3)))
+        _grad_close("dw", w.grad, conv3x3_dw_ref(x, gin))
+        _grad_close("dbias", bias.grad, gm.sum((0, 1, 2)))
+
+
+@pytest.mark.parametrize("shape,pdt,gdt,nc", [
+    ((4, 256, 256), torch.int64, torch.uint8, 10),     # Path A's eval batch
+    ((3, 37, 53), torch.int64, torch.int64, 10),
+    ((2, 100, 100), torch.int32, torch.int64, 128),
+    ((1, 7, 9), torch.uint8, torch.uint8, 3)])
+def test_k7_confusion(dev, shape, pdt, gdt, nc):
+    """Exact, and the same from run to run; ids outside [0, nc) (negative
+    sentinels, ids >= nc, uint8 255) count nowhere."""
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def ids(dt):
+        lo = 0 if dt == torch.uint8 else -2
+        a = torch.randint(lo, nc + 3, shape, device=dev, generator=g)
+        if dt == torch.uint8:
+            a[..., :2] = 255
+        return a.to(dt)
+
+    pred, gt = ids(pdt), ids(gdt)
+    gt[0, :4] = pred[0, :4].to(gdt)                # agreements
+    before = confusion_stats.launches
+    got = confusion_stats(pred, gt, nc)
+    again = confusion_stats(pred, gt, nc)
+    assert confusion_stats.launches == before + 2
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, confusion_stats_ref(pred, gt, nc), again):
+        assert a.dtype == torch.float32 and a.shape == (nc,)
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_path_a_train_and_eval_on_card(dev):
+    """A few Path-A steps (UNet++/ResNet-18 in bf16, Adam, blended loss,
+    Path-A augmentation) at 128x128: 11 Conv3x3s at H·W >= 4096 give 22
+    K6a + 11 K6b launches per step; the loss is finite and falls; then
+    ``evaluate_checkpoint``: one K7 launch and 11 K6a per batch."""
+    import functools
+
+    from mmr_tpu_torch.data.augment import augment_path_a_batch
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+    model = create_model("smp_UNet++", classes=10, device=dev)
+    opt = build_optimizer("adam", weight_decay=1e-5)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, loss_fn, 10, augment=augment_path_a_batch)
+    g = torch.Generator().manual_seed(10)
+    images = torch.rand(1, 2, 128, 128, 3, generator=g)
+    masks = torch.randint(0, 10, (1, 2, 128, 128), generator=g)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    losses = []
+    for _ in range(4):
+        state, m = step(state, images, masks, 1e-3, gen)
+        losses.append(float(m["loss"]))
+    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (4 * 22, 4 * 11)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    k6a, k7 = conv3x3.launches, confusion_stats.launches
+    rep = evaluate_checkpoint(model, [(images[0], masks[0].to(torch.uint8))], 10,
+                              loss_fn=loss_fn)
+    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (11, 1)
+    assert np.isfinite(rep["loss"]) and 0.0 <= rep["mean_iou"] <= 1.0

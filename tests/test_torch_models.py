@@ -138,7 +138,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         create_model("Segformer", device="cpu")
     with pytest.raises(NotImplementedError):
-        create_model(encoder_name="resnet18", device="cpu")
+        create_model(encoder_name="mit_b2", device="cpu")
     from mmr_tpu_torch.losses import dice_ce_loss
     from mmr_tpu_torch.train.optim import build_optimizer
     from mmr_tpu_torch.train.steps import make_train_step

@@ -1,0 +1,166 @@
+"""The Path-A kernels' plain versions held against the JAX package's Pallas
+kernels, run in interpret mode as ``tests/test_conv3x3_kernel.py`` runs
+them: K6a (``conv3x3_packed.py::_conv_packed``), K6b (``_conv_packed_dw``),
+the port's autograd op against the VJP of JAX's ``conv3x3p_bias_act``, and
+K7 (``confusion.py::confusion_stats``); then the dispatch predicate over
+the 256×256 Path-A plan. Inputs are bf16 values made with seeded numpy.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from mmr_tpu_torch.models.layers import Conv3x3
+from mmr_tpu_torch.ops import conv3x3_packed as k6
+from mmr_tpu_torch.ops.confusion import confusion_stats
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture
+def pallas(monkeypatch):
+    """JAX's conv3x3_packed with its kernel forced and interpreted."""
+    from mmr_tpu.ops.pallas import conv3x3_packed as kj
+
+    monkeypatch.setattr(kj, "_INTERPRET", True)
+    monkeypatch.setattr(kj, "_FORCE", True)
+    return kj
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """f32 values that bf16 holds exactly."""
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _case(rng, shape, cout):
+    x = _bf16(rng.randn(*shape).astype(np.float32))
+    w = (rng.randn(3, 3, shape[-1], cout) / np.sqrt(9 * shape[-1])).astype(np.float32)
+    b = (0.5 * rng.randn(cout)).astype(np.float32)
+    return x, w, b
+
+
+def _rel_to_max(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# (B, H, W, Cin), Cout, relu, bias: shapes the JAX plan accepts (p = 4, 2, 2)
+CONVS = [((2, 8, 64, 32), 10, False, True),    # the head's Cout
+         ((2, 8, 32, 64), 16, True, True),
+         ((1, 16, 32, 20), 64, True, False)]   # ragged Cin
+
+
+@pytest.mark.parametrize("shape,cout,relu,with_bias", CONVS)
+def test_k6a_plain_matches_pallas(pallas, rng, shape, cout, relu, with_bias):
+    """K6a's plain version vs ``_conv_packed``: the same bf16 inputs and
+    bf16-rounded weights, f32 accumulation on both sides; only the order of
+    the sums differs, so the bf16 outputs agree within one ulp (atol = rtol
+    = 1e-2)."""
+    x, w, b = _case(rng, shape, cout)
+    if not with_bias:
+        b = np.zeros_like(b)
+    want = pallas._conv_packed(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                               jnp.asarray(b), relu)
+    got = k6.conv3x3(torch.from_numpy(x).to(BF16), torch.from_numpy(w),
+                     torch.from_numpy(b) if with_bias else None, relu)
+    assert got.dtype == BF16 and got.shape == shape[:3] + (cout,)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 8, 64, 32), 10), ((1, 16, 32, 20), 64)])
+def test_k6b_plain_matches_pallas(pallas, rng, shape, cout):
+    """K6b's plain version vs ``_conv_packed_dw``: exact bf16 products
+    summed in f32 in two orders, max|Δ| / max|ref| < 1e-3."""
+    x, _, _ = _case(rng, shape, cout)
+    g = _bf16(rng.randn(*shape[:3], cout).astype(np.float32))
+    want = np.asarray(pallas._conv_packed_dw(jnp.asarray(x, jnp.bfloat16),
+                                             jnp.asarray(g, jnp.bfloat16)))
+    got = k6.conv3x3_dw(torch.from_numpy(x).to(BF16), torch.from_numpy(g).to(BF16))
+    assert got.dtype == torch.float32 and got.shape == (3, 3, shape[-1], cout)
+    assert _rel_to_max(got.numpy(), want) < 1e-3
+
+
+@pytest.mark.parametrize("relu,with_bias", [(True, True), (False, False)])
+def test_autograd_op_matches_jax_vjp(pallas, rng, relu, with_bias):
+    """``conv3x3p_bias_act``'s backward (ReLU mask, K6a with flipped,
+    transposed taps for dx, K6b for dW, Σg for dbias) vs the VJP of JAX's
+    op with its kernels interpreted, on the same bf16 cotangent: dx, dW and
+    dbias within max|Δ| / max|ref| < 1e-2 (sums in other orders; a y near
+    0 may round to the other side of the ReLU mask)."""
+    x, w, b = _case(rng, (2, 8, 32, 16), 32)
+    if not with_bias:
+        b = np.zeros_like(b)
+    g = _bf16(rng.randn(2, 8, 32, 32).astype(np.float32))
+    y_j, vjp = jax.vjp(lambda x_, w_, b_: pallas.conv3x3p_bias_act(
+        x_, w_, b_, relu, with_bias), jnp.asarray(x, jnp.bfloat16),
+        jnp.asarray(w), jnp.asarray(b))
+    dx_j, dw_j, db_j = vjp(jnp.asarray(g, jnp.bfloat16))
+
+    xt = torch.from_numpy(x).to(BF16).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_() if with_bias else None
+    y = k6.conv3x3p_bias_act(xt, wt, bt, relu)
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(y_j, np.float32), atol=1e-2, rtol=1e-2)
+    y.backward(torch.from_numpy(g).to(BF16))
+    assert xt.grad.dtype == BF16 and wt.grad.dtype == torch.float32
+    assert _rel_to_max(xt.grad.float().numpy(), np.asarray(dx_j, np.float32)) < 1e-2
+    assert _rel_to_max(wt.grad.numpy(), np.asarray(dw_j)) < 1e-2
+    if with_bias:
+        assert _rel_to_max(bt.grad.numpy(), np.asarray(db_j)) < 1e-2
+
+
+@pytest.mark.parametrize("gt_dtype", [np.int64, np.uint8])
+def test_k7_plain_matches_pallas(rng, gt_dtype):
+    """K7's plain version vs ``confusion_stats(..., interpret=True)``,
+    exactly: the padding sentinels −1 / −2 and ids ≥ C count nowhere (an
+    int64 argmax map against an int64 or a uint8 mask)."""
+    from mmr_tpu.ops.pallas.confusion import confusion_stats as confusion_j
+
+    nc = 10
+    pred = rng.randint(-2, nc + 3, (3, 40, 50)).astype(np.int64)
+    lo = -2 if gt_dtype is np.int64 else 0
+    gt = rng.randint(lo, nc + 3, (3, 40, 50))
+    gt[0, :5] = 255 if gt_dtype is np.uint8 else -1
+    gt[1, :5] = pred[1, :5]            # agreements, out-of-range ids included
+    gt = gt.astype(gt_dtype)
+    want = confusion_j(jnp.asarray(pred.astype(np.int32)),
+                       jnp.asarray(gt.astype(np.int32)), nc, interpret=True)
+    got = confusion_stats(torch.from_numpy(pred), torch.from_numpy(gt), nc)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == (nc,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert float(got[0].sum() + got[2].sum()) < pred.size   # some ids counted nowhere
+
+
+def test_dispatch_over_the_path_a_plan(monkeypatch):
+    """Which Conv3x3s of the UNet++/ResNet-18 plan at 256×256 take K6: the
+    16 decoder convs and the head whose output H·W ≥ 64·64 (Cin 16 … 320,
+    Cout 10 … 64), in bf16 only; the 6 coarser convs and every f32 conv
+    stay on the library conv. Shapes only: the model runs on the meta
+    device with the op counted, not computed."""
+    from mmr_tpu_torch.models import create_model
+
+    calls = []
+
+    def counted(x, w, bias=None, relu=False):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return x.new_empty(x.shape[:3] + (w.shape[3],))
+
+    monkeypatch.setattr(k6, "conv3x3p_bias_act", counted)
+    x = torch.empty(8, 256, 256, 3, device="meta")
+    for dtype in (torch.float32, BF16):
+        calls.clear()
+        model = create_model("smp_UNet++", classes=10, device="cpu",
+                             dtype=dtype).to("meta")
+        with torch.no_grad():
+            assert model(x).shape == (8, 256, 256, 10)
+        if dtype == torch.float32:
+            assert not calls
+    assert sum(isinstance(m, Conv3x3) for m in model.modules()) == 23
+    assert len(calls) == 17
+    assert all(s[1] * s[2] >= 64 * 64 for s, _ in calls)
+    assert sorted({w[2] for _, w in calls}) == [16, 32, 64, 128, 192, 256, 320]
+    assert sorted({w[3] for _, w in calls}) == [10, 16, 32, 64]

@@ -109,7 +109,7 @@ def test_fused_adamw_matches_jax(rng, clip, differential):
 
 def test_other_optimizers_raise():
     assert isinstance(build_optimizer("AdamW", clip_grad_norm=12.0), FusedAdamW)
-    for name in ("adam", "sgd", "rmsprop"):
+    for name in ("sgd", "rmsprop"):
         with pytest.raises(NotImplementedError):
             build_optimizer(name)
 
