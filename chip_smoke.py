@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``mmr_tpu_torch``) on one NVIDIA card.
 
-Two paths of the UNet++/MobileNetV3 flagship and two of Path A's
-UNet++/ResNet-18. The flagship at full width (10 classes,
+Two paths of the UNet++/MobileNetV3 flagship, two of Path A's
+UNet++/ResNet-18, the rest of the Path-A zoo, and the standalone
+shifted-GEMM conv. The flagship at full width (10 classes,
 3,714,090 random weights from ``--seed``, BN perturbed away from
 identity): serving — full-HD 1080×1920 sliding-window inference, roi
 512×640, overlap 0.5, Gaussian blend, bf16, 6-frame temporal batches — and
@@ -60,9 +61,27 @@ front-end and head + loss).
    launch within 2e-2 (17 per forward); the returned mean IoU equals the
    one from the plain K7 on the same id maps.
 
+9. The rest of the Path-A zoo at full width, 10 classes, random weights
+   from ``--seed``, BN perturbed: ``smp_unet18``, ``smp_DeepLabV3+``,
+   ``smp_MANet``, ``unet``, ``segnet``, ``resnet18`` (ResNet-UNet), each
+   trained as in phase 7 (256×256, B=8, Adam, blended loss, augmentation,
+   bf16; dropout drawn from the step's generator). One recorded step: every
+   K6a / K6b launch held as in phase 7, the counts those of the code (K6a
+   per forward: 7, 0, 8, 12, 0, 0; a dx for each but UNet's first conv,
+   which reads the image); three steps (the loss falls); step median, host
+   issue, device busy and idle share; then one ``evaluate_checkpoint``
+   batch of 4×256×256 with its K6a and K7 launches held, and its time.
+10. K8 (``ops/conv3x3.py::conv3x3_bias_act`` under ``_FORCE = True``) at
+    the shape its TPU docstring measures, 16 → 16 channels on (32, 512,
+    512) bf16: forward, dx and dW (2 K8a + 1 K8b launches) held against
+    the plain versions (forward 2e-2, dx and dW at ``GRAD_REL``) and timed
+    beside their bound, plain and library calls; then an f32-storage case
+    and one with H not a multiple of 16, held and timed.
+
 Times of every new kernel beside its plain version, its bound and one
-library call (``F.conv2d`` for K6a, ``convolution_backward`` for K6b,
-``torch.bincount`` on ``gt·C + pred`` for K7; never used by the port).
+library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
+K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
+the port).
 Phases 5 and 6 run their plain-bf16 yardsticks with
 ``conv3x3_packed._FORCE = False``: the library conv they always measured.
 
@@ -205,6 +224,10 @@ KERNELS = {  # kind -> (module, wrapper, plain version, source, TPU kernel)
             "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3_packed.py:323"),
     "K7": ("mmr_tpu_torch.ops.confusion", "confusion_stats", "confusion_stats_ref",
            "mmr_tpu_torch/csrc/confusion.cu", "mmr_tpu/ops/pallas/confusion.py:81"),
+    "K8a": ("mmr_tpu_torch.ops.conv3x3", "conv3x3_shift", "conv3x3_shift_ref",
+            "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3.py:165"),
+    "K8b": ("mmr_tpu_torch.ops.conv3x3", "conv3x3_shift_dw", "conv3x3_shift_dw_ref",
+            "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3.py:208"),
 }
 # modules that bind a wrapper under its own name (besides its defining module)
 BINDERS = {"K1": ("mmr_tpu_torch.models.fused_blocks",),
@@ -248,7 +271,7 @@ def _tensors(out):
 
 def _in_backward() -> bool:
     """Whether the wrapper was called from an autograd ``backward`` (K6a's
-    dx launches) rather than a forward."""
+    and K8a's dx launches) rather than a forward."""
     f = sys._getframe(2)
     for _ in range(4):
         if f is None:
@@ -317,12 +340,13 @@ def _library(kind, args):
     from mmr_tpu_torch.ops.fused_conv import activated
 
     conv_bwd = torch.ops.aten.convolution_backward
-    if kind == "K6a":
-        x, w = args["x"].permute(0, 3, 1, 2), _oihw([args["w"]])
+    if kind in ("K6a", "K8a"):
+        x, w = _bf16(args["x"]).permute(0, 3, 1, 2), _oihw([args["w"]])
         b = _bf16(args["bias"])
         return lambda: F.conv2d(x, w, b, padding=1)
-    if kind == "K6b":
-        x, dy = args["x"].permute(0, 3, 1, 2), args["g"].permute(0, 3, 1, 2)
+    if kind in ("K6b", "K8b"):
+        dy = args["g"] if kind == "K6b" else args["dy"]
+        x, dy = _bf16(args["x"]).permute(0, 3, 1, 2), _bf16(dy).permute(0, 3, 1, 2)
         w = torch.empty((dy.shape[1], x.shape[1], 3, 3), dtype=torch.bfloat16,
                         device=x.device).contiguous(memory_format=torch.channels_last)
         return lambda: conv_bwd(dy, x, w, None, [1, 1], [1, 1], [1, 1], False,
@@ -379,12 +403,13 @@ def _work(kind, args, out):
     if kind == "K7":
         return (3 * args["pred_ids"].numel(),
                 nb(args["pred_ids"]) + nb(args["gt_ids"]) + written, PEAK_F32_OPS)
-    if kind in ("K6a", "K6b"):
-        x = args["x"]
-        cout = args["w"].shape[-1] if kind == "K6a" else args["g"].shape[-1]
+    if kind in ("K6a", "K6b", "K8a", "K8b"):
+        x, fwd = args["x"], kind in ("K6a", "K8a")
+        dy = None if fwd else args["g" if kind == "K6b" else "dy"]
+        cout = args["w"].shape[-1] if fwd else dy.shape[-1]
         macs = math.prod(x.shape[:3]) * 9 * x.shape[3] * cout
-        read = nb(x) + (2 * 9 * x.shape[3] * cout + nb(args["bias"])
-                        if kind == "K6a" else nb(args["g"]))
+        read = nb(x) + (2 * 9 * x.shape[3] * cout + nb(args["bias"]) if fwd
+                        else nb(dy))
         return 2 * macs, read + written, PEAK_BF16_FLOPS
     if kind in ("K1", "K3"):
         ins, cout = args["inputs"], args["weights"][0].shape[-1]
@@ -417,8 +442,9 @@ def _hold(kind, out, ref, backward=False):
     """Hold a launch's outputs against its plain version. Forward outputs
     (y, logp) atol = rtol = 2e-2, moments rtol 1e-3 of the largest, the
     head's statistics rtol 2e-2 and confusion within 1e-3 of its total;
-    backward outputs (dx, dW, d(scale, shift), dbias; K6a launched by a
-    backward, K6b) max|Δ| / max|ref| and ‖Δ‖ / ‖ref‖ both < GRAD_REL; K7's
+    backward outputs (dx, dW, d(scale, shift), dbias; K6a and K8a launched
+    by a backward, K6b, K8b) max|Δ| / max|ref| and ‖Δ‖ / ‖ref‖ both <
+    GRAD_REL; K7's
     integer counts exactly. Returns (max abs error of the first output,
     the worst max|Δ| / max|ref|, the worst ‖Δ‖ / ‖ref‖)."""
     got, want = _tensors(out), _tensors(ref)
@@ -441,7 +467,8 @@ def _hold(kind, out, ref, backward=False):
             ok = bool(torch.allclose(g, w, rtol=2e-2, atol=1e-3 * scale))
         elif kind == "K5a" and i == 2:
             ok = d.sum().item() <= 1e-3 * max(w.sum().item(), 1.0)
-        elif kind in ("K1", "K2", "K5a") or (kind == "K6a" and not backward):
+        elif kind in ("K1", "K2", "K5a") or (kind in ("K6a", "K8a")
+                                              and not backward):
             ok = bool(torch.allclose(g, w, atol=2e-2, rtol=2e-2))
         else:
             ok = rel < GRAD_REL and l2 < GRAD_REL
@@ -462,7 +489,7 @@ def hold_records(phase, records, labels=None) -> list[dict]:
         ops, nbytes, peak = _work(kind, args, out)
         n = sum(c["kind"] == kind for c in cases) + 1
         label = next(labels[kind]) if labels else f"#{n}"
-        if kind == "K6a" and backward:
+        if kind in ("K6a", "K8a") and backward:
             label += " dx"
         cases.append({"kind": kind, "label": label, "args": args,
                       "max_abs": max_abs, "ops_ms": ops / peak * 1e3,
@@ -505,7 +532,7 @@ def kernel_entry(kind, cases, launches, per) -> dict:
 
 N_EPOCHS = 200   # config.py:51; PolynomialLR(total_iters=200, power=0.9)
 TRAIN_COUNTS = {"K1": 20, "K2": 2, "K3": 20, "K4": 2, "K5a": 1, "K5b": 1,
-                "K6a": 0, "K6b": 0, "K7": 0}
+                "K6a": 0, "K6b": 0, "K7": 0, "K8a": 0, "K8b": 0}
 FLAGSHIP = ("K1", "K2", "K3", "K4", "K5a", "K5b")
 
 
@@ -798,6 +825,154 @@ def path_a_eval_phase(model, dev, seed) -> dict:
     return {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
 
 
+# ------------------------------------------------------------- the zoo
+
+# Path-A zoo string -> Conv3x3s at output H·W >= 4096 in one 256x256 forward
+# (K6a forward launches; K6b per train step), and how many of them need a
+# dx (UNet's inc.conv1 reads the image, which needs no gradient)
+ZOO = {"smp_unet18": (7, 7), "smp_DeepLabV3+": (0, 0), "smp_MANet": (8, 8),
+       "unet": (12, 11), "segnet": (0, 0), "resnet18": (0, 0)}
+ZOO_STEPS, ZOO_TIMED = 3, 5
+
+
+def zoo_phase(dev, seed) -> dict:
+    """Phase 9; returns {model: {"K6a", "K6b", "K7": launches of its train
+    step and eval batch}}."""
+    from mmr_tpu_torch.data.augment import augment_path_a_batch
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.schedules import step_lr
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+    lr = step_lr(PATH_A_LR, PATH_A_EPOCHS, 2, 0.1)(0)
+    images, masks = _path_a_batch(np.random.RandomState(seed + 3), PATH_A_BATCH)
+    images, masks = images[None].to(dev), masks.long()[None].to(dev)
+    batch = _path_a_batch(np.random.RandomState(seed + 4), EVAL_BATCH)
+    out = {}
+    for i, (zoo, (k6, dx)) in enumerate(ZOO.items()):
+        gen = torch.Generator().manual_seed(seed + 10 + i)
+        model = create_model(zoo, classes=N_CLASSES, device=dev, generator=gen)
+        perturb(model, gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = build_optimizer("adam", weight_decay=PATH_A_WD)
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, opt, loss_fn, N_CLASSES,
+                               augment=augment_path_a_batch, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with recording() as (records, recorders):
+            state, met = step(state, images, masks, lr, g)
+            torch.cuda.synchronize()
+        launches = {k: r.launches for k, r in recorders.items()}
+        n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
+        print(f"[9] {zoo}: {type(model).__name__}, {n_params} parameters; "
+              f"launches in one train step: K6a {launches['K6a'] - n_dx} forward "
+              f"+ {n_dx} dx, K6b {launches['K6b']}", flush=True)
+        check(launches == _counts(K6a=k6 + dx, K6b=k6) and n_dx == dx,
+              f"{zoo}: unexpected launch counts {launches}")
+        hold_records(9, records)
+        del records
+        losses = [float(met["loss"])]
+        for _ in range(ZOO_STEPS - 1):
+            state, met = step(state, images, masks, lr, g)
+            losses.append(float(met["loss"]))
+        print(f"[9] {zoo}: losses over {ZOO_STEPS} steps: "
+              f"{[round(v, 5) for v in losses]}", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{zoo}: the loss did not fall over {ZOO_STEPS} steps")
+        print(f"[9] {zoo} train step (B={PATH_A_BATCH}, {PATH_A_HW[0]}x"
+              f"{PATH_A_HW[1]}, bf16, augmentation on):", flush=True)
+        med = _timed_steps(9, lambda: step(state, images, masks, lr, g), ZOO_TIMED)
+        print(f"[9] {zoo}: {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
+
+        with recording() as (records, recorders), \
+                contextlib.redirect_stdout(io.StringIO()):
+            report = evaluate_checkpoint(model, [batch], N_CLASSES,
+                                         loss_fn=loss_fn, device=dev)
+            torch.cuda.synchronize()
+        eval_launches = {k: r.launches for k, r in recorders.items()}
+        print(f"[9] {zoo}: evaluate_checkpoint of one {EVAL_BATCH}x"
+              f"{PATH_A_HW[0]}x{PATH_A_HW[1]} batch: K6a {eval_launches['K6a']}, "
+              f"K7 {eval_launches['K7']}; mean IoU {report['mean_iou']:.6f}, "
+              f"loss {report['loss']:.5f}", flush=True)
+        check(eval_launches == _counts(K6a=k6, K7=1),
+              f"{zoo}: unexpected eval launch counts {eval_launches}")
+        check(np.isfinite(report["loss"]) and np.isfinite(report["mean_iou"]),
+              f"{zoo}: non-finite eval metrics")
+        hold_records(9, records)
+
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                evaluate_checkpoint(model, [batch], N_CLASSES, device=dev)
+
+        med = _timed_steps(9, run, ZOO_TIMED)
+        print(f"[9] {zoo}: eval batch median {med:.3f} ms "
+              f"({EVAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
+        out[zoo] = {"K6a": launches["K6a"], "K6b": launches["K6b"],
+                    "eval_K6a": eval_launches["K6a"], "eval_K7": eval_launches["K7"]}
+        del model, state, opt, step, records
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- K8
+
+K8_SHAPE = (32, 512, 512, 16, 16)   # conv3x3.py:4-7, :22: 16 -> 16 on (32, 512, 512)
+K8_EXTRA = [(torch.float32, (8, 256, 256, 16, 16)),   # f32 storage
+            (torch.bfloat16, (4, 200, 136, 24, 16))]  # H not a multiple of 16
+
+
+def _k8_run(dev, gen, dtype, shape):
+    """Forward and backward of ``conv3x3_bias_act`` (ReLU, bias) under
+    ``_FORCE``: K8a forward, K8a dx, K8b dW. Returns the recording."""
+    from mmr_tpu_torch.ops import conv3x3 as k8
+
+    b, h, w, cin, cout = shape
+    x = torch.randn(b, h, w, cin, device=dev, generator=gen).to(dtype)
+    wt = torch.randn(3, 3, cin, cout, device=dev, generator=gen) / math.sqrt(9 * cin)
+    bias = 0.5 * torch.randn(cout, device=dev, generator=gen)
+    gy = torch.randn(b, h, w, cout, device=dev, generator=gen).to(dtype)
+    x.requires_grad_()
+    old, k8._FORCE = k8._FORCE, True
+    try:
+        with recording() as (records, recorders):
+            y = k8.conv3x3_bias_act(x, wt, bias, True)
+            y.backward(gy)
+            torch.cuda.synchronize()
+    finally:
+        k8._FORCE = old
+    launches = {k: r.launches for k, r in recorders.items()}
+    check(launches == _counts(K8a=2, K8b=1),
+          f"K8 {shape} {dtype}: unexpected launch counts {launches}")
+    check(bool(torch.isfinite(y).all()) and y.dtype == dtype,
+          f"K8 {shape} {dtype}: non-finite or mistyped output")
+    return records, launches
+
+
+def k8_phase(dev, seed) -> dict:
+    """Phase 10; returns {K8a, K8b: kernel entry} of the main shape."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    b, h, w, cin, cout = K8_SHAPE
+    records, launches = _k8_run(dev, gen, torch.bfloat16, K8_SHAPE)
+    print(f"[10] conv3x3_bias_act under _FORCE, bf16 {cin} -> {cout} on "
+          f"({b}, {h}, {w}): launches {launches}", flush=True)
+    cases = hold_records(10, records)
+    del records
+    time_cases(10, cases)
+    for dtype, shape in K8_EXTRA:
+        recs, _ = _k8_run(dev, gen, dtype, shape)
+        print(f"[10] {str(dtype)[6:]} {shape}:", flush=True)
+        extra = hold_records(10, recs)
+        del recs
+        time_cases(10, extra)
+    per = (f"sum over the launches of one conv3x3_bias_act forward + backward, "
+           f"bf16 {cin} -> {cout} on ({b}, {h}, {w}): forward and dx for K8a")
+    return {k: kernel_entry(k, cases, launches[k], per) for k in ("K8a", "K8b")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -958,6 +1133,14 @@ def main() -> int:
                            ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "per")})
     kernels += [entries["K6a"], entries["K6b"], evals["K7"]]
+    # ---- 9. the rest of the Path-A zoo, 10. K8 ------------------------------
+    zoo = zoo_phase(dev, args.seed)
+    for kind, key in (("K6a", "K6a"), ("K6b", "K6b"), ("K7", "eval_K7")):
+        e = kernels[[k["name"] for k in kernels].index(KERNELS[kind][1])]
+        e["zoo_launches"] = {m: c[key] for m, c in zoo.items()}
+    entries["K6a"]["zoo_eval_launches"] = {m: c["eval_K6a"] for m, c in zoo.items()}
+    k8 = k8_phase(dev, args.seed)
+    kernels += [k8["K8a"], k8["K8b"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

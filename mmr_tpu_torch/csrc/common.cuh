@@ -28,8 +28,11 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Act { kNone = 0, kRelu = 1, kHswish = 2, kLinear = 3 };
 
-struct Input {
-  const __nv_bfloat16* x;  // NHWC; at (height/2, width/2) when up2x
+// An input of a conv in storage type T (bf16, or f32 for K8 in
+// conv3x3.cu): every tile is staged as bf16 either way.
+template <class T>
+struct InputT {
+  const T* x;              // NHWC; at (height/2, width/2) when up2x
   const float* scale;      // (c,) or null when act == kNone
   const float* shift;
   int c;
@@ -37,6 +40,67 @@ struct Input {
   int up2x;
   int chunk0;              // first 16-channel chunk of this input in wt
 };
+using Input = InputT<__nv_bfloat16>;
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
+  return v;
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 8 consecutive values from a 16-byte-aligned address, as f32
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* v) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
+}
+__device__ __forceinline__ void load8(const float* src, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// 8 consecutive values from a 16-byte-aligned address, rounded to bf16
+__device__ __forceinline__ void load8_bf16(const __nv_bfloat16* src,
+                                           __nv_bfloat16* o) {
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void load8_bf16(const float* src,
+                                           __nv_bfloat16* o) {
+  float v[8];
+  load8(src, v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
+}
+
+// Store n <= 8 f32 values as T: one or two 16-byte stores when all 8 go
+// to a 16-byte-aligned address, else element by element.
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v,
+                                       int n) {
+  __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
+  if (n == 8 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+  } else {
+    for (int k = 0; k < n; ++k) dst[k] = o[k];
+  }
+}
+__device__ __forceinline__ void store8(float* dst, const float* v, int n) {
+  if (n == 8 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int k = 0; k < n; ++k) dst[k] = v[k];
+  }
+}
 
 __device__ __forceinline__ float prologue(float v, float s, float t, int act) {
   // no FMA contraction: the plain version multiplies and adds separately
@@ -78,7 +142,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Stage the (kTH+2) x (kTW+2) pixel halo tile of 16 channels [c0, c0+16)
 // of one input, prologue applied and rounded to bf16, zeros outside the
 // image and beyond the input's channels.
-__device__ void load_tile(const Input& in, int b, int height, int width,
+template <class T>
+__device__ void load_tile(const InputT<T>& in, int b, int height, int width,
                           int ty0, int tx0, int c0, __nv_bfloat16* tile) {
   const int hs = in.up2x ? height >> 1 : height;
   const int ws = in.up2x ? width >> 1 : width;
@@ -95,17 +160,13 @@ __device__ void load_tile(const Input& in, int b, int height, int width,
     if (yy >= 0 && yy < height && xx >= 0 && xx < width && cb < in.c) {
       const int sy = in.up2x ? yy >> 1 : yy;
       const int sx = in.up2x ? xx >> 1 : xx;
-      const __nv_bfloat16* src =
-          in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + cb;
+      const T* src = in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + cb;
       if (vec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
+        load8(src, v);
       } else {
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          if (cb + k < in.c) v[k] = __bfloat162float(src[k]);
+          if (cb + k < in.c) v[k] = to_f32(src[k]);
       }
       if (in.act != kNone) {
 #pragma unroll
@@ -158,19 +219,133 @@ __device__ __forceinline__ void mma_chunk(
   }
 }
 
+// ------------------------------------------------- standalone 3x3 conv
+// y = conv3x3_SAME(x, W) + bias (f32 accumulation, bias added in f32,
+// optional ReLU), x and y in storage type T: K6a (conv3x3.cu, T = bf16)
+// and K8a (conv3x3.cu, T = bf16 or f32; an f32 x is rounded to bf16
+// as it is staged, y is stored in f32 unrounded). Block = kTH output rows
+// x kTW pixels x NF*16 output channels.
+
+template <class T>
+struct ConvParamsT {
+  InputT<T> x;               // act kNone, up2x 0
+  const __nv_bfloat16* wt;   // (chunks, 9, kKC, np), zero-padded
+  const float* bias;         // (cout,) or null
+  T* y;                      // (n, height, width, cout)
+  int n, height, width, cout, np, relu;
+};
+
+template <int NF>
+constexpr int conv_smem_bytes() {
+  return kTilePix * kKC * 2 + 9 * kKC * (NF * 16 + 8) * 2 + kTH * 256 * 4;
+}
+
+template <int NF, class T>
+__global__ void __launch_bounds__(kThreads)
+    conv3x3_kernel(const ConvParamsT<T> p) {
+  constexpr int kN = NF * 16;
+  constexpr int kNS = kN + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* wsm = tile + kTilePix * kKC;
+  float* stage = reinterpret_cast<float*>(wsm + 9 * kKC * kNS);
+
+  const int tiles_x = (p.width + kTW - 1) / kTW;
+  const int tx0 = (blockIdx.x % tiles_x) * kTW;
+  const int ty0 = (blockIdx.x / tiles_x) * kTH;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.z * kN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
+
+  const int nch = (p.x.c + kKC - 1) / kKC;
+  for (int ch = 0; ch < nch; ++ch) {
+    __syncthreads();  // the previous chunk's products are done with smem
+    load_tile(p.x, b, p.height, p.width, ty0, tx0, ch * kKC, tile);
+    load_weights(p.wt + (size_t)ch * 9 * kKC * p.np, p.np, n0, kN, wsm, kNS);
+    __syncthreads();
+    mma_chunk<NF>(tile, wsm, kNS, warp, acc);
+  }
+
+  // epilogue: per-warp 16x16 staging, + bias (f32), ReLU, store as T,
+  // masked; lane = (pixel, 8-channel half)
+  float* st = stage + warp * 256;
+  const int oy = ty0 + warp;
+  const int px = lane >> 1;
+  const int cg = (lane & 1) * 8;
+  const int ox = tx0 + px;
+  const bool inside = oy < p.height && ox < p.width;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
+    __syncwarp();
+    const int co = n0 + f * 16 + cg;
+    if (inside && co < p.cout) {
+      float o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float v = st[px * 16 + cg + k];
+        if (p.bias != nullptr && co + k < p.cout) v += p.bias[co + k];
+        if (p.relu) v = fmaxf(v, 0.f);
+        o[k] = v;
+      }
+      T* dst = p.y + ((size_t)(b * p.height + oy) * p.width + ox) * p.cout + co;
+      store8(dst, o, min(8, p.cout - co));
+    }
+    __syncwarp();
+  }
+}
+
+template <int NF, class T>
+cudaError_t launch_conv(const ConvParamsT<T>& p, cudaStream_t stream) {
+  constexpr int smem = conv_smem_bytes<NF>();
+  cudaError_t e = cudaFuncSetAttribute(
+      conv3x3_kernel<NF, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((p.width + kTW - 1) / kTW) * ((p.height + kTH - 1) / kTH);
+  const dim3 grid(tiles, p.n, p.np / (NF * 16));
+  conv3x3_kernel<NF, T><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_conv_nf(int nf, const ConvParamsT<T>& p, cudaStream_t s) {
+  switch (nf) {
+    case 1: return launch_conv<1>(p, s);
+    case 2: return launch_conv<2>(p, s);
+    case 4: return launch_conv<4>(p, s);
+    case 8: return launch_conv<8>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+InputT<T> plain_input(const void* x, int c) {
+  return InputT<T>{static_cast<const T*>(x), nullptr, nullptr, c, kNone, 0,
+                   0};
+}
+
 // --------------------------------------------------------------- dy sources
 // What a backward kernel convolves: the upstream gradient dy of a conv
 // output, staged as bf16 tiles. PlainDy reads a stored NHWC tensor; the
 // head-loss source (head_loss.cu) synthesizes d(logits) on the fly.
 
-struct PlainDy {
-  const __nv_bfloat16* dy;  // (n, height, width, c)
+// PlainDyT<float> (K8b's dW on f32 storage) rounds dy to bf16 as it stages
+// it.
+template <class T>
+struct PlainDyT {
+  const T* dy;  // (n, height, width, c)
   int c;
 
   // halo tile of channels [c0, c0+16), zeros outside the image
   __device__ void halo_tile(int b, int height, int width, int ty0, int tx0,
                             int c0, __nv_bfloat16* tile) const {
-    const Input in{dy, nullptr, nullptr, c, kNone, 0, 0};
+    const InputT<T> in{dy, nullptr, nullptr, c, kNone, 0, 0};
     load_tile(in, b, height, width, ty0, tx0, c0, tile);
   }
 
@@ -191,12 +366,11 @@ struct PlainDy {
 #pragma unroll
       for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(0.f);
       if (yy < height && xx < width && cb < c) {
-        const __nv_bfloat16* src =
-            dy + ((size_t)(b * height + yy) * width + xx) * c + cb;
+        const T* src = dy + ((size_t)(b * height + yy) * width + xx) * c + cb;
         if (vec) {
-          *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+          load8_bf16(src, o);
         } else {
-          for (int k = 0; k < 8 && cb + k < c; ++k) o[k] = src[k];
+          for (int k = 0; k < 8 && cb + k < c; ++k) o[k] = to_bf16(src[k]);
         }
       }
       *reinterpret_cast<uint4*>(dyt + pix * ld + g * 8) =
@@ -204,6 +378,7 @@ struct PlainDy {
     }
   }
 };
+using PlainDy = PlainDyT<__nv_bfloat16>;
 
 // ----------------------------------------------------------- backward: dx
 // dx of one forward input: a forward-style 3x3 conv of dy over the
@@ -344,13 +519,15 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kDwThreads = 9 * 32;
 
-struct DwParams {
-  Input in[kMaxIn];
+template <class T>
+struct DwParamsT {
+  InputT<T> in[kMaxIn];
   int n_in;
   float* dw;     // (chunks, 9, kKC, np) f32
   float* dbias;  // (np,) f32 or null
   int n, height, width, np;
 };
+using DwParams = DwParamsT<__nv_bfloat16>;
 
 template <int NF>
 constexpr int dw_smem_bytes() {
@@ -358,9 +535,9 @@ constexpr int dw_smem_bytes() {
          NF * 16 * 4;
 }
 
-template <int NF, class Src>
+template <int NF, class Src, class T>
 __global__ void __launch_bounds__(kDwThreads)
-    conv_dw_kernel(const DwParams p, const Src src) {
+    conv_dw_kernel(const DwParamsT<T> p, const Src src) {
   constexpr int kN = NF * 16;
   constexpr int kNS = kN + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -372,7 +549,7 @@ __global__ void __launch_bounds__(kDwThreads)
   const int chunk = blockIdx.x;
   int j = 0;
   while (j + 1 < p.n_in && chunk >= p.in[j + 1].chunk0) ++j;
-  const Input& in = p.in[j];
+  const InputT<T>& in = p.in[j];
   const int c0 = (chunk - in.chunk0) * kKC;
   const int n0 = blockIdx.y * kN;
   const int warp = threadIdx.x >> 5;
@@ -432,12 +609,12 @@ __global__ void __launch_bounds__(kDwThreads)
   }
 }
 
-template <int NF, class Src>
-cudaError_t launch_dw(const DwParams& p, const Src& src, int n_chunks,
+template <int NF, class Src, class T>
+cudaError_t launch_dw(const DwParamsT<T>& p, const Src& src, int n_chunks,
                       cudaStream_t stream) {
   constexpr int smem = dw_smem_bytes<NF>();
   cudaError_t e = cudaFuncSetAttribute(
-      conv_dw_kernel<NF, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_dw_kernel<NF, Src, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
   const int tiles = p.n * ((p.height + kTH - 1) / kTH) *
@@ -447,7 +624,7 @@ cudaError_t launch_dw(const DwParams& p, const Src& src, int n_chunks,
   if (split > tiles) split = tiles;
   if (split < 1) split = 1;
   const dim3 grid(n_chunks, p.np / (NF * 16), split);
-  conv_dw_kernel<NF, Src><<<grid, kDwThreads, smem, stream>>>(p, src);
+  conv_dw_kernel<NF, Src, T><<<grid, kDwThreads, smem, stream>>>(p, src);
   return cudaGetLastError();
 }
 
@@ -465,8 +642,8 @@ cudaError_t launch_dx(const DxParams& p, const Src& src,
   return cudaGetLastError();
 }
 
-template <class Src>
-cudaError_t launch_dw_nf(int nf, const DwParams& p, const Src& src,
+template <class Src, class T>
+cudaError_t launch_dw_nf(int nf, const DwParamsT<T>& p, const Src& src,
                          int n_chunks, cudaStream_t s) {
   switch (nf) {
     case 1: return launch_dw<1>(p, src, n_chunks, s);

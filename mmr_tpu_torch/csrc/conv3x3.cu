@@ -33,148 +33,57 @@
 // re-staged per 16-channel chunk per block: later work. K6b's blocks add
 // their partial dW into device memory with f32 atomics: run to run, dW
 // differs by f32 rounding (~1e-6 relative).
+//
+// K8a / K8b: the same two kernels at f32 storage as well. They replace the
+// round-1 shifted-GEMM conv of `mmr_tpu/ops/pallas/conv3x3.py`:
+// `_conv3x3_pallas` (the `pl.pallas_call` at :165) and `_conv3x3_dw_pallas`
+// (:208), reached through `conv3x3_bias_act` (:250) when `_FORCE_PALLAS` is
+// set; its VJP runs K8a again for dx and K8b for dW (:266-286). K8a takes
+// x in any float type rounded to bf16 on chip (:96-97) and stores y in x's
+// type (:179); an f32 x is rounded to bf16 as its tile is staged (no
+// separate cast pass), bias and ReLU stay in the f32 epilogue (:112-118).
+// The TPU kernel's channel-major (B, C, (H+4)*Wp) canvas, lane rolls and
+// (9C, P) tap stack (:60-97, :141-150) are its layout and are not ported.
+// K8b reads dy in x's type, as the VJP passes it (g.astype(x.dtype)), and
+// stages it as bf16 for the WMMA products where the TPU kernel reads dy as
+// f32: dW differs from an f32-dy reference by the rounding of dy, within
+// the JAX suite's own bound for this kernel, 1e-2 of max|ref|
+// (tests/test_conv3x3_kernel.py:41-52). At the shape the TPU kernel was
+// written for (16 -> 16 channels on (32, 512, 512), bf16) a conv does 72
+// op/byte, below the ridge: memory-bound, ~0.16 ms per direction.
 
 #include "common.cuh"
 
+// The kernels are common.cuh's conv3x3_kernel<NF, T> and conv_dw_kernel
+// over one InputT<T> and a PlainDyT<T> source, T = bf16 (K6, and K8 on
+// bf16) or f32 (K8 on f32 storage).
+
 namespace {
 
-struct ConvParams {
-  Input x;                   // act kNone, up2x 0
-  const __nv_bfloat16* wt;   // (chunks, 9, kKC, np), zero-padded
-  const float* bias;         // (cout,) or null
-  __nv_bfloat16* y;          // (n, height, width, cout)
-  int n, height, width, cout, np, relu;
-};
-
-template <int NF>
-constexpr int conv_smem_bytes() {
-  return kTilePix * kKC * 2 + 9 * kKC * (NF * 16 + 8) * 2 + kTH * 256 * 4;
-}
-
-template <int NF>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvParams p) {
-  constexpr int kN = NF * 16;
-  constexpr int kNS = kN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = tile + kTilePix * kKC;
-  float* stage = reinterpret_cast<float*>(wsm + 9 * kKC * kNS);
-
-  const int tiles_x = (p.width + kTW - 1) / kTW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.z * kN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  const int nch = (p.x.c + kKC - 1) / kKC;
-  for (int ch = 0; ch < nch; ++ch) {
-    __syncthreads();  // the previous chunk's products are done with smem
-    load_tile(p.x, b, p.height, p.width, ty0, tx0, ch * kKC, tile);
-    load_weights(p.wt + (size_t)ch * 9 * kKC * p.np, p.np, n0, kN, wsm, kNS);
-    __syncthreads();
-    mma_chunk<NF>(tile, wsm, kNS, warp, acc);
-  }
-
-  // epilogue: per-warp 16x16 staging, + bias (f32), ReLU, round to bf16,
-  // masked store; lane = (pixel, 8-channel half)
-  float* st = stage + warp * 256;
-  const int oy = ty0 + warp;
-  const int px = lane >> 1;
-  const int cg = (lane & 1) * 8;
-  const int ox = tx0 + px;
-  const bool inside = oy < p.height && ox < p.width;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int co = n0 + f * 16 + cg;
-    if (inside && co < p.cout) {
-      __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float v = st[px * 16 + cg + k];
-        if (p.bias != nullptr && co + k < p.cout) v += p.bias[co + k];
-        if (p.relu) v = fmaxf(v, 0.f);
-        o[k] = __float2bfloat16_rn(v);
-      }
-      __nv_bfloat16* dst =
-          p.y + ((size_t)(b * p.height + oy) * p.width + ox) * p.cout + co;
-      if (co + 8 <= p.cout && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-      } else {
-        for (int k = 0; k < 8 && co + k < p.cout; ++k) dst[k] = o[k];
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <int NF>
-cudaError_t launch(const ConvParams& p, cudaStream_t stream) {
-  constexpr int smem = conv_smem_bytes<NF>();
-  cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const int tiles = ((p.width + kTW - 1) / kTW) * ((p.height + kTH - 1) / kTH);
-  const dim3 grid(tiles, p.n, p.np / (NF * 16));
-  conv3x3_kernel<NF><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-Input plain_input(const void* x, int c) {
-  return Input{static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, c,
-               kNone, 0, 0};
-}
-
-}  // namespace
-
-// K6a host entry (plain C interface, bound with ctypes). x: (n, height,
-// width, cin) bf16; wt: (cin chunks, 9, 16, np) bf16 with np = cout padded
-// to a multiple of 16*nf, nf in {1, 2, 4, 8}; bias: (cout,) f32 or null;
-// y: (n, height, width, cout) bf16. Returns a cudaError_t.
-extern "C" int mmr_conv3x3(const void* x, int cin, const void* wt,
-                           const void* bias, void* y, int n, int height,
-                           int width, int cout, int np, int nf, int relu,
-                           void* stream) {
-  if (cin < 1 || cout < 1 || np < cout || np % (16 * nf) != 0)
-    return (int)cudaErrorInvalidValue;
-  ConvParams p{};
-  p.x = plain_input(x, cin);
+template <class T>
+cudaError_t conv_fwd(const void* x, int cin, const void* wt,
+                     const void* bias, void* y, int n, int height, int width,
+                     int cout, int np, int nf, int relu, cudaStream_t s) {
+  ConvParamsT<T> p{};
+  p.x = plain_input<T>(x, cin);
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.bias = static_cast<const float*>(bias);
-  p.y = static_cast<__nv_bfloat16*>(y);
+  p.y = static_cast<T*>(y);
   p.n = n;
   p.height = height;
   p.width = width;
   p.cout = cout;
   p.np = np;
   p.relu = relu;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nf) {
-    case 1: return (int)launch<1>(p, s);
-    case 2: return (int)launch<2>(p, s);
-    case 4: return (int)launch<4>(p, s);
-    case 8: return (int)launch<8>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_conv_nf(nf, p, s);
 }
 
-// K6b host entry. x: (n, height, width, cin) bf16; g: (n, height, width,
-// cout) bf16; dw: a zeroed (cin chunks, 9, 16, np) f32 buffer, np = cout
-// padded to a multiple of 16*nf. Returns a cudaError_t.
-extern "C" int mmr_conv3x3_dw(const void* x, int cin, const void* g, int cout,
-                              void* dw, int n, int height, int width, int np,
-                              int nf, void* stream) {
-  if (cin < 1 || cout < 1 || np < cout || np % (16 * nf) != 0)
-    return (int)cudaErrorInvalidValue;
-  DwParams q{};
-  q.in[0] = plain_input(x, cin);
+template <class T>
+cudaError_t conv_dw(const void* x, int cin, const void* g, int cout, void* dw,
+                    int n, int height, int width, int np, int nf,
+                    cudaStream_t s) {
+  DwParamsT<T> q{};
+  q.in[0] = plain_input<T>(x, cin);
   q.n_in = 1;
   q.dw = static_cast<float*>(dw);
   q.dbias = nullptr;
@@ -182,7 +91,45 @@ extern "C" int mmr_conv3x3_dw(const void* x, int cin, const void* g, int cout,
   q.height = height;
   q.width = width;
   q.np = np;
-  const PlainDy src{static_cast<const __nv_bfloat16*>(g), cout};
-  return (int)launch_dw_nf(nf, q, src, (cin + kKC - 1) / kKC,
-                           static_cast<cudaStream_t>(stream));
+  const PlainDyT<T> src{static_cast<const T*>(g), cout};
+  return launch_dw_nf(nf, q, src, (cin + kKC - 1) / kKC, s);
+}
+
+bool bad_shape(int cin, int cout, int np, int nf) {
+  return cin < 1 || cout < 1 || np < cout || nf < 1 || np % (16 * nf) != 0;
+}
+
+}  // namespace
+
+// K6a / K8a host entry (plain C interface, bound with ctypes). x: (n,
+// height, width, cin), f32 when x_f32 else bf16; wt: (cin chunks, 9, 16,
+// np) bf16 with np = cout padded to a multiple of 16*nf, nf in {1, 2, 4,
+// 8}; bias: (cout,) f32 or null; y: (n, height, width, cout) in x's type.
+// Returns a cudaError_t.
+extern "C" int mmr_conv3x3(const void* x, int x_f32, int cin, const void* wt,
+                           const void* bias, void* y, int n, int height,
+                           int width, int cout, int np, int nf, int relu,
+                           void* stream) {
+  if (bad_shape(cin, cout, np, nf)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(x_f32 ? conv_fwd<float>(x, cin, wt, bias, y, n, height, width,
+                                       cout, np, nf, relu, s)
+                     : conv_fwd<__nv_bfloat16>(x, cin, wt, bias, y, n, height,
+                                               width, cout, np, nf, relu, s));
+}
+
+// K6b / K8b host entry. x: (n, height, width, cin) and g: (n, height,
+// width, cout), both f32 when x_f32 else bf16; dw: a zeroed (cin chunks,
+// 9, 16, np) f32 buffer, np = cout padded to a multiple of 16*nf. Returns
+// a cudaError_t.
+extern "C" int mmr_conv3x3_dw(const void* x, int x_f32, int cin,
+                              const void* g, int cout, void* dw, int n,
+                              int height, int width, int np, int nf,
+                              void* stream) {
+  if (bad_shape(cin, cout, np, nf)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(x_f32 ? conv_dw<float>(x, cin, g, cout, dw, n, height, width,
+                                      np, nf, s)
+                     : conv_dw<__nv_bfloat16>(x, cin, g, cout, dw, n, height,
+                                              width, np, nf, s));
 }

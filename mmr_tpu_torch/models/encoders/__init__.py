@@ -3,7 +3,8 @@
 Every encoder is a module returning a 5-level feature pyramid
 ``[f1 (s2), f2 (s4), f3 (s8), f4 (s16), f5 (s32)]`` with declared channel
 counts and its preprocessing statistics. Ported: the flagship's
-MobileNetV3 and Path A's ResNet-18/34; ConvNeXt and MiT wait (ROADMAP).
+MobileNetV3 and the ResNet-18/34 (``output_stride`` 32 or 16); ConvNeXt
+and MiT wait (ROADMAP).
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@ they stay on the library conv; its BNs are flax ``nn.BatchNorm`` (centred:
 flax tree (``conv1``, ``bn1``, ``layer{i}_{b}`` with ``conv1``, ``bn1``,
 ``conv2``, ``bn2``, ``downsample_conv``, ``downsample_bn``), so JAX
 variables convert mechanically (:mod:`mmr_tpu_torch.models.convert`).
-Output stride 32 only: smp's dilated last stage (output stride 16,
-DeepLabV3+) is not ported.
+``output_stride=16`` dilates the last stage as smp's ``make_dilated``
+does (DeepLabV3+): its convs take stride 1, dilation 2 and padding
+(k // 2)·2, so f5 stays at stride 16; the first block keeps its 1×1
+downsample, which the channel change needs.
 """
 
 from __future__ import annotations
@@ -23,11 +25,12 @@ from mmr_tpu_torch.models.layers import BatchNorm, Conv2d
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1, dilation: int = 1):
         super().__init__()
-        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
+        d = dilation
+        self.conv1 = Conv2d(cin, cout, 3, stride, d, dilation=d, bias=False)
         self.bn1 = BatchNorm(cout)
-        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, d, dilation=d, bias=False)
         self.bn2 = BatchNorm(cout)
         if stride != 1 or cin != cout:
             self.downsample_conv = Conv2d(cin, cout, 1, stride, 0, bias=False)
@@ -46,18 +49,23 @@ class BasicBlock(nn.Module):
 
 class ResNetEncoder(nn.Module):
     def __init__(self, stage_sizes: tuple[int, ...] = (2, 2, 2, 2),
-                 fused_frontend: bool = False):
+                 fused_frontend: bool = False, output_stride: int = 32):
         super().__init__()
         if fused_frontend:
             raise NotImplementedError(
                 "the fused front-end exists for the MobileNetV3 stem only")
+        if output_stride not in (16, 32):
+            raise ValueError(f"output_stride {output_stride}: 16 or 32")
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         cin = 64
+        last = len(stage_sizes) - 1
         for i, (n_blocks, ch) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
+            dilated = output_stride == 16 and i == last
             for b in range(n_blocks):
-                stride = 2 if (b == 0 and i > 0) else 1
-                self.add_module(f"layer{i + 1}_{b}", BasicBlock(cin, ch, stride))
+                stride = 2 if (b == 0 and i > 0 and not dilated) else 1
+                self.add_module(f"layer{i + 1}_{b}", BasicBlock(
+                    cin, ch, stride, dilation=2 if dilated else 1))
                 cin = ch
         self.stage_sizes = tuple(stage_sizes)
 

@@ -83,7 +83,9 @@ class Conv3x3(Conv2d):
 
 
 # flax convention: running = MOMENTUM·running + (1 − MOMENTUM)·batch
-# (torch's momentum 0.1); every BN of the reference models uses it
+# (torch's momentum 0.1). Every BN of the reference models uses it: JAX's
+# ConvBN / ConvTransposeBN / SegNet expose ``bn_momentum`` but no entry
+# point sets it from its default 0.1 (``layers.py:78,109``, ``segnet.py:29``)
 MOMENTUM = 0.9
 
 
@@ -99,8 +101,13 @@ class FusedBatchNorm(nn.Module):
     """BatchNorm as one per-channel affine ``x·s + t`` in the input's dtype,
     ``s = γ·rsqrt(var + eps)``, ``t = β − mean·s`` (f32): batch statistics
     in train mode (:meth:`batch_affine`), running statistics in eval mode
-    (:meth:`affine`). State-dict keys: ``weight``, ``bias``,
-    ``running_mean``, ``running_var`` (biased, as flax keeps it)."""
+    (:meth:`affine`). An f32 input is normalized centred, ``(x − mean)·s
+    + β``: the same affine without the cancellation of ``x·s`` against
+    ``mean·s`` (see :class:`BatchNorm`), which moved the f32 gradient of a
+    Path-A UNet step, whose first ConvBN sees raw [0, 1] images, 1.1 %
+    (relative L2) from a float64 run against 0.6 % for this form (CPU
+    measurement). State-dict keys: ``weight``, ``bias``, ``running_mean``,
+    ``running_var`` (biased, as flax keeps it)."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -134,11 +141,24 @@ class FusedBatchNorm(nn.Module):
         return torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
 
     def forward(self, x):
+        if x.dtype == torch.float32:
+            return self._centred(x)
         if self.training:
             s, t = self.batch_affine(self._moments(x), x.numel() // x.shape[1])
         else:
             s, t = self.affine()
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
+
+    def _centred(self, x):
+        """``((x − mean)·s + β)`` in f32, rounded to x's dtype."""
+        if self.training:
+            mean, var = moments_to_stats(self._moments(x), x.numel() // x.shape[1])
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        s = self.weight * torch.rsqrt(var + self.eps)
+        y = (x.float() - mean[:, None, None]) * s[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class BatchNorm(FusedBatchNorm):
@@ -152,18 +172,14 @@ class BatchNorm(FusedBatchNorm):
     float64 run, against 0.4 % for this form (CPU measurement)."""
 
     def forward(self, x):
-        if self.training:
-            mean, var = moments_to_stats(self._moments(x), x.numel() // x.shape[1])
-            self._update_running(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        s = self.weight * torch.rsqrt(var + self.eps)
-        y = (x.float() - mean[:, None, None]) * s[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+        return self._centred(x)
 
 
 class ConvBN(nn.Module):
-    """Conv2d + BatchNorm + activation (``conv`` / ``bn`` submodules)."""
+    """Conv2d + BatchNorm + activation (``conv`` / ``bn`` submodules;
+    ``layers.py::ConvBN``). A 3×3 stride-1 padding-1 ungrouped conv is a
+    :class:`Conv3x3`; any other kernel, stride, padding or grouping a
+    library conv."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, groups: int = 1, act: str = "relu",
@@ -183,6 +199,96 @@ class ConvBN(nn.Module):
         if self.bn is not None:
             x = self.bn(x)
         return ACTIVATIONS[self.act](x)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose f32 parameters are cast to the input's
+    dtype. Its (in, out, kh, kw) weight is flax ``ConvTranspose``'s (kh,
+    kw, in, out) kernel flipped in both spatial axes
+    (:mod:`~mmr_tpu_torch.models.convert`): flax pads the dilated input by
+    q = k − 1 − p and correlates with the kernel as it is, torch convolves."""
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class ConvTransposeBN(nn.Module):
+    """Bias-free ConvTranspose2d(k, stride, padding) + BN + activation, the
+    SegNet decoder unit (``layers.py::ConvTransposeBN``); output size
+    (H − 1)·s − 2p + k as torch's."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
+                 padding: int = 1, act: str = "relu"):
+        super().__init__()
+        self.conv = ConvTranspose2d(cin, cout, kernel, stride, padding, bias=False)
+        self.bn = FusedBatchNorm(cout)
+        self.act = act
+
+    def forward(self, x):
+        return ACTIVATIONS[self.act](self.bn(self.conv(x)))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout in train mode, identity in eval mode (flax
+    ``nn.Dropout``: ``where(keep, x / (1 − rate), 0)``). The keep-mask is
+    fed (:attr:`keep`, a bool tensor of :meth:`mask_shape`) or drawn from
+    :attr:`generator`; the train step sets the generator
+    (:func:`set_dropout`). In train mode with neither, it raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+        self.keep: torch.Tensor | None = None
+
+    def mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return tuple(x.shape)
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        if self.keep is not None:
+            return self.keep.to(x.device)
+        if self.generator is None:
+            raise ValueError("dropout in train mode needs a generator or a "
+                             "fed keep-mask")
+        u = torch.rand(self.mask_shape(x), generator=self.generator,
+                       device=self.generator.device)
+        return (u < 1.0 - self.rate).to(x.device)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return torch.where(self.keep_mask(x), x / (1.0 - self.rate),
+                           torch.zeros_like(x))
+
+
+class Dropout2d(Dropout):
+    """Channel-wise dropout (torch ``nn.Dropout2d``; ``layers.py::
+    Dropout2d``): one keep draw per (sample, channel), mask (B, C, 1, 1)
+    over the NCHW view, ``x · keep / (1 − rate)``."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return (x.shape[0], x.shape[1], 1, 1)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return x * self.keep_mask(x).to(x.dtype) / (1.0 - self.rate)
+
+
+def dropouts(model: nn.Module) -> list[Dropout]:
+    """The model's dropout modules with a nonzero rate."""
+    return [m for m in model.modules()
+            if isinstance(m, Dropout) and m.rate > 0.0]
+
+
+def set_dropout(model: nn.Module, generator: torch.Generator | None):
+    """Let every dropout of ``model`` draw its masks from ``generator``."""
+    for m in dropouts(model):
+        m.generator = generator
 
 
 class SqueezeExcite(nn.Module):

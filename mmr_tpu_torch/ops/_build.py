@@ -35,8 +35,8 @@ _L = ctypes.c_longlong
 # stream as c_void_p; ints as c_int, element counts as c_longlong); each
 # returns a cudaError_t
 SIGNATURES = {
-    "mmr_conv3x3": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
-    "mmr_conv3x3_dw": [_P, _I, _P, _I, _P] + [_I] * 5 + [_P],
+    "mmr_conv3x3": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    "mmr_conv3x3_dw": [_P, _I, _I, _P, _I, _P] + [_I] * 5 + [_P],
     "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P],
     "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],

@@ -93,8 +93,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     bias_f = None if bias is None else bias.float().contiguous()
     y = torch.empty((batch, h, wd, cout), dtype=BF16, device=device)
     err = _build.library().mmr_conv3x3(
-        x.data_ptr(), cin, wt.data_ptr(), _ptr(bias_f), y.data_ptr(), batch, h,
-        wd, cout, np_, nf, int(relu), _stream())
+        x.data_ptr(), 0, cin, wt.data_ptr(), _ptr(bias_f), y.data_ptr(),
+        batch, h, wd, cout, np_, nf, int(relu), _stream())
     _raise_on(err, "conv3x3")
     conv3x3.launches += 1
     return y
@@ -130,7 +130,7 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dwp = torch.zeros((-(-cin // 16), 9, 16, np_), dtype=torch.float32,
                       device=x.device)
     err = _build.library().mmr_conv3x3_dw(
-        x.data_ptr(), cin, g.data_ptr(), cout, dwp.data_ptr(), batch, h, wd,
+        x.data_ptr(), 0, cin, g.data_ptr(), cout, dwp.data_ptr(), batch, h, wd,
         np_, nf, _stream())
     _raise_on(err, "conv3x3_dw")
     conv3x3_dw.launches += 1

@@ -13,7 +13,10 @@ statistics and the optimizer state in place. ``augment`` is a callable
 ``augment(generator, images, masks) -> (images, masks)``, as the JAX step
 takes a custom callable (the Path-A hook, ``cli/train_path_a.py:239-251``;
 :func:`mmr_tpu_torch.data.augment.augment_path_a_batch`); Path B's
-``AugmentConfig`` pipeline is not ported yet.
+``AugmentConfig`` pipeline is not ported yet. A model with dropout (SegNet,
+DeepLabV3+) draws its masks in train mode from the step's ``generator``
+after the augmentation's draws, as JAX feeds its step's key to flax's
+``dropout`` stream.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from mmr_tpu_torch.core.device import resolve_device
 from mmr_tpu_torch.losses.dice_ce import dice_ce_loss
 from mmr_tpu_torch.metrics.confusion import segmentation_stats
 from mmr_tpu_torch.metrics.iou import iou_score
+from mmr_tpu_torch.models.layers import dropouts, set_dropout
 from mmr_tpu_torch.ops.head_loss import assemble_dice_ce
 
 
@@ -66,9 +70,10 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
 
     ``images``: (n_accum, B, H, W, C) uint8 or f32 in [0, 1]; ``masks``:
     (n_accum, B, H, W) int; ``state.model`` is ``model``; ``generator``
-    (a ``torch.Generator``, needed with ``augment``) supplies the
-    augmentation draws. ``metrics`` holds 0-d device tensors ``loss`` and
-    ``iou`` (means over the microbatches). ``device=None`` is CUDA."""
+    (a ``torch.Generator``, needed with ``augment`` and with dropout unless
+    every dropout's keep-mask is fed) supplies the augmentation and dropout
+    draws. ``metrics`` holds 0-d device tensors ``loss`` and ``iou`` (means
+    over the microbatches). ``device=None`` is CUDA."""
     if augment is not None and not callable(augment):
         raise NotImplementedError(
             "only a callable augment(generator, images, masks) is ported; "
@@ -80,6 +85,7 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
     names, params = zip(*model.named_parameters())
     params = list(params)
     mult = optimizer.lr_mult(list(names), params)
+    drops = dropouts(model)
 
     def micro(images, masks, generator):
         img = _prepare(images, dev, preprocess)
@@ -105,6 +111,10 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
             raise ValueError(f"expected {n_accum} stacked microbatches")
         if augment is not None and generator is None:
             raise ValueError("augment needs a generator for its draws")
+        if generator is None and any(m.keep is None for m in drops):
+            raise ValueError("the model's dropout needs a generator for its "
+                             "draws")
+        set_dropout(model, generator)
         model.train()
         for p in params:
             p.grad = None

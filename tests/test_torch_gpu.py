@@ -423,3 +423,127 @@ def test_path_a_train_and_eval_on_card(dev):
                               loss_fn=loss_fn)
     assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (11, 1)
     assert np.isfinite(rep["loss"]) and 0.0 <= rep["mean_iou"] <= 1.0
+
+
+# ------------------------------------------------ K8a, K8b; the zoo on K6
+
+# (B, H, W, Cin, Cout): cin 3 / 8 / 16 / 24, H not a multiple of 16 (nor
+# of the 8-row block), cout 1 .. 2 fragments, and the 16 -> 16 shape the
+# TPU kernel was written for (conv3x3.py:4-7) at a smaller batch
+K8_CONVS = [(2, 21, 30, 3, 16), (2, 16, 32, 8, 8), (1, 40, 24, 16, 24),
+            (2, 34, 50, 24, 16), (4, 512, 512, 16, 16)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", K8_CONVS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8a_k8b(dev, b, h, w, cin, cout, dtype):
+    """K8a in f32 and bf16 storage, relu on and off, bias and no bias, y
+    in x's dtype (f32: within 2e-2 of the plain version, which reads the
+    same bf16-rounded x and w); K8b with dy in x's storage type, as the
+    VJP passes it."""
+    from mmr_tpu_torch.ops.conv3x3 import (conv3x3_shift, conv3x3_shift_dw,
+                                           conv3x3_shift_dw_ref,
+                                           conv3x3_shift_ref)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _rand(g, dev, b, h, w, cin, dtype=dtype)
+    wt = _rand(g, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    bias = _rand(g, dev, cout, scale=0.5)
+    before = conv3x3_shift.launches
+    for relu, bb in ((False, bias), (True, None), (True, bias)):
+        y = conv3x3_shift(x, wt, bb, relu)
+        assert y.shape == (b, h, w, cout) and y.dtype == dtype
+        _close(y, conv3x3_shift_ref(x, wt, bb, relu))
+    assert conv3x3_shift.launches == before + 3
+    before = conv3x3_shift_dw.launches
+    dy = _rand(g, dev, b, h, w, cout, dtype=dtype)
+    dw = conv3x3_shift_dw(x, dy)
+    assert dw.dtype == torch.float32 and dw.shape == (3, 3, cin, cout)
+    _grad_close("dw", dw, conv3x3_shift_dw_ref(x, dy))
+    assert conv3x3_shift_dw.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8_bias_act_force_dispatch(dev, dtype, monkeypatch):
+    """``conv3x3_bias_act`` under ``_FORCE``: K8a forward and dx, K8b dW
+    (one launch each direction), held against the plain versions of the
+    same steps; with ``_FORCE`` off it launches nothing."""
+    from mmr_tpu_torch.ops import conv3x3 as k8
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _rand(g, dev, 2, 40, 72, 16, dtype=dtype).requires_grad_()
+    w = _rand(g, dev, 3, 3, 16, 24, scale=0.08).requires_grad_()
+    bias = _rand(g, dev, 24, scale=0.5).requires_grad_()
+    gy = _rand(g, dev, 2, 40, 72, 24, dtype=dtype)
+    counts = lambda: (k8.conv3x3_shift.launches, k8.conv3x3_shift_dw.launches)
+    before = counts()
+    monkeypatch.setattr(k8, "_FORCE", False)
+    k8.conv3x3_bias_act(x, w, bias, True).backward(gy)
+    assert counts() == before
+    x.grad = w.grad = bias.grad = None
+    monkeypatch.setattr(k8, "_FORCE", True)
+    y = k8.conv3x3_bias_act(x, w, bias, True)
+    y.backward(gy)
+    assert counts() == (before[0] + 2, before[1] + 1)
+    with torch.no_grad():
+        _close(y, k8.conv3x3_shift_ref(x, w, bias, True))
+        gm = torch.where(y > 0, gy.float(), 0.0)
+        gin = gm.to(dtype)
+        _grad_close("dx", x.grad, k8.conv3x3_shift_ref(
+            gin, w.flip(0, 1).transpose(2, 3), torch.zeros(16, device=dev)))
+        _grad_close("dw", w.grad, k8.conv3x3_shift_dw_ref(x, gin))
+        _grad_close("dbias", bias.grad, gm.sum((0, 1, 2)))
+
+
+# the zoo's K6 shapes at 256x256, B=8: UNet's cin-3 inc.conv1, UNet's
+# up1-side cin 512 -> 256 at 64x64 (up2_conv.conv1), MAnet's block3
+# hl_conv1 (64 -> 64 at 64x64 on the 128x128 block's input) and its dx
+ZOO_K6 = [(8, 256, 256, 3, 64), (8, 64, 64, 512, 256), (8, 64, 64, 256, 128),
+          (8, 64, 64, 64, 64), (8, 256, 256, 64, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", ZOO_K6)
+def test_k6_zoo_shapes(dev, b, h, w, cin, cout):
+    test_k6a_k6b(dev, b, h, w, cin, cout)
+
+
+@pytest.mark.parametrize("arch,k6,dx", [
+    ("smp_unet18", 7, 7), ("smp_MANet", 8, 8), ("unet", 12, 11),
+    ("segnet", 0, 0), ("resnet18", 0, 0), ("smp_DeepLabV3+", 0, 0)])
+def test_zoo_train_and_eval_on_card(dev, arch, k6, dx):
+    """Two bf16 Path-A steps of each zoo model at 256x256, B=2 (Adam,
+    blended loss, augmentation, dropout from the step's generator): per
+    step K6a k6 forward + dx launches (UNet's first conv reads the image,
+    which needs no gradient: 11 dx) and K6b k6, the loss finite; one eval
+    batch through ``evaluate_checkpoint``: k6 K6a launches and one K7."""
+    import contextlib
+    import functools
+    import io
+
+    from mmr_tpu_torch.data.augment import augment_path_a_batch
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+    model = create_model(arch, classes=10, device=dev)
+    opt = build_optimizer("adam", weight_decay=1e-5)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, loss_fn, 10, augment=augment_path_a_batch)
+    g = torch.Generator().manual_seed(13)
+    images = torch.rand(1, 2, 256, 256, 3, generator=g)
+    masks = torch.randint(0, 10, (1, 2, 256, 256), generator=g)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    for _ in range(2):
+        state, m = step(state, images, masks, 1e-3, gen)
+        assert np.isfinite(float(m["loss"]))
+    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (2 * (k6 + dx), 2 * k6)
+    k6a, k7 = conv3x3.launches, confusion_stats.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = evaluate_checkpoint(model, [(images[0], masks[0])], 10)
+    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (k6, 1)
+    assert np.isfinite(report["mean_iou"])

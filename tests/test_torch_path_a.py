@@ -94,7 +94,8 @@ def _port(case, dtype=torch.float32):
 def test_weights_carry_across(case):
     """The port's ``smp_UNet++`` takes the JAX tree (ResNet names
     ``conv1``, ``bn1``, ``layer{i}_{b}/…``, ``downsample_*``) whole and
-    gives it back unchanged; the zoo's other strings raise."""
+    gives it back unchanged; the zoo's other strings build other models
+    (``tests/test_torch_zoo.py``), and Segformer still raises."""
     model = _port(case)
     assert model.encoder_name == "resnet18"
     back = to_jax_variables(model.state_dict())
@@ -105,8 +106,9 @@ def test_weights_carry_across(case):
             np.testing.assert_array_equal(got, want, err_msg=n)
     for arch in ("segnet", "unet", "resnet18", "smp_unet18", "smp_DeepLabV3+",
                  "smp_MANet"):
-        with pytest.raises(NotImplementedError):
-            create_model(arch, device="cpu")
+        assert type(create_model(arch, device="cpu")) is not type(model)
+    with pytest.raises(NotImplementedError):
+        create_model("Segformer", device="cpu")
     with pytest.raises(NotImplementedError):
         create_model("smp_UNet++", device="cpu", fused=True, fused_frontend=True)
 
