@@ -12,7 +12,9 @@ batch 8, AdamW lr 1e-4, clip 12, PolynomialLR, bf16, fused decoder,
 front-end and head + loss).
 
 1. The card's name and power limit; build the CUDA kernels from
-   ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``).
+   ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``, one line of registers
+   and spills per Hopper kernel of ``common.cuh``), and each Hopper
+   kernel's dynamic shared memory and resident blocks per SM.
 2. One eval forward of one frame's 20 windows through the fused path,
    recording every kernel launch: each K1 (``fused_conv``) and K2
    (``fused_conv_down``) launch is held against its plain PyTorch version
@@ -81,7 +83,11 @@ front-end and head + loss).
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
 K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
-the port).
+the port). Those times are of each launch repeated alone, wrapper (weight
+packs) included; phases 6–8 also print K3's and K6a's device time by part
+(``device_split``: ``torch.profiler`` time of the kernels alone — K3's dy
+prep, dW, dx and the source-resolution dx of lazily ×2 inputs; K6a's
+forward and dx), per launch and summed.
 Phases 5 and 6 run their plain-bf16 yardsticks with
 ``conv3x3_packed._FORCE = False``: the library conv they always measured.
 
@@ -517,6 +523,53 @@ def time_cases(phase, cases):
               f"{c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
 
 
+# the kernels K3 and K6a launch (demangled CUDA names hold these), as K3's
+# parts
+K3_PARTS = {"dy_prep_kernel": "dy prep", "conv_dw_wg_kernel": "dW",
+            "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"}
+
+
+def device_split(phase, cases, kind, reps=5) -> dict:
+    """Device time of the kernels each ``kind`` launch runs, by part, from
+    ``torch.profiler`` (the wrapper's own weight packs and zero fills are
+    other kernels and not counted). K3: "dy prep", "dW", "dx" (of the
+    inputs that are not lazily upsampled, one launch) and "dx x2" (the
+    source-resolution dx of each lazily x2-upsampled input), by kernel
+    name; K6a: "forward" and "dx" by the case's label. Returns {part: ms
+    summed over cases}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, split = wrapper(kind), {}
+    for c in (c for c in cases if c["kind"] == kind):
+        args = c["args"]
+        with torch.no_grad():
+            fn(**args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn(**args)
+                torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in K3_PARTS)]
+        parts = {}
+        for e in evs:
+            ms = e.time_range.elapsed_us() / 1e3 / reps
+            if kind == "K6a":
+                part = "dx" if c["label"].endswith(" dx") else "forward"
+            else:
+                part = next(v for k, v in K3_PARTS.items() if k in e.name)
+            parts[part] = parts.get(part, 0.0) + ms
+        for k, v in parts.items():
+            split[k] = split.get(k, 0.0) + v
+        print(f"[{phase}] {kind:3s} {c['label']:14s} device " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
+    print(f"[{phase}] {kind} device split, summed over the launches (ms): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return split
+
+
 def kernel_entry(kind, cases, launches, per) -> dict:
     """The ``kernels`` line's entry: sums over ``cases`` (one per launch)."""
     _, name, _, src, repl = KERNELS[kind]
@@ -654,8 +707,11 @@ def train_phase(model, dev, rng) -> dict:
         print(f"[6]     {t:8.3f} ms  x{cnt:5.1f}  {key}", flush=True)
 
     time_cases(6, cases)
+    split = device_split(6, cases, "K3")
     per = f"sum over the launches of one train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]})"
-    return {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
+    out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
+    out["K3"]["device_ms"] = split
+    return out
 
 
 # ------------------------------------------------------------- Path A
@@ -773,9 +829,12 @@ def path_a_train_phase(dev, seed):
     med = _timed_steps(7, lambda: step(state, images_d, masks_d, lr, g), TRAIN_STEPS)
     print(f"[7] {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
     time_cases(7, cases)
+    split = device_split(7, cases, "K6a")
     per = (f"sum over the launches of one Path-A train step (B={PATH_A_BATCH}, "
            f"{PATH_A_HW[0]}x{PATH_A_HW[1]}): forward and dx for K6a")
-    return model, {k: kernel_entry(k, cases, launches[k], per) for k in ("K6a", "K6b")}
+    out = {k: kernel_entry(k, cases, launches[k], per) for k in ("K6a", "K6b")}
+    out["K6a"]["device_ms"] = split
+    return model, out
 
 
 def path_a_eval_phase(model, dev, seed) -> dict:
@@ -820,9 +879,12 @@ def path_a_eval_phase(model, dev, seed) -> dict:
           f"({EVAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
     first = cases[:K6_PER_FORWARD] + [c for c in cases if c["kind"] == "K7"][:1]
     time_cases(8, first)
+    split = device_split(8, first, "K6a")
     per = (f"sum over the launches of one eval batch ({EVAL_BATCH}x{PATH_A_HW[0]}x"
            f"{PATH_A_HW[1]}); launches over {EVAL_BATCHES} batches")
-    return {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
+    out = {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
+    out["K6a"]["device_ms"] = split
+    return out
 
 
 # ------------------------------------------------------------- the zoo
@@ -1005,6 +1067,12 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     print(f"[1] kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
+    info = _build.library().mmr_hopper_kernel_info
+    for name, kind in _build.HOPPER_KERNELS.items():
+        print(f"[1] {name}: dynamic shared memory, blocks per SM: " + ", ".join(
+            f"N={n} {info(0, kind, n)} B, {info(1, kind, n)}"
+            for n in ((16, 32) if kind == 2 else (16, 32, 64))),
+            flush=True)
 
     # ---- model, one frame's windows --------------------------------------
     gen = torch.Generator().manual_seed(args.seed)
@@ -1131,7 +1199,7 @@ def main() -> int:
     evals = path_a_eval_phase(path_a, dev, args.seed)
     entries["K6a"].update({f"eval_{k}": evals["K6a"][k] for k in
                            ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "per")})
+                            "bound_by", "library_ms", "per", "device_ms")})
     kernels += [entries["K6a"], entries["K6b"], evals["K7"]]
     # ---- 9. the rest of the Path-A zoo, 10. K8 ------------------------------
     zoo = zoo_phase(dev, args.seed)

@@ -1,11 +1,15 @@
-// Device code shared by the fused 3x3 conv kernels: K1 (fused_conv.cu), its
+// Device code shared by the port's conv kernels: K1 (fused_conv.cu), its
 // backward K3 (fused_conv_bwd.cu), the head+loss pair K5a/K5b
-// (head_loss.cu) and the stride-2 pair K2/K4 (prologue, moments, dy prep).
+// (head_loss.cu), the stride-2 pair K2/K4 (prologue, moments, dy prep) and
+// the standalone conv K6/K8 (conv3x3.cu).
 //
-// Tile geometry of the stride-1 kernels: one block = kTH output rows x kTW
-// pixels; an input is staged 16 channels at a time as a (kTH+2) x (kTW+2)
-// halo tile in shared memory; products run on the tensor cores as WMMA
-// bf16 m16n16k16 with f32 accumulators (one warp per output row).
+// Two generations of mainloop live here. The WMMA one (load_tile,
+// load_weights, mma_chunk, conv_dx_kernel, conv_dw_kernel): one block =
+// kTH output rows x kTW pixels, an input staged 16 channels at a time as a
+// (kTH+2) x (kTW+2) halo tile by synchronous register loads between two
+// __syncthreads, products as WMMA bf16 m16n16k16 (one warp per output row);
+// K1, K5a and K5b run on it. The Hopper one ("Hopper mainloops" below:
+// cp.async ring, wgmma): K3's dx and dW, K6a/K6b and K8a/K8b.
 
 #pragma once
 
@@ -78,28 +82,6 @@ __device__ __forceinline__ void load8_bf16(const float* src,
   load8(src, v);
 #pragma unroll
   for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
-}
-
-// Store n <= 8 f32 values as T: one or two 16-byte stores when all 8 go
-// to a 16-byte-aligned address, else element by element.
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v,
-                                       int n) {
-  __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
-  if (n == 8 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-  } else {
-    for (int k = 0; k < n; ++k) dst[k] = o[k];
-  }
-}
-__device__ __forceinline__ void store8(float* dst, const float* v, int n) {
-  if (n == 8 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    for (int k = 0; k < n; ++k) dst[k] = v[k];
-  }
 }
 
 __device__ __forceinline__ float prologue(float v, float s, float t, int act) {
@@ -219,111 +201,6 @@ __device__ __forceinline__ void mma_chunk(
   }
 }
 
-// ------------------------------------------------- standalone 3x3 conv
-// y = conv3x3_SAME(x, W) + bias (f32 accumulation, bias added in f32,
-// optional ReLU), x and y in storage type T: K6a (conv3x3.cu, T = bf16)
-// and K8a (conv3x3.cu, T = bf16 or f32; an f32 x is rounded to bf16
-// as it is staged, y is stored in f32 unrounded). Block = kTH output rows
-// x kTW pixels x NF*16 output channels.
-
-template <class T>
-struct ConvParamsT {
-  InputT<T> x;               // act kNone, up2x 0
-  const __nv_bfloat16* wt;   // (chunks, 9, kKC, np), zero-padded
-  const float* bias;         // (cout,) or null
-  T* y;                      // (n, height, width, cout)
-  int n, height, width, cout, np, relu;
-};
-
-template <int NF>
-constexpr int conv_smem_bytes() {
-  return kTilePix * kKC * 2 + 9 * kKC * (NF * 16 + 8) * 2 + kTH * 256 * 4;
-}
-
-template <int NF, class T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const ConvParamsT<T> p) {
-  constexpr int kN = NF * 16;
-  constexpr int kNS = kN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = tile + kTilePix * kKC;
-  float* stage = reinterpret_cast<float*>(wsm + 9 * kKC * kNS);
-
-  const int tiles_x = (p.width + kTW - 1) / kTW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.z * kN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  const int nch = (p.x.c + kKC - 1) / kKC;
-  for (int ch = 0; ch < nch; ++ch) {
-    __syncthreads();  // the previous chunk's products are done with smem
-    load_tile(p.x, b, p.height, p.width, ty0, tx0, ch * kKC, tile);
-    load_weights(p.wt + (size_t)ch * 9 * kKC * p.np, p.np, n0, kN, wsm, kNS);
-    __syncthreads();
-    mma_chunk<NF>(tile, wsm, kNS, warp, acc);
-  }
-
-  // epilogue: per-warp 16x16 staging, + bias (f32), ReLU, store as T,
-  // masked; lane = (pixel, 8-channel half)
-  float* st = stage + warp * 256;
-  const int oy = ty0 + warp;
-  const int px = lane >> 1;
-  const int cg = (lane & 1) * 8;
-  const int ox = tx0 + px;
-  const bool inside = oy < p.height && ox < p.width;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int co = n0 + f * 16 + cg;
-    if (inside && co < p.cout) {
-      float o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float v = st[px * 16 + cg + k];
-        if (p.bias != nullptr && co + k < p.cout) v += p.bias[co + k];
-        if (p.relu) v = fmaxf(v, 0.f);
-        o[k] = v;
-      }
-      T* dst = p.y + ((size_t)(b * p.height + oy) * p.width + ox) * p.cout + co;
-      store8(dst, o, min(8, p.cout - co));
-    }
-    __syncwarp();
-  }
-}
-
-template <int NF, class T>
-cudaError_t launch_conv(const ConvParamsT<T>& p, cudaStream_t stream) {
-  constexpr int smem = conv_smem_bytes<NF>();
-  cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_kernel<NF, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return e;
-  const int tiles = ((p.width + kTW - 1) / kTW) * ((p.height + kTH - 1) / kTH);
-  const dim3 grid(tiles, p.n, p.np / (NF * 16));
-  conv3x3_kernel<NF, T><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <class T>
-cudaError_t launch_conv_nf(int nf, const ConvParamsT<T>& p, cudaStream_t s) {
-  switch (nf) {
-    case 1: return launch_conv<1>(p, s);
-    case 2: return launch_conv<2>(p, s);
-    case 4: return launch_conv<4>(p, s);
-    case 8: return launch_conv<8>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <class T>
 InputT<T> plain_input(const void* x, int c) {
   return InputT<T>{static_cast<const T*>(x), nullptr, nullptr, c, kNone, 0,
@@ -331,71 +208,26 @@ InputT<T> plain_input(const void* x, int c) {
 }
 
 // --------------------------------------------------------------- dy sources
-// What a backward kernel convolves: the upstream gradient dy of a conv
-// output, staged as bf16 tiles. PlainDy reads a stored NHWC tensor; the
-// head-loss source (head_loss.cu) synthesizes d(logits) on the fly.
-
-// PlainDyT<float> (K8b's dW on f32 storage) rounds dy to bf16 as it stages
-// it.
-template <class T>
-struct PlainDyT {
-  const T* dy;  // (n, height, width, c)
-  int c;
-
-  // halo tile of channels [c0, c0+16), zeros outside the image
-  __device__ void halo_tile(int b, int height, int width, int ty0, int tx0,
-                            int c0, __nv_bfloat16* tile) const {
-    const InputT<T> in{dy, nullptr, nullptr, c, kNone, 0, 0};
-    load_tile(in, b, height, width, ty0, tx0, c0, tile);
-  }
-
-  // the kTH x kTW output pixels' channels [n0, n0+kn) at row stride ld
-  __device__ void core_tile(int b, int height, int width, int ty0, int tx0,
-                            int n0, int kn, __nv_bfloat16* dyt, int ld,
-                            float* /*bsum*/) const {
-    const int groups = kn / 8;
-    const bool vec = (c % 8 == 0) &&
-                     (reinterpret_cast<uintptr_t>(dy) % 16 == 0);
-    for (int i = threadIdx.x; i < kTH * kTW * groups; i += blockDim.x) {
-      const int pix = i / groups;
-      const int g = i % groups;
-      const int cb = n0 + g * 8;
-      const int yy = ty0 + pix / kTW;
-      const int xx = tx0 + pix % kTW;
-      __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(0.f);
-      if (yy < height && xx < width && cb < c) {
-        const T* src = dy + ((size_t)(b * height + yy) * width + xx) * c + cb;
-        if (vec) {
-          load8_bf16(src, o);
-        } else {
-          for (int k = 0; k < 8 && cb + k < c; ++k) o[k] = to_bf16(src[k]);
-        }
-      }
-      *reinterpret_cast<uint4*>(dyt + pix * ld + g * 8) =
-          *reinterpret_cast<const uint4*>(o);
-    }
-  }
-};
-using PlainDy = PlainDyT<__nv_bfloat16>;
+// What the WMMA backward kernels below convolve: the upstream gradient of a
+// conv output, staged as bf16 tiles by a source type with halo_tile (a halo
+// tile of 16 channels) and core_tile (the tile's own pixels): the head-loss
+// source HeadDy (head_loss.cu) synthesizes d(logits) on the fly.
 
 // ----------------------------------------------------------- backward: dx
-// dx of one forward input: a forward-style 3x3 conv of dy over the
-// input's weight slice with flipped, transposed taps (wt: (dy chunks, 9,
-// 16, np) over the input's channels), then the prologue's backward
-// gm = g * act'(s*x + t): dx = gm*s (bf16), dscale += gm*x, dshift += gm.
-// A lazily x2-upsampled input sums the 2x2 fine gradients at source
-// resolution. SAME padding carries no gradient: only in-image positions
-// are written.
+// (WMMA; K5b's dx over HeadDy.) dx of one forward input: a forward-style
+// 3x3 conv of dy over the input's weight slice with flipped, transposed
+// taps (wt: (dy chunks, 9, 16, np) over the input's channels), then the
+// prologue's backward gm = g * act'(s*x + t): dx = gm*s (bf16), dscale +=
+// gm*x, dshift += gm. SAME padding carries no gradient: only in-image
+// positions are written.
 
 struct DxParams {
-  Input x;                  // the forward input (raw, prologue, up2x, c)
+  Input x;                  // the forward input (raw, prologue, c)
   const __nv_bfloat16* wt;  // (dy chunks, 9, kKC, np) transposed taps
   __nv_bfloat16* dx;        // raw-shaped gradient
   float* dscale;            // (c,) or null when x.act == kNone
   float* dshift;
-  int n, height, width, np; // the conv's (fine) resolution
+  int n, height, width, np;
 };
 
 template <int NF>
@@ -444,40 +276,14 @@ __global__ void __launch_bounds__(kThreads)
                             wmma::mem_row_major);
     __syncthreads();
     const int ci0 = n0 + f * 16 + cg;
-    int sy, sx, hs, ws;
+    const int pix = t >> 1, row = pix >> 4, px = pix & 15;
+    const int sy = ty0 + row, sx = tx0 + px;
+    const bool ok = sy < p.height && sx < p.width;
     float g[8];
-    bool ok;
-    if (!x.up2x) {
-      const int pix = t >> 1, row = pix >> 4, px = pix & 15;
-      sy = ty0 + row;
-      sx = tx0 + px;
-      hs = p.height;
-      ws = p.width;
-      ok = sy < hs && sx < ws;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) g[k] = stage[row * 256 + px * 16 + cg + k];
-    } else {
-      // 2x2 fine pixels -> one source pixel; 4 x 8 source pixels a block
-      const int spix = t >> 1, srow = spix >> 3, spx = spix & 7;
-      sy = (ty0 >> 1) + srow;
-      sx = (tx0 >> 1) + spx;
-      hs = p.height >> 1;
-      ws = p.width >> 1;
-      ok = t < 64 && sy < hs && sx < ws;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) g[k] = 0.f;
-      if (t < 64) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              g[k] += stage[(2 * srow + i) * 256 + (2 * spx + j) * 16 + cg + k];
-      }
-    }
+    for (int k = 0; k < 8; ++k) g[k] = stage[row * 256 + px * 16 + cg + k];
     if (ok) {
-      const size_t base = ((size_t)(b * hs + sy) * ws + sx) * x.c;
+      const size_t base = ((size_t)(b * p.height + sy) * p.width + sx) * x.c;
       for (int k = 0; k < 8; ++k) {
         const int ci = ci0 + k;
         if (ci >= x.c) break;
@@ -508,9 +314,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------- backward: dW
-// dW[tap][ci][co] = sum over all output pixels p of a(p + tap - 1)[ci] *
-// dy(p)[co], with a the prologue'd (bf16) input as the forward staged it.
-// Blocks: x = one 16-channel input chunk (over all inputs), y = one tile of
+// (WMMA; K5b's dW and dbias over HeadDy.) dW[tap][ci][co] = sum over all
+// output pixels p of a(p + tap - 1)[ci] * dy(p)[co], with a the
+// prologue'd (bf16) input as the forward staged it. Blocks: x = one
+// 16-channel input chunk (over all inputs), y = one tile of
 // kN output channels, z = a share of the pixel tiles. Warp w of 9 owns tap
 // w and keeps its NF 16x16 f32 fragments in registers over the block's
 // pixel tiles; the block's partial sums reach dw by f32 atomics (order-
@@ -642,18 +449,6 @@ cudaError_t launch_dx(const DxParams& p, const Src& src,
   return cudaGetLastError();
 }
 
-template <class Src, class T>
-cudaError_t launch_dw_nf(int nf, const DwParamsT<T>& p, const Src& src,
-                         int n_chunks, cudaStream_t s) {
-  switch (nf) {
-    case 1: return launch_dw<1>(p, src, n_chunks, s);
-    case 2: return launch_dw<2>(p, src, n_chunks, s);
-    case 4: return launch_dw<4>(p, src, n_chunks, s);
-    case 8: return launch_dw<8>(p, src, n_chunks, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <class Src>
 cudaError_t launch_dx_nf(int nf, const DxParams& p, const Src& src,
                          cudaStream_t s) {
@@ -666,43 +461,924 @@ cudaError_t launch_dx_nf(int nf, const DxParams& p, const Src& src,
   }
 }
 
+// ======================================================== Hopper mainloops
+// The stride-1 conv of K6a (forward and dx; K8a at f32 or bf16 storage) and
+// K3's dx (conv_wg_kernel), the source-resolution dx of a lazily
+// x2-upsampled K3 input (conv_up2_dx_kernel) and the weight gradient of K3,
+// K6b and K8b (conv_dw_wg_kernel), built for the H100 (sm_90a):
+//
+// - Operands reach shared memory by cp.async (16 B a copy, zero-fill for the
+//   halo, the ragged edge and channels beyond c) in a ring of 2 stages (3
+//   for the conv at N = 64); an operand that must be converted on the way
+//   (f32 storage, a channel count not a multiple of 8, K3's prologue'd and
+//   lazily upsampled dW input) is staged through registers instead, dW's
+//   input one pixel tile ahead. The products on one stage run while the
+//   next stages' loads are in flight: one __syncthreads per stage, after
+//   cp.async.wait_group. A thread that stored through registers issues
+//   fence.proxy.async after its stores (wgmma reads shared memory through
+//   the async proxy; cp.async data needs no fence, as in CUTLASS's sm90
+//   cp.async mainloops).
+// - Products are wgmma m64nNk16 (bf16 in, f32 accumulators in registers),
+//   N = 16, 32 or 64 output channels a block (grid z tiles the rest), both
+//   operands read from shared memory through no-swizzle descriptors (core
+//   matrix: 8 rows x 16 B; LBO = the stride between the two 8-wide halves
+//   of K, SBO = the stride between 8-row groups of M or N). No shape runs
+//   on mma.sync: a narrow dW input (c < 64) leaves M rows zero, and a
+//   narrow output is wgmma n16.
+// - Staging is channel-split: 8 channels of one pixel are one 16-byte row,
+//   consecutive pixels are consecutive rows, so a tap's shift is a whole
+//   number of rows and each tap's A operand is the staged tile itself at an
+//   offset: nothing is copied per tap.
+//
+// Tile of the two conv kernels: M = one 64-pixel output row segment (a row
+// W = 80 wastes 37.5 % of its second segment, 160 wastes 16.7 %, the other
+// main-path widths 64, 128, 256, 320, 512 and 640 none; chosen over three
+// column-shifted copies of the tile, which would triple the staging).
+// Block = kWgs warpgroups x kWgRows rows: 2 x 4 rows at N <= 32 (2-3 blocks
+// a SM), 4 x 2 rows at N = 64 (8 rows share each staged weight slice), 2 x
+// 2 source rows in the x2 kernel (its staged tile is the largest); at most
+// 64 f32 accumulators a thread. Per stage, one 16-channel chunk: the halo
+// tile and the chunk's taps for the block's N.
+//
+// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): a conv moves 2*(c_in +
+// c_out) bytes per pixel for 18*c_in*c_out operations, so convs with
+// c_in*c_out/(c_in + c_out) above ~33 (the 295 op/byte ridge) are bound by
+// the tensor cores and the narrow ones (the flagship's 16-channel rows, K8
+// at 16 -> 16) by memory; chip_smoke.py prints each launch's bound.
+
+constexpr int kSeg = 64;          // output pixels of a row segment: wgmma M
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// wait until at most K of this thread's committed groups are in flight
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+// make this thread's generic shared-memory stores visible to the tensor
+// cores (wgmma reads through the async proxy; cp.async data needs no fence,
+// as in CUTLASS's sm90 cp.async mainloops). It waits for the thread's
+// outstanding memory operations, so it follows the stores, not the loop top.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator registers across an async MMA
+template <int K>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// no-swizzle shared-memory matrix descriptor
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (64 x N, f32, the warpgroup's accumulator fragment) += A (64 x 16) *
+// B (16 x N), bf16 from shared memory; TA / TB: the operand is stored
+// M- / N-major (1) instead of K-major (0).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  template <int TA, int TB>
+  __device__ __forceinline__ static void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TA, int TB>
+  __device__ __forceinline__ static void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TA, int TB>
+  __device__ __forceinline__ static void mma(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+// ------------------------------------------------------ stride-1 conv
+// y = conv(a, taps) over a 16-channel-chunked tap pack (c chunks, taps, 2,
+// np, 8): K6a forward (a = x, taps = W, + bias, ReLU), K6a / K8a dx (a = dy,
+// flipped transposed taps), K3 dx (a = dye; the columns may be the channels
+// of several inputs, each written to its own dx with its prologue backward
+// gm = g * act'(s*x + t), dx = gm*s, dscale += gm*x, dshift += gm in the
+// epilogue; one f32 atomic per channel per block), and with kUp2 the dx of a
+// lazily x2-upsampled K3 input at source resolution: the 2x2 sum of the fine
+// 3x3 transposed conv is one 4x4 stride-2 correlation over the fine dye, per
+// axis the taps (Wf0, Wf0+Wf1, Wf1+Wf2, Wf2) of the flipped weights at fine
+// offsets -1..2, summed in f32 by the wrapper and each split into a bf16
+// pair hi + lo (taps 0..15 and 16..31 of the pack): 32 products per source
+// pixel where the fine products and their 2x2 sum took 36, and no rounding
+// of the summed taps (bf16-rounded sums put the flagship's dshift, a sum
+// over 10^6 pixels that cancels, 1.7e-2 of its largest value from the plain
+// version's, over the 1e-2 bound). The fine dye tile is staged phase-split
+// into even and odd columns, so each combined tap reads a contiguous run of
+// source-resolution slots.
+
+// One output of the conv: block columns [off, off + c) are its channels
+// (off a multiple of 8), so one launch can write the dx of several inputs
+// that convolve the same dy.
+template <class T>
+struct WgOut {
+  T* y;                     // (n, oh, ow, c): y, or dx
+  const __nv_bfloat16* x;   // the raw forward input (n, oh, ow, c) when
+  const float* scale;       // act != kNone: y is dx through its prologue
+  const float* shift;
+  float* dscale;            // zeroed (c,) f32 when act != kNone
+  float* dshift;
+  int c, act, off;
+};
+
+template <class T>
+struct WgParams {
+  const T* a;               // the operand, NHWC (n, ah, aw, c)
+  int c, ah, aw;
+  const __nv_bfloat16* wt;  // (c chunks, taps, 2, np, 8) bf16
+  int np;                   // columns, a multiple of the tile N
+  int n, oh, ow;
+  const float* bias;        // (out[0].c,) or null
+  int relu;
+  WgOut<T> out[kMaxIn];
+  int n_out;
+};
+
+template <int N, bool kUp2>
+struct WgTile {
+  static constexpr int kTaps = kUp2 ? 32 : 9;   // x2: 16 hi + 16 lo
+  static constexpr int kWgs = (kUp2 || N < 64) ? 2 : 4;  // warpgroups
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kWgRows = (kUp2 || N >= 64) ? 2 : 4;
+  static constexpr int kRows = kWgs * kWgRows;  // output rows a block
+  static constexpr int kARows = kUp2 ? 2 * kRows + 2 : kRows + 2;
+  static constexpr int kPlanes = kUp2 ? 2 : 1;   // x2: even, odd columns
+  static constexpr int kSlots = kUp2 ? kSeg + 1 : kSeg + 2;
+  static constexpr int kAUnits = kARows * kPlanes * kSlots;  // per 8 ch
+  static constexpr int kABytes = 2 * kAUnits * 16;
+  static constexpr int kBBytes = kTaps * 2 * N * 16;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = (kUp2 || N < 64) ? 2 : 3;  // ring slots
+  static constexpr int kSmem = kStages * kStageBytes + 2 * N * 4;
+
+  // the first staged row (16 B unit) of block row r's A operand for tap t.
+  // Staged units: [8-channel half][row][plane][slot]. kUp2: row 0 = fine
+  // row 2*oy0 - 1, plane 0 slot s = fine column 2*(ox0 + s), plane 1 slot
+  // s = fine column 2*(ox0 + s) - 1; t = 4 * (oy + 1) + (ox + 1) for fine
+  // offsets oy, ox in -1..2 (and t + 16 for its lo half).
+  __device__ static int a_unit(int r, int t) {
+    if (kUp2) {
+      const int oy = (t & 15) / 4, ox = t % 4;
+      return ((2 * r + oy) * kPlanes + ((ox & 1) ? 0 : 1)) * kSlots +
+             (ox >> 1);
+    }
+    return (r + t / 3) * kSlots + t % 3;
+  }
+};
+
+// store v0 (and v1 at dst + 1 when pair) as T
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0, float v1,
+                                       bool pair, bool aligned) {
+  if (pair && aligned) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    dst[0] = __float2bfloat16_rn(v0);
+    if (pair) dst[1] = __float2bfloat16_rn(v1);
+  }
+}
+__device__ __forceinline__ void store2(float* dst, float v0, float v1,
+                                       bool pair, bool aligned) {
+  if (pair && aligned) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    dst[0] = v0;
+    if (pair) dst[1] = v1;
+  }
+}
+
+template <int N, bool kUp2, class T>
+__device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
+  using G = WgTile<N, kUp2>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int tiles_x = (p.ow + kSeg - 1) / kSeg;
+  const int ox0 = (blockIdx.x % tiles_x) * kSeg;
+  const int oy0 = (blockIdx.x / tiles_x) * G::kRows;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.z * N;
+  const int nch = (p.c + kKC - 1) / kKC;
+  const uint32_t sbase = smem_addr(smem);
+  const bool vec = sizeof(T) == 2 && p.c % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.a) % 16 == 0;
+  float* red = reinterpret_cast<float*>(smem + G::kStages * G::kStageBytes);
+  for (int i = tid; i < 2 * N; i += G::kThreads) red[i] = 0.f;
+
+  // stage chunk ch (channels [16 ch, 16 ch + 16)) into ring slot s
+  auto stage = [&](int ch, int s) {
+    const uint32_t sa = sbase + s * G::kStageBytes;
+    unsigned char* pa = smem + s * G::kStageBytes;
+    for (int i = tid; i < 2 * G::kAUnits; i += G::kThreads) {
+      const int g = i / G::kAUnits;
+      const int u = i - g * G::kAUnits;
+      const int row = u / (G::kPlanes * G::kSlots);
+      const int rem = u - row * (G::kPlanes * G::kSlots);
+      const int plane = rem / G::kSlots;
+      const int slot = rem - plane * G::kSlots;
+      const int y = kUp2 ? 2 * oy0 - 1 + row : oy0 - 1 + row;
+      const int x = kUp2 ? 2 * (ox0 + slot) - plane : ox0 - 1 + slot;
+      const int cb = ch * kKC + 8 * g;
+      const bool ok = y >= 0 && y < p.ah && x >= 0 && x < p.aw && cb < p.c;
+      const T* src =
+          p.a + (ok ? (((size_t)b * p.ah + y) * p.aw + x) * p.c + cb : 0);
+      if (vec) {
+        cp_async16(sa + i * 16, src, ok);
+      } else {
+        __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = (ok && cb + k < p.c) ? to_bf16(src[k])
+                                      : __float2bfloat16_rn(0.f);
+        *reinterpret_cast<uint4*>(pa + i * 16) =
+            *reinterpret_cast<const uint4*>(o);
+      }
+    }
+    if (!vec) fence_proxy_async();  // stores the tensor cores will read
+    const uint32_t sb = sa + G::kABytes;
+    const __nv_bfloat16* w = p.wt + (size_t)ch * G::kTaps * 2 * p.np * 8;
+    for (int i = tid; i < G::kTaps * 2 * N; i += G::kThreads) {
+      const int tg = i / N;
+      cp_async16(sb + i * 16, w + ((size_t)tg * p.np + n0 + i - tg * N) * 8,
+                 true);
+    }
+    cp_async_commit();
+  };
+
+  float acc[G::kWgRows][N / 2];
+#pragma unroll
+  for (int r = 0; r < G::kWgRows; ++r)
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) acc[r][j] = 0.f;
+
+  // chunks 0 .. kStages-2 in flight; one commit group per chunk (empty
+  // past the last), so waiting for all but kStages-2 groups lands chunk ch
+  for (int ch = 0; ch < G::kStages - 1; ++ch) {
+    if (ch < nch) stage(ch, ch);
+    else cp_async_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    const int s = ch % G::kStages;
+    cp_async_wait<G::kStages - 2>();
+    __syncthreads();  // slot s is staged; the readers of the slot refilled
+                      // below (chunk ch - 1's) are done
+    const uint32_t sa = sbase + s * G::kStageBytes;
+    const uint32_t sb = sa + G::kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int r = 0; r < G::kWgRows; ++r) {
+#pragma unroll
+      for (int t = 0; t < G::kTaps; ++t) {
+        const uint32_t ua = G::a_unit(wg * G::kWgRows + r, t);
+        Wgmma<N>::template mma<0, 0>(
+            acc[r], gmma_desc(sa + ua * 16, G::kAUnits * 16, 128),
+            gmma_desc(sb + t * 2 * N * 16, N * 16, 128));
+      }
+    }
+    wgmma_commit();
+    const int next = ch + G::kStages - 1;
+    if (next < nch) stage(next, next % G::kStages);
+    else cp_async_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int r = 0; r < G::kWgRows; ++r) fence_regs<N / 2>(acc[r]);
+  }
+
+  // epilogue from registers: accumulator j of row r holds pixel 16*w +
+  // lane/4 + 8*((j/2)%2) of the segment, column 8*(j/4) + 2*(lane%4) + j%2
+  // of the block's N; column group nb (8 columns) belongs to output
+  // oi[nb] (-1: none)
+  const int w = (tid >> 5) & 3, l = tid & 31;
+  int oi[N / 8];
+  bool pro = false;   // some output goes through a prologue (block-uniform)
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb) {
+    oi[nb] = -1;
+    const int col = n0 + 8 * nb;
+    for (int o = 0; o < p.n_out; ++o)
+      if (col >= p.out[o].off && col < p.out[o].off + p.out[o].c) oi[nb] = o;
+  }
+  for (int o = 0; o < p.n_out; ++o) pro = pro || p.out[o].act != kNone;
+  float ssum[N / 8][2], tsum[N / 8][2];
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb)
+    ssum[nb][0] = ssum[nb][1] = tsum[nb][0] = tsum[nb][1] = 0.f;
+#pragma unroll
+  for (int r = 0; r < G::kWgRows; ++r) {
+    const int oy = oy0 + wg * G::kWgRows + r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ox = ox0 + 16 * w + (l >> 2) + 8 * h;
+      if (oy >= p.oh || ox >= p.ow) continue;
+      const size_t pix = ((size_t)b * p.oh + oy) * p.ow + ox;
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb) {
+        if (oi[nb] < 0) continue;
+        const WgOut<T>& o = p.out[oi[nb]];
+        const int co = n0 + 8 * nb + 2 * (l & 3) - o.off;
+        if (co >= o.c) continue;
+        const bool pair = co + 1 < o.c;
+        float v[2] = {acc[r][4 * nb + 2 * h], acc[r][4 * nb + 2 * h + 1]};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (k == 1 && !pair) break;
+          if (o.act != kNone) {
+            const float xi = __bfloat162float(o.x[pix * o.c + co + k]);
+            const float sc = o.scale[co + k];
+            const float pre = __fadd_rn(__fmul_rn(xi, sc), o.shift[co + k]);
+            const float gm = v[k] * act_grad(pre, o.act);
+            v[k] = gm * sc;
+            ssum[nb][k] += gm * xi;
+            tsum[nb][k] += gm;
+          } else {
+            if (p.bias != nullptr) v[k] += p.bias[co + k];
+            if (p.relu) v[k] = fmaxf(v[k], 0.f);
+          }
+        }
+        store2(o.y + pix * o.c + co, v[0], v[1], pair, o.c % 2 == 0);
+      }
+    }
+  }
+  if (pro) {
+#pragma unroll
+    for (int nb = 0; nb < N / 8; ++nb) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float a = ssum[nb][k], t = tsum[nb][k];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          a += __shfl_xor_sync(kFull, a, off);
+          t += __shfl_xor_sync(kFull, t, off);
+        }
+        if (l < 4) {
+          atomicAdd(&red[8 * nb + 2 * l + k], a);
+          atomicAdd(&red[N + 8 * nb + 2 * l + k], t);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < N; i += G::kThreads) {
+      for (int o = 0; o < p.n_out; ++o) {
+        const WgOut<T>& out = p.out[o];
+        const int ch = n0 + i - out.off;
+        if (ch >= 0 && ch < out.c && out.act != kNone) {
+          atomicAdd(&out.dscale[ch], red[i]);
+          atomicAdd(&out.dshift[ch], red[N + i]);
+        }
+      }
+    }
+  }
+}
+
+template <int N, class T>
+__global__ void __launch_bounds__(WgTile<N, false>::kThreads)
+    conv_wg_kernel(const WgParams<T> p) {
+  wg_conv<N, false>(p);
+}
+
+template <int N>
+__global__ void __launch_bounds__(WgTile<N, true>::kThreads)
+    conv_up2_dx_kernel(const WgParams<__nv_bfloat16> p) {
+  wg_conv<N, true>(p);
+}
+
+// a Hopper kernel's launch attributes: its dynamic shared memory, and the
+// largest shared-memory carveout, so that as many blocks fit a SM as the
+// registers allow
+template <class K>
+cudaError_t hopper_attrs(K kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int N, bool kUp2, class K, class T>
+cudaError_t launch_wg(K kernel, const WgParams<T>& p, cudaStream_t s) {
+  using G = WgTile<N, kUp2>;
+  cudaError_t e = hopper_attrs(kernel, G::kSmem);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((p.ow + kSeg - 1) / kSeg) *
+                    ((p.oh + G::kRows - 1) / G::kRows);
+  kernel<<<dim3(tiles, p.n, p.np / N), G::kThreads, G::kSmem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// the stride-1 conv at output-channel tile ntile (16, 32 or 64)
+template <class T>
+cudaError_t launch_conv_wg(int ntile, const WgParams<T>& p, cudaStream_t s) {
+  if (p.np % ntile != 0) return cudaErrorInvalidValue;
+  switch (ntile) {
+    case 16: return launch_wg<16, false>(conv_wg_kernel<16, T>, p, s);
+    case 32: return launch_wg<32, false>(conv_wg_kernel<32, T>, p, s);
+    case 64: return launch_wg<64, false>(conv_wg_kernel<64, T>, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the source-resolution dx of a lazily x2-upsampled input (T = bf16)
+template <class T>
+cudaError_t launch_up2_dx(int ntile, const WgParams<T>& p, cudaStream_t s) {
+  if (p.np % ntile != 0) return cudaErrorInvalidValue;
+  switch (ntile) {
+    case 16: return launch_wg<16, true>(conv_up2_dx_kernel<16>, p, s);
+    case 32: return launch_wg<32, true>(conv_up2_dx_kernel<32>, p, s);
+    case 64: return launch_wg<64, true>(conv_up2_dx_kernel<64>, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ----------------------------------------------------------- weight grad
+// dW[t][ci][co] = sum over the output pixels p of a(p + t - 1)[ci] *
+// dy(p)[co], a the prologue'd (bf16, lazily upsampled) input as the forward
+// staged it: K3's dW over all of a node's inputs, K6b and K8b (no prologue).
+// The inputs' channels, each padded to a multiple of 8, are the rows of dW
+// one after another; block: x = one 64-row chunk of them (wgmma M = 64 input
+// channels, of one input or several narrow ones: a node's four 16-channel
+// inputs fill one chunk; rows past the last input are zero), y = a tile of N
+// (16 or 32) output channels, z = a share of the pixel tiles of 4 x 64
+// output pixels. Three warpgroups: warpgroup ky owns taps (ky, 0..2) and
+// keeps their 64 x N f32 sums in registers over the block's pixel tiles; per
+// 16-pixel K step each issues 3 wgmma with both operands M- / N-major
+// (channels contiguous, the staged pixels as K). The input tile is staged
+// through registers (prologue, x2, bf16 rounding) into the next ring slot
+// while the current slot's products run; dy by cp.async. The block's sums of
+// the input's real channels reach dw by f32 atomics (order-dependent
+// rounding, ~1e-6 relative).
+
+constexpr int kDwWgThreads = 384;
+
+// act(s*v + t) of 8 bf16 values in place, rounded to bf16 (identity for
+// kNone), the act chosen once for the 8
+__device__ __forceinline__ void prologue8(__nv_bfloat16* e, const float* s,
+                                          const float* t, int act) {
+  if (act == kNone) return;
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = __fadd_rn(__fmul_rn(__bfloat162float(e[k]), s[k]), t[k]);
+  if (act == kRelu) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = fmaxf(v[k], 0.f);
+  } else if (act == kHswish) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float g = fminf(fmaxf(__fadd_rn(v[k], 3.f), 0.f), 6.f);
+      v[k] = __fmul_rn(__fmul_rn(v[k], g), 1.f / 6.f);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
+}
+
+template <class T>
+struct DwWgParams {
+  InputT<T> in[kMaxIn];     // chunk0: the input's first dW row, a multiple
+  int n_in;                 // of 8 (its channels padded to 8 after it)
+  const T* dy;              // (n, height, width, cout)
+  int cout;
+  float* dw;                // zeroed (9, cpad, np) f32, cpad = 64 * chunks
+  int cpad, np, n, height, width;
+};
+
+template <int N>
+struct DwTile {
+  static constexpr int kRows = 4;   // output rows of a pixel tile
+  static constexpr int kAUnits = (kRows + 2) * (kSeg + 2);  // per 8 ch
+  static constexpr int kABytes = 8 * kAUnits * 16;
+  static constexpr int kBUnits = kRows * kSeg;              // per 8 ch
+  // input units (8 channels of one pixel) a thread stages per tile, at
+  // most: all 8 groups' over 384 threads
+  static constexpr int kPer =
+      (8 * kAUnits + kDwWgThreads - 1) / kDwWgThreads;
+  static constexpr int kBBytes = (N / 8) * kBUnits * 16;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = 2;  // ring slots
+  static constexpr int kSmem = kStages * kStageBytes;
+};
+
+template <int N, class T>
+__global__ void __launch_bounds__(kDwWgThreads)
+    conv_dw_wg_kernel(const DwWgParams<T> p) {
+  using G = DwTile<N>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int ky = tid >> 7;
+  const int row0 = blockIdx.x * 64;   // the chunk's first dW row
+  const int n0 = blockIdx.y * N;
+  // 8-channel group g of the chunk holds dW rows row0 + 8g ..: channels
+  // row - off of the input whose rows those are; returns how many are real
+  // (0: a dead group) and that input and channel
+  auto group_of = [&](int g, int& j, int& ch) {
+    const int row = row0 + 8 * g;
+    for (int jj = 0; jj < p.n_in; ++jj) {
+      const int off = p.in[jj].chunk0;
+      if (row >= off && row < off + p.in[jj].c) {
+        j = jj;
+        ch = row - off;
+        return min(8, off + p.in[jj].c - row);
+      }
+    }
+    return 0;
+  };
+  // A staging: the chunk's ng live groups share all threads: thread t owns
+  // the (t % ng)-th live group (its input, prologue vectors in registers)
+  // and every (384 / ng)-th unit of the tile; dead groups are zeroed in
+  // both ring slots once
+  unsigned livemask = 0;
+  int j = 0, xc = 0;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    int jg, cg;
+    if (group_of(g, jg, cg) > 0) livemask |= 1u << g;
+  }
+  const int ng = __popc(livemask);
+  const int rank = tid % ng;
+  int grp = 0;
+  for (int g = 0, r = 0; g < 8; ++g)
+    if (livemask >> g & 1u) {
+      if (r == rank) grp = g;
+      ++r;
+    }
+  group_of(grp, j, xc);
+  const InputT<T> in = p.in[j];
+  const int gstride = kDwWgThreads / ng;
+  const int gl = tid / ng;
+  const int hs = in.up2x ? p.height >> 1 : p.height;
+  const int ws = in.up2x ? p.width >> 1 : p.width;
+  const bool xvec =
+      in.c % 8 == 0 && reinterpret_cast<uintptr_t>(in.x) % 16 == 0;
+  const bool dvec = sizeof(T) == 2 && p.cout % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(p.dy) % 16 == 0;
+  const uint32_t sbase = smem_addr(smem);
+  const int tiles_x = (p.width + kSeg - 1) / kSeg;
+  const int tiles_y = (p.height + G::kRows - 1) / G::kRows;
+  const int total = p.n * tiles_y * tiles_x;
+  const int per = (G::kAUnits + gstride - 1) / gstride;
+  float sc[8], sh[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const bool on = in.act != kNone && xc + k < in.c;
+    sc[k] = on ? in.scale[xc + k] : 1.f;
+    sh[k] = on ? in.shift[xc + k] : 0.f;
+  }
+  for (int i = tid; i < 8 * G::kAUnits; i += kDwWgThreads)
+    if (!(livemask >> (i / G::kAUnits) & 1u))
+      for (int s = 0; s < G::kStages; ++s)
+        *reinterpret_cast<uint4*>(smem + s * G::kStageBytes + i * 16) =
+            make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+
+  // The input tile through registers, one tile ahead: load_a issues the
+  // loads of tile tt into raw (an f32 input is rounded as it is loaded:
+  // K8b has no prologue), store_a applies the prologue and stores them into
+  // ring slot s an iteration later, so their latency hides behind a whole
+  // iteration. At most G::kPer units a thread.
+  uint4 raw[G::kPer];
+  unsigned live = 0;
+  auto load_a = [&](int tt) {
+    const int b = tt / (tiles_y * tiles_x);
+    const int r = tt - b * (tiles_y * tiles_x);
+    const int py0 = (r / tiles_x) * G::kRows;
+    const int px0 = (r % tiles_x) * kSeg;
+    live = 0;
+#pragma unroll
+    for (int q = 0; q < G::kPer; ++q) {
+      const int u = gl + q * gstride;
+      const int yy = py0 - 1 + u / (kSeg + 2);
+      const int xx = px0 - 1 + u % (kSeg + 2);
+      raw[q] = make_uint4(0, 0, 0, 0);
+      if (gl < gstride && q < per && u < G::kAUnits && yy >= 0 &&
+          yy < p.height && xx >= 0 && xx < p.width) {
+        live |= 1u << q;
+        const int sy = in.up2x ? yy >> 1 : yy;
+        const int sx = in.up2x ? xx >> 1 : xx;
+        const T* src = in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + xc;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw[q]);
+        if (xvec) {
+          load8_bf16(src, e);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (xc + k < in.c) e[k] = to_bf16(src[k]);
+        }
+      }
+    }
+  };
+  auto store_a = [&](int s) {
+    if (gl >= gstride) return;
+    unsigned char* pa = smem + s * G::kStageBytes;
+#pragma unroll
+    for (int q = 0; q < G::kPer; ++q) {
+      const int u = gl + q * gstride;
+      if (q >= per || u >= G::kAUnits) continue;
+      if (live >> q & 1u)
+        prologue8(reinterpret_cast<__nv_bfloat16*>(&raw[q]), sc, sh, in.act);
+      *reinterpret_cast<uint4*>(pa + (grp * G::kAUnits + u) * 16) = raw[q];
+    }
+    fence_proxy_async();  // stores the tensor cores will read
+  };
+  // dy of tile tt into ring slot s by cp.async (through registers when
+  // it needs converting)
+  auto stage_b = [&](int tt, int s) {
+    const int b = tt / (tiles_y * tiles_x);
+    const int r = tt - b * (tiles_y * tiles_x);
+    const int py0 = (r / tiles_x) * G::kRows;
+    const int px0 = (r % tiles_x) * kSeg;
+    const uint32_t sb = sbase + s * G::kStageBytes + G::kABytes;
+    unsigned char* pb = smem + s * G::kStageBytes + G::kABytes;
+    for (int i = tid; i < (N / 8) * G::kBUnits; i += kDwWgThreads) {
+      const int g = i / G::kBUnits;
+      const int u = i - g * G::kBUnits;
+      const int yy = py0 + u / kSeg;
+      const int xx = px0 + u % kSeg;
+      const int cb = n0 + 8 * g;
+      const bool ok = yy < p.height && xx < p.width && cb < p.cout;
+      const size_t at =
+          ((size_t)(b * p.height + yy) * p.width + xx) * p.cout + cb;
+      const T* src = p.dy + (ok ? at : 0);
+      if (dvec) {
+        cp_async16(sb + i * 16, src, ok);
+      } else {
+        __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = (ok && cb + k < p.cout) ? to_bf16(src[k])
+                                         : __float2bfloat16_rn(0.f);
+        *reinterpret_cast<uint4*>(pb + i * 16) =
+            *reinterpret_cast<const uint4*>(o);
+      }
+    }
+    if (!dvec) fence_proxy_async();
+    cp_async_commit();
+  };
+
+  float acc[3][N / 2];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) acc[t][k] = 0.f;
+
+  const int step = gridDim.z;
+  if (blockIdx.z < total) {
+    load_a(blockIdx.z);
+    store_a(0);
+    stage_b(blockIdx.z, 0);
+    if (blockIdx.z + step < total) load_a(blockIdx.z + step);
+  }
+  int s = 0;
+  for (int tt = blockIdx.z; tt < total; tt += step, s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // slot s holds tile tt; slot s^1's readers are done
+    const uint32_t sa = sbase + s * G::kStageBytes;
+    const uint32_t sb = sa + G::kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < G::kRows * kSeg / 16; ++kc) {
+      const int rr = kc / (kSeg / 16), px = (kc % (kSeg / 16)) * 16;
+      const uint64_t db =
+          gmma_desc(sb + (rr * kSeg + px) * 16, 128, G::kBUnits * 16);
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const uint32_t ua = (rr + ky) * (kSeg + 2) + px + kx;
+        Wgmma<N>::template mma<1, 1>(
+            acc[kx], gmma_desc(sa + ua * 16, 128, G::kAUnits * 16), db);
+      }
+    }
+    wgmma_commit();
+    if (tt + step < total) {
+      store_a(s ^ 1);
+      stage_b(tt + step, s ^ 1);
+      if (tt + 2 * step < total) load_a(tt + 2 * step);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int t = 0; t < 3; ++t) fence_regs<N / 2>(acc[t]);
+  }
+
+  // accumulator k of tap (ky, kx): row 16*w + lane/4 + 8*((k/2)%2) of the
+  // chunk (group 2*w + (k/2)%2), output channel 8*(k/4) + 2*(lane%4) + k%2;
+  // only the real channels' rows are added
+  const int w = (tid >> 5) & 3, l = tid & 31;
+  int jd, cd;
+  const int real[2] = {group_of(2 * w, jd, cd), group_of(2 * w + 1, jd, cd)};
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    float* out =
+        p.dw + ((size_t)(ky * 3 + kx) * p.cpad + row0) * p.np + n0;
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const int h = (k >> 1) & 1;
+      const int ci = 16 * w + (l >> 2) + 8 * h;
+      const int co = 8 * (k >> 2) + 2 * (l & 3) + (k & 1);
+      if ((l >> 2) < real[h])
+        atomicAdd(&out[(size_t)ci * p.np + co], acc[kx][k]);
+    }
+  }
+}
+
+template <int N, class T>
+cudaError_t launch_dw_wg_n(const DwWgParams<T>& p, int n_chunks,
+                           cudaStream_t stream) {
+  constexpr int smem = DwTile<N>::kSmem;
+  cudaError_t e = hopper_attrs(conv_dw_wg_kernel<N, T>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = p.n * ((p.height + DwTile<N>::kRows - 1) /
+                           DwTile<N>::kRows) * ((p.width + kSeg - 1) / kSeg);
+  const int xy = n_chunks * (p.np / N);
+  // about four blocks a SM, each with 4 or more pixel tiles (a block's
+  // partial sums cost 9 * c * N atomics)
+  int split = (4 * 132 + xy - 1) / xy;
+  if (split > (tiles + 3) / 4) split = (tiles + 3) / 4;
+  if (split < 1) split = 1;
+  conv_dw_wg_kernel<N, T><<<dim3(n_chunks, p.np / N, split), kDwWgThreads,
+                            smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the weight gradient at output-channel tile ntile (16 or 32: wider tiles
+// measured slower, their accumulators crowding out the staging registers)
+// over n_chunks 64-row chunks of the inputs' channels
+template <class T>
+cudaError_t launch_dw_wg(int ntile, const DwWgParams<T>& p, int n_chunks,
+                         cudaStream_t s) {
+  if (p.np % ntile != 0 || p.cpad != 64 * n_chunks)
+    return cudaErrorInvalidValue;
+  switch (ntile) {
+    case 16: return launch_dw_wg_n<16>(p, n_chunks, s);
+    case 32: return launch_dw_wg_n<32>(p, n_chunks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ---------------------------------------------------------------- dy prep
 // The moments cotangent folded into dy: dye = dy + dm0 + 2*y*dm1 (every
 // pixel of a stride-1 or stride-2 output is valid), stored bf16 when
-// dmom != null; dbias += sum of the f32 dye when dbias != null. The grid
-// is a multiple of c blocks of 256 threads, so each thread keeps one
-// channel and one register sum.
+// dmom != null; dbias += sum of the f32 dye when dbias != null. A thread
+// takes V consecutive channels of a pixel at a time (V = 8: 16-byte loads
+// and stores, when c is a multiple of 8) with a grid stride that is a
+// multiple of c / V, so it keeps the same V channels and V register sums;
+// a block adds its sums in shared memory, then once per channel to dbias.
 
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* src, float* v) {
+  if constexpr (V == 8) load8(src, v);
+  else v[0] = __bfloat162float(src[0]);
+}
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* dst, const float* v) {
+  __align__(16) __nv_bfloat16 o[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) o[k] = __float2bfloat16_rn(v[k]);
+  if constexpr (V == 8)
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+  else dst[0] = o[0];
+}
+
+template <int V>
 __global__ void __launch_bounds__(256) dy_prep_kernel(
     const __nv_bfloat16* dy, const __nv_bfloat16* y, const float* dmom,
-    __nv_bfloat16* dye, float* dbias, long long total, int c) {
+    __nv_bfloat16* dye, float* dbias, long long units, int cv) {
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const int ch = (int)(start % c);
-  float sum = 0.f;
-  for (long long i = start; i < total; i += stride) {
-    float g = __bfloat162float(dy[i]);
-    if (dmom != nullptr) {
-      g = g + dmom[ch] + 2.f * __bfloat162float(y[i]) * dmom[c + ch];
-      dye[i] = __float2bfloat16_rn(g);
-    }
-    sum += g;
+  const int c = cv * V;
+  const int c0 = (int)(start % cv) * V;
+  float m0[V], m1[V], sum[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    m0[k] = dmom != nullptr ? dmom[c0 + k] : 0.f;
+    m1[k] = dmom != nullptr ? dmom[c + c0 + k] : 0.f;
+    sum[k] = 0.f;
   }
-  if (dbias != nullptr) atomicAdd(&dbias[ch], sum);
+  for (long long u = start; u < units; u += stride) {
+    float g[V];
+    load_v<V>(dy + u * V, g);
+    if (dmom != nullptr) {
+      float yv[V];
+      load_v<V>(y + u * V, yv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) g[k] = g[k] + m0[k] + 2.f * yv[k] * m1[k];
+      store_v<V>(dye + u * V, g);
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) sum[k] += g[k];
+  }
+  if (dbias != nullptr) {   // the block's sums in shared memory first
+    extern __shared__ float red[];   // (c,)
+    for (int i = threadIdx.x; i < c; i += blockDim.x) red[i] = 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < V; ++k) atomicAdd(&red[c0 + k], sum[k]);
+    __syncthreads();
+    for (int i = threadIdx.x; i < c; i += blockDim.x)
+      atomicAdd(&dbias[i], red[i]);
+  }
 }
 
 cudaError_t launch_dy_prep(const void* dy, const void* y, const void* dmom,
                            void* dye, void* dbias, long long total, int c,
                            cudaStream_t s) {
   if (dmom == nullptr && dbias == nullptr) return cudaSuccess;
-  long long blocks = (total + 255) / 256;
-  const long long cap = 264LL * c;   // a multiple of c: fixed channel/thread
-  if (blocks > cap) blocks = cap;
-  blocks = ((blocks + c - 1) / c) * c;
-  dy_prep_kernel<<<(int)blocks, 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(dmom),
-      static_cast<__nv_bfloat16*>(dye), static_cast<float*>(dbias), total, c);
+  const bool vec =
+      c % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(dye) % 16 == 0;
+  const int v = vec ? 8 : 1;
+  const int cv = c / v;
+  const long long units = total / v;
+  long long blocks = (units + 255) / 256;
+  if (blocks > 2112) blocks = 2112;           // 16 a SM
+  blocks = ((blocks + cv - 1) / cv) * cv;    // stride a multiple of cv
+  const auto* d = static_cast<const __nv_bfloat16*>(dy);
+  const auto* yy = static_cast<const __nv_bfloat16*>(y);
+  const auto* m = static_cast<const float*>(dmom);
+  auto* o = static_cast<__nv_bfloat16*>(dye);
+  auto* b = static_cast<float*>(dbias);
+  const int smem = dbias != nullptr ? c * 4 : 0;
+  if (vec)
+    dy_prep_kernel<8><<<(int)blocks, 256, smem, s>>>(d, yy, m, o, b, units, cv);
+  else
+    dy_prep_kernel<1><<<(int)blocks, 256, smem, s>>>(d, yy, m, o, b, units, cv);
   return cudaGetLastError();
 }
 

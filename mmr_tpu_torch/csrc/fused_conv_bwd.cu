@@ -11,89 +11,190 @@
 //   dbias   = sum dye                     (f32, when the conv has a bias)
 //   dW_j    = sum_p a_j(p + tap - 1) (x) dye(p)    (f32, HWIO)
 //   dx_j    = prologue_bwd(conv3x3^T(dye, W_j))    (bf16; at source
-//             resolution, 2x2-summed, for a lazy x2 input)
+//             resolution for a lazy x2 input)
 //   dscale_j, dshift_j = sums of gm*x and gm, gm = g * act'(s*x + t)
 // with a_j the bf16 prologue'd input the forward staged and dye rounded to
 // bf16 before both products (as the TPU kernel rounds); f32 accumulation.
 //
-// Three launches on the caller's stream: the dy prep (common.cuh; skipped
-// without moments or bias), one dW kernel over every input's 16-channel
-// chunks (conv_dw_kernel, common.cuh: per-block partial sums in registers,
-// f32 atomics into dW), and one dx kernel per input (conv_dx_kernel: K1's
-// tile and tensor-core structure over dye with flipped, transposed taps,
-// prologue backward in the epilogue). dW's f32 atomics sum the blocks in no
-// fixed order: run to run, dW differs by f32 rounding (~1e-6 relative).
+// Launches on the caller's stream, all on common.cuh's Hopper mainloops
+// (cp.async ring of 2-3 stages, wgmma m64nNk16 from shared memory):
+// - the dy prep (dy_prep_kernel, 8 channels a thread by 16-byte loads;
+//   skipped without moments or bias): 4.0 % of K3's device time on the
+//   flagship step before this design, below the 5 % at which folding it
+//   into the staging of dx and dW would pay;
+// - one dW kernel over 64-row chunks of all inputs' channels, each input's
+//   padded to 8, so that narrow inputs share a chunk (conv_dw_wg_kernel:
+//   M = 64 input channels, N = 16 or 32 output channels, K = 16-pixel
+//   steps of 4 x 64-pixel tiles; the input tile with its
+//   prologue and lazy x2 staged through registers one tile ahead, dye by
+//   cp.async; f32 atomics into dW, so dW differs run to run by f32
+//   rounding, ~1e-6 relative);
+// - the dx: one conv_wg_kernel for all inputs that are not lazily
+//   upsampled (they convolve the same dye: one read of it; M = one 64-pixel
+//   row segment, N = 16/32/64 of their channels side by side, 9 taps per
+//   16-channel dye chunk) and, for each lazily x2 upsampled input, one
+//   conv_up2_dx_kernel at source resolution (16 combined taps of a 4x4
+//   stride-2 correlation over the phase-split fine dye, each a bf16 pair
+//   hi + lo: 32 MACs per source pixel instead of 4 x 9, every thread
+//   writing outputs instead of one in four); the prologue backward and the
+//   dscale/dshift block sums (one atomic per channel per block) run in the
+//   epilogue from registers.
+// No shape runs on mma.sync: a narrow input (c < 64) leaves dW's M rows
+// beyond c zero, a narrow N tile is wgmma n16.
 //
 // Bound on an H100: twice the forward's 2*9*Cin*Cout operations per pixel
 // (dx and dW) against the bytes of dy (+ y), every x_j, and dx_j, so the
 // 64x80 nodes with Cin >= 300 sit above the 295 op/byte ridge and the fine
-// rows below it. Nothing in this first version overlaps loads with the
-// products, and dye makes one round trip through device memory when the
-// moments cotangent is folded in: both are later work.
+// rows below it.
 
 #include "common.cuh"
 
 // Host entry (plain C interface, bound with ctypes). Per-input arrays have
 // n_in entries: the forward inputs (xs, scales, shifts, cs, acts, ups), the
-// transposed tap packs for dx (wts[j]: (cout chunks, 9, 16, nps[j]) bf16,
-// nps[j] the input's channels padded to a multiple of 16*nfs[j]), and the
-// outputs dxs (raw-shaped bf16), dscales/dshifts (zeroed (c_j,) f32, null
-// without a prologue). dy, y: (n, height, width, cout) bf16; dmom (2, cout)
-// f32 or null; dye: a bf16 buffer like dy (used when dmom != null); dbias:
-// zeroed (cout,) f32 or null; dw: zeroed (chunks, 9, 16, np) f32 with np =
-// cout padded to a multiple of 16*nf. Returns a cudaError_t.
+// dx tap packs (wts[j]: (cout chunks of 16, taps, 2, nps[j], 8) bf16; when
+// ups[j], 32 taps: the 16 combined taps rounded to bf16 and, after them,
+// what the rounding dropped, nps[j] the input's channels padded to a
+// multiple of ntiles[j] in {16, 32, 64}; else one pack shared by all such
+// inputs: their 9 flipped, transposed taps side by side, each input's
+// channels padded to 8 in input order, nps[j] and ntiles[j] that pack's), and
+// the outputs dxs (raw-shaped bf16), dscales/dshifts (zeroed (c_j,) f32,
+// null without a prologue). dy, y: (n, height, width, cout) bf16; dmom (2,
+// cout) f32 or null; dye: a bf16 buffer like dy (used when dmom != null);
+// dbias: zeroed (cout,) f32 or null; dw: zeroed (9, cpad, np) f32, the
+// inputs' channels one after another as its rows, each input's padded to a
+// multiple of 8, cpad = that total rounded up to a multiple of 64, and np =
+// cout padded to a multiple of ntile (16 or 32). Returns a cudaError_t.
 extern "C" int mmr_fused_conv_bwd(
     int n_in, const void* const* xs, const void* const* scales,
     const void* const* shifts, const int* cs, const int* acts,
-    const int* ups, const void* const* wts, const int* nfs, const int* nps,
-    void* const* dxs, void* const* dscales, void* const* dshifts,
-    const void* dy, const void* y, const void* dmom, void* dye, void* dbias,
-    void* dw, int nf, int np, int n, int height, int width, int cout,
-    void* stream) {
-  if (n_in < 1 || n_in > kMaxIn || np % (16 * nf) != 0)
-    return (int)cudaErrorInvalidValue;
+    const int* ups, const void* const* wts, const int* ntiles,
+    const int* nps, void* const* dxs, void* const* dscales,
+    void* const* dshifts, const void* dy, const void* y, const void* dmom,
+    void* dye, void* dbias, void* dw, int ntile, int np, int n, int height,
+    int width, int cout, void* stream) {
+  if (n_in < 1 || n_in > kMaxIn) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)n * height * width * cout;
   cudaError_t e = launch_dy_prep(dy, y, dmom, dye, dbias, total, cout, s);
   if (e != cudaSuccess) return (int)e;
-  const PlainDy src{static_cast<const __nv_bfloat16*>(dmom ? dye : dy), cout};
+  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(dmom ? dye : dy);
 
-  DwParams q{};
-  int chunk = 0;
+  DwWgParams<__nv_bfloat16> q{};
+  int rows = 0;
   for (int j = 0; j < n_in; ++j) {
-    q.in[j].x = static_cast<const __nv_bfloat16*>(xs[j]);
-    q.in[j].scale = static_cast<const float*>(scales[j]);
-    q.in[j].shift = static_cast<const float*>(shifts[j]);
-    q.in[j].c = cs[j];
-    q.in[j].act = acts[j];
-    q.in[j].up2x = ups[j];
-    q.in[j].chunk0 = chunk;
-    chunk += (cs[j] + kKC - 1) / kKC;
+    q.in[j] = Input{static_cast<const __nv_bfloat16*>(xs[j]),
+                    static_cast<const float*>(scales[j]),
+                    static_cast<const float*>(shifts[j]), cs[j], acts[j],
+                    ups[j], rows};
+    rows += (cs[j] + 7) / 8 * 8;
   }
+  const int chunk = (rows + 63) / 64;
   q.n_in = n_in;
+  q.dy = g;
+  q.cout = cout;
   q.dw = static_cast<float*>(dw);
-  q.dbias = nullptr;
+  q.cpad = 64 * chunk;
+  q.np = np;
   q.n = n;
   q.height = height;
   q.width = width;
-  q.np = np;
-  e = launch_dw_nf(nf, q, src, chunk, s);
+  e = launch_dw_wg(ntile, q, chunk, s);
   if (e != cudaSuccess) return (int)e;
 
+  WgParams<__nv_bfloat16> d{};
+  d.a = g;
+  d.c = cout;
+  d.ah = height;
+  d.aw = width;
+  d.n = n;
+  auto dx_of = [&](int j, int col) {
+    return WgOut<__nv_bfloat16>{
+        static_cast<__nv_bfloat16*>(dxs[j]), q.in[j].x, q.in[j].scale,
+        q.in[j].shift, static_cast<float*>(dscales[j]),
+        static_cast<float*>(dshifts[j]), cs[j], acts[j], col};
+  };
+  // the inputs that are not lazily upsampled: one launch (they convolve the
+  // same dye), their taps side by side in one pack, each input's columns
+  // padded to 8
+  WgParams<__nv_bfloat16> m = d;
+  m.oh = height;
+  m.ow = width;
+  int tile = 0, col = 0;
   for (int j = 0; j < n_in; ++j) {
-    if (nps[j] % (16 * nfs[j]) != 0) return (int)cudaErrorInvalidValue;
-    DxParams d{};
-    d.x = q.in[j];
-    d.wt = static_cast<const __nv_bfloat16*>(wts[j]);
-    d.dx = static_cast<__nv_bfloat16*>(dxs[j]);
-    d.dscale = static_cast<float*>(dscales[j]);
-    d.dshift = static_cast<float*>(dshifts[j]);
-    d.n = n;
-    d.height = height;
-    d.width = width;
-    d.np = nps[j];
-    e = launch_dx_nf(nfs[j], d, src, s);
+    if (ups[j]) continue;
+    m.wt = static_cast<const __nv_bfloat16*>(wts[j]);
+    m.np = nps[j];
+    tile = ntiles[j];
+    m.out[m.n_out++] = dx_of(j, col);
+    col += (cs[j] + 7) / 8 * 8;
+  }
+  if (m.n_out > 0) {
+    e = launch_conv_wg(tile, m, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one source-resolution launch per lazily x2-upsampled input
+  for (int j = 0; j < n_in; ++j) {
+    if (!ups[j]) continue;
+    WgParams<__nv_bfloat16> u = d;
+    u.oh = height / 2;
+    u.ow = width / 2;
+    u.wt = static_cast<const __nv_bfloat16*>(wts[j]);
+    u.np = nps[j];
+    u.out[0] = dx_of(j, 0);
+    u.n_out = 1;
+    e = launch_up2_dx(ntiles[j], u, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
+}
+
+namespace {
+
+template <int N>
+int hopper_smem(int kind) {
+  return kind == 0   ? WgTile<N, false>::kSmem
+         : kind == 1 ? WgTile<N, true>::kSmem
+         : N <= 32   ? DwTile<N>::kSmem
+                     : -1;
+}
+
+template <class K>
+int blocks_per_sm(K kernel, int threads, int smem) {
+  int n = -1;
+  if (hopper_attrs(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int N>
+int hopper_blocks(int kind) {
+  if (kind == 2 && N > 32) return -1;
+  using B = __nv_bfloat16;
+  if (kind == 0)
+    return blocks_per_sm(conv_wg_kernel<N, B>, WgTile<N, false>::kThreads,
+                         WgTile<N, false>::kSmem);
+  if (kind == 1)
+    return blocks_per_sm(conv_up2_dx_kernel<N>, WgTile<N, true>::kThreads,
+                         WgTile<N, true>::kSmem);
+  return blocks_per_sm(conv_dw_wg_kernel<N <= 32 ? N : 32, B>,
+                       kDwWgThreads, DwTile<N>::kSmem);
+}
+
+}  // namespace
+
+// Dynamic shared memory in bytes (what = 0) or resident blocks per SM at
+// the launch's attributes (what = 1, the occupancy calculator on the
+// current card) of a Hopper kernel of common.cuh at bf16 storage: kind 0
+// conv_wg_kernel, 1 conv_up2_dx_kernel (ntile 16, 32 or 64), 2
+// conv_dw_wg_kernel (ntile 16 or 32). Returns -1 otherwise.
+extern "C" int mmr_hopper_kernel_info(int what, int kind, int ntile) {
+  if (kind < 0 || kind > 2) return -1;
+  switch (ntile) {
+    case 16: return what ? hopper_blocks<16>(kind) : hopper_smem<16>(kind);
+    case 32: return what ? hopper_blocks<32>(kind) : hopper_smem<32>(kind);
+    case 64: return what ? hopper_blocks<64>(kind) : hopper_smem<64>(kind);
+    default: return -1;
+  }
 }

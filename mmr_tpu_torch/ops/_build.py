@@ -7,7 +7,8 @@ interface that :mod:`ctypes` loads. The library lands in
 ``mmr_tpu_torch/_build/`` under a name keyed on a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused. The
 build runs at first use: the first CUDA tensor that reaches a kernel.
-``ptxas -v`` output (registers, shared memory, spills) is printed.
+``ptxas -v`` output (registers, shared memory, spills) is printed, and
+one summary line per Hopper kernel (:func:`ptxas_summary`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,7 +47,12 @@ SIGNATURES = {
     "mmr_head_loss_fwd": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P],
     "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 8
                           + [_I] * 4 + [_P]),
+    "mmr_hopper_kernel_info": [_I, _I, _I],
 }
+# the Hopper kernels (common.cuh) by mangled name, and their kind for
+# ``mmr_hopper_kernel_info`` (0 conv, 1 source-resolution dx, 2 dW)
+HOPPER_KERNELS = {"conv_wg_kernel": 0, "conv_up2_dx_kernel": 1,
+                  "conv_dw_wg_kernel": 2}
 
 
 def _nvcc() -> str:
@@ -65,6 +72,25 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def ptxas_summary(out: str) -> list[str]:
+    """"kernel<N>: registers; spills" for each Hopper kernel in nvcc's
+    ``-Xptxas -v`` output."""
+    rows, name, spill = {}, None, ""
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            k = re.search(r"\d+(%s)ILi(\d+)E(f?)" % "|".join(HOPPER_KERNELS),
+                          m.group(1))
+            name = k and f"{k.group(1)}<{k.group(2)}{', f32' if k.group(3) else ''}>"
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows[name] = f"{name}: {regs} registers; {spill}"
+            name = None
+    return sorted(rows.values())
+
+
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing;
     returns its path."""
@@ -82,9 +108,11 @@ def build() -> Path:
                                   text=True)
                  for s, o in zip(sources, objs)]
         failed = []
+        summary = []
         for s, pr in zip(sources, procs):
             out, _ = pr.communicate()
             print(f"[nvcc {s.name}]\n{out}", flush=True)
+            summary += [f"{s.name} {row}" for row in ptxas_summary(out)]
             if pr.returncode != 0:
                 failed.append(s.name)
         if failed:
@@ -96,6 +124,8 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         os.replace(tmp_lib, lib)
+    for row in summary:
+        print(f"[ptxas] {row}", flush=True)
     print(f"[mmr_tpu_torch] built {lib.name} in {time.time() - t0:.1f} s",
           flush=True)
     return lib

@@ -25,9 +25,9 @@ from torch.nn.grad import conv2d_weight
 
 from mmr_tpu_torch.ops import _build
 from mmr_tpu_torch.ops.fused_conv import (BF16, _check_bias, _check_grad,
-                                          _fragments, _launch_device,
-                                          _pack_weights, _ptr, _raise_on,
-                                          _round, _stream, _unpack_dw)
+                                          _launch_device, _pack_taps, _ptr,
+                                          _raise_on, _round, _stream,
+                                          _unpack_dw_wg, _wg_tile)
 
 # None: dispatch by size; True / False: every bf16 Conv3x3 takes / skips
 # the kernel (tests and yardsticks; ``conv3x3_packed.py::_FORCE``)
@@ -88,13 +88,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     if not _launch_device(device):
         return conv3x3_ref(x, w, bias, relu)
 
-    nf, np_ = _fragments(cout)
-    wt = _pack_weights([w], cout, np_)
+    ntile, np_ = _wg_tile(cout)
+    wt = _pack_taps(w.reshape(9, cin, cout), np_)
     bias_f = None if bias is None else bias.float().contiguous()
     y = torch.empty((batch, h, wd, cout), dtype=BF16, device=device)
     err = _build.library().mmr_conv3x3(
         x.data_ptr(), 0, cin, wt.data_ptr(), _ptr(bias_f), y.data_ptr(),
-        batch, h, wd, cout, np_, nf, int(relu), _stream())
+        batch, h, wd, cout, np_, ntile, int(relu), _stream())
     _raise_on(err, "conv3x3")
     conv3x3.launches += 1
     return y
@@ -126,15 +126,15 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if not _launch_device(x.device):
         return conv3x3_dw_ref(x, g)
 
-    nf, np_ = _fragments(cout)
-    dwp = torch.zeros((-(-cin // 16), 9, 16, np_), dtype=torch.float32,
+    ntile, np_ = _wg_tile(cout, 32)
+    dwp = torch.zeros((9, 64 * -(-cin // 64), np_), dtype=torch.float32,
                       device=x.device)
     err = _build.library().mmr_conv3x3_dw(
         x.data_ptr(), 0, cin, g.data_ptr(), cout, dwp.data_ptr(), batch, h, wd,
-        np_, nf, _stream())
+        np_, ntile, _stream())
     _raise_on(err, "conv3x3_dw")
     conv3x3_dw.launches += 1
-    return _unpack_dw(dwp, 0, cin, cout)
+    return _unpack_dw_wg(dwp, 0, cin, cout)
 
 
 conv3x3_dw.launches = 0

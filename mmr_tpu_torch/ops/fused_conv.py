@@ -229,6 +229,87 @@ def _unpack_dw(dwp: torch.Tensor, chunk0: int, c: int, cout: int):
     return d[:, :c, :cout].reshape(3, 3, c, cout)
 
 
+# The Hopper kernels (``common.cuh``'s cp.async + wgmma mainloops: K3's dx
+# and dW, K6, K8) take their taps in one pack layout and write dW in another.
+
+def _wg_tile(n: int, cap: int = 64) -> tuple[int, int]:
+    """(N, np): the Hopper kernels' output-channel tile for ``n`` channels
+    (16, 32 or 64, at most ``cap``: the wgmma N; the dW kernel takes 32 at
+    most) and ``n`` padded to a multiple of it."""
+    tile = min(cap, 16 if n <= 16 else 32 if n <= 32 else 64)
+    return tile, -(-n // tile) * tile
+
+
+def _pack_taps(taps: torch.Tensor, np_: int) -> torch.Tensor:
+    """(T, K, N) tap matrices -> the Hopper kernels' bf16 pack (K chunks of
+    16, T, 2, np_, 8): ``pack[k, t, g, n, i] = taps[t, 16k + 8g + i, n]``,
+    zero beyond K and N. Each (n, 8 channels) row is 16 bytes: the K-major
+    B operand of a wgmma, one 16-channel chunk a ring stage."""
+    t, k, n = taps.shape
+    nch = -(-k // 16)
+    wp = F.pad(taps.to(BF16), (0, np_ - n, 0, nch * 16 - k))
+    return wp.reshape(t, nch, 2, 8, np_).permute(1, 0, 2, 4, 3).contiguous()
+
+
+def _dx_taps(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, c, cout) -> the 9 dx taps (9, cout, c) of a forward-style
+    conv over dy: flipped and transposed."""
+    return w.flip(0, 1).transpose(2, 3).reshape(9, w.shape[3], w.shape[2])
+
+
+# per axis: the flipped taps (columns) that sum into the combined tap at
+# fine offset -1, 0, 1, 2 (rows) of a lazily x2-upsampled input's dx
+_UP2 = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
+
+
+def _up2_taps(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, c, cout) -> the taps (32, cout, c) f32 of the
+    source-resolution dx of a lazily ×2-upsampled input: the 2×2 sum of the
+    fine transposed conv is one 4×4 stride-2 correlation over the fine dy,
+    ``dx(Y, X) = Σ_{oy, ox ∈ −1..2} dy(2Y + oy, 2X + ox) · C[oy, ox]`` with
+    ``C[oy, ox] = Σ_{ky, kx} A[oy, ky] A[ox, kx] Wf[ky, kx]`` over the
+    flipped, transposed weights Wf rounded to bf16 (per axis (Wf0, Wf0+Wf1,
+    Wf1+Wf2, Wf2)), summed in f32. Taps 0..15 are the sums rounded to bf16
+    (``hi``), 16..31 what that rounding dropped (``lo``, rounded by
+    :func:`_pack_taps`): the kernel multiplies both, so the summed taps are
+    not rounded as JAX's ``toeplitz_up`` rounds them."""
+    wf = w.to(BF16).float().flip(0, 1).transpose(2, 3)
+    a = torch.tensor(_UP2, device=w.device)
+    c = torch.einsum("ay,bx,yxkn->abkn", a, a, wf).reshape(
+        16, w.shape[3], w.shape[2])
+    hi = c.to(BF16).float()
+    return torch.cat([hi, c - hi])
+
+
+def _dx_packs(inputs: list[Pending], weights: list[torch.Tensor]):
+    """K3's dx tap packs and their (N, np), per input: a lazily ×2-upsampled
+    input's own pack of :func:`_up2_taps`; the other inputs share one pack,
+    their :func:`_dx_taps` side by side in input order, each input's
+    channels padded to 8 (one launch writes all their dx)."""
+    same = [(p, w) for p, w in zip(inputs, weights) if not p.up2x]
+    if same:
+        taps = torch.cat([F.pad(_dx_taps(w), (0, -(-p.c // 8) * 8 - p.c))
+                          for p, w in same], dim=2)
+        tile = _wg_tile(taps.shape[2])
+        shared = _pack_taps(taps, tile[1])
+    packs, tiles = [], []
+    for p, w in zip(inputs, weights):
+        if p.up2x:
+            tiles.append(_wg_tile(p.c))
+            packs.append(_pack_taps(_up2_taps(w), tiles[-1][1]))
+        else:
+            tiles.append(tile)
+            packs.append(shared)
+    return packs, tiles
+
+
+def _unpack_dw_wg(dwp: torch.Tensor, row0: int, c: int, cout: int):
+    """(9, cpad, np) f32 Hopper dW output -> one input's HWIO dW: its rows
+    from ``row0`` (the inputs' channels one after another, each input's
+    padded to a multiple of 8)."""
+    return dwp[:, row0:row0 + c, :cout].reshape(3, 3, c, cout)
+
+
 # ------------------------------------------------------------------- K1
 
 def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
@@ -358,10 +439,10 @@ def fused_conv_bwd(inputs: list[Pending], weights: list[torch.Tensor],
         return fused_conv_bwd_ref(inputs, weights, y, dy, dmom, has_bias)
 
     f32 = dict(dtype=torch.float32, device=device)
-    nf, np_ = _fragments(cout)
-    chunks = [-(-p.c // 16) for p in inputs]
-    dwp = torch.zeros((sum(chunks), 9, 16, np_), **f32)
-    packs = [_pack_transposed(wj) for wj in weights]
+    ntile, np_ = _wg_tile(cout, 32)
+    rows = [-(-p.c // 8) * 8 for p in inputs]   # dW rows: channels, to 8
+    dwp = torch.zeros((9, -(-sum(rows) // 64) * 64, np_), **f32)
+    packs, tiles = _dx_packs(inputs, weights)
     dxs = [torch.empty_like(p.raw) for p in inputs]
     dpros = [None if p.scale is None else (torch.zeros(p.c, **f32),
                                            torch.zeros(p.c, **f32))
@@ -377,17 +458,17 @@ def fused_conv_bwd(inputs: list[Pending], weights: list[torch.Tensor],
         _arr(I, [p.c for p in inputs]),
         _arr(I, [0 if p.scale is None else ACTS[p.act] for p in inputs]),
         _arr(I, [int(p.up2x) for p in inputs]),
-        _arr(P, [k[0].data_ptr() for k in packs]),
-        _arr(I, [k[1] for k in packs]), _arr(I, [k[2] for k in packs]),
+        _arr(P, [k.data_ptr() for k in packs]),
+        _arr(I, [t[0] for t in tiles]), _arr(I, [t[1] for t in tiles]),
         _arr(P, [d.data_ptr() for d in dxs]),
         _arr(P, [None if d is None else d[0].data_ptr() for d in dpros]),
         _arr(P, [None if d is None else d[1].data_ptr() for d in dpros]),
         dy.data_ptr(), _ptr(y), _ptr(dmom_c), _ptr(dye), _ptr(dbias),
-        dwp.data_ptr(), nf, np_, batch, h, w, cout, _stream())
+        dwp.data_ptr(), ntile, np_, batch, h, w, cout, _stream())
     _raise_on(err, "fused_conv_bwd")
     fused_conv_bwd.launches += 1
-    starts = [sum(chunks[:j]) for j in range(len(inputs))]
-    dws = [_unpack_dw(dwp, s0, p.c, cout) for s0, p in zip(starts, inputs)]
+    starts = [sum(rows[:j]) for j in range(len(inputs))]
+    dws = [_unpack_dw_wg(dwp, s0, p.c, cout) for s0, p in zip(starts, inputs)]
     return dxs, dws, dpros, dbias
 
 

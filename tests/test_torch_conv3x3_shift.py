@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from mmr_tpu_torch.ops import conv3x3 as k8
+from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 BF16 = torch.bfloat16
 SHAPES = [((2, 16, 12, 8), 8), ((1, 32, 30, 16), 24), ((2, 64, 30, 8), 16)]

@@ -28,6 +28,7 @@ from mmr_tpu.ops.pallas.conv3x3_packed import _toeplitz
 from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv,
                                           fused_conv_down, fused_conv_down_ref,
                                           fused_conv_ref)
+from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 ATOL, RTOL = 0.05, 0.02
 

@@ -184,6 +184,12 @@ TRAIN_CONVS = [
     ([(5, True), (7, False)], 10, (18, 40), 2),        # ragged channels / tiles
     ([(256, True), (24, False), (24, False)], 128, (64, 80), 8),  # x_0_1.conv1
     ([(32, True)], 16, (512, 640), 8),                            # x_0_4.conv1
+    # the Hopper tiles' edges: W = 80 (a 64-pixel segment and 16 more),
+    # 136; lazy x2 inputs of 200 and 320 channels (not multiples of 16)
+    ([(200, True), (24, False)], 64, (32, 80), 2),
+    ([(320, True), (10, False)], 32, (20, 136), 2),
+    # no lazy input: three dx in one launch, columns padded to 8
+    ([(16, False), (10, False), (24, False)], 16, (24, 72), 2),
 ]
 
 
@@ -316,7 +322,9 @@ def test_fused_train_step_on_card(dev):
 K6_CONVS = [(2, 18, 40, 5, 10), (2, 16, 32, 24, 200),
             (8, 64, 64, 320, 64), (8, 128, 128, 320, 32),
             (8, 128, 128, 64, 64), (8, 256, 256, 16, 16),
-            (8, 256, 256, 16, 10), (8, 256, 256, 10, 16)]
+            (8, 256, 256, 16, 10), (8, 256, 256, 10, 16),
+            # the Hopper tiles' edges: odd H, W = 80 and 136, 200 channels
+            (2, 19, 80, 200, 64), (2, 9, 136, 320, 10), (1, 33, 40, 10, 5)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", K6_CONVS)
@@ -431,7 +439,7 @@ def test_path_a_train_and_eval_on_card(dev):
 # of the 8-row block), cout 1 .. 2 fragments, and the 16 -> 16 shape the
 # TPU kernel was written for (conv3x3.py:4-7) at a smaller batch
 K8_CONVS = [(2, 21, 30, 3, 16), (2, 16, 32, 8, 8), (1, 40, 24, 16, 24),
-            (2, 34, 50, 24, 16), (4, 512, 512, 16, 16)]
+            (2, 34, 50, 24, 16), (4, 512, 512, 16, 16), (2, 17, 136, 10, 5)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", K8_CONVS)

@@ -15,6 +15,7 @@ from mmr_tpu_torch.infer.sliding_window import (
     sliding_window_inference)
 from mmr_tpu_torch.metrics import iou_score, segmentation_stats
 from mmr_tpu_torch.ops.fused_conv import Pending
+from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 
 def _swi(x, pred, **kw):

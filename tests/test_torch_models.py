@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from mmr_tpu_torch.models import create_model
 from mmr_tpu_torch.models.convert import from_jax_variables
+from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 NC = 10
 REPO = Path(__file__).resolve().parents[1]

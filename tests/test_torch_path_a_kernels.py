@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from mmr_tpu_torch.models.layers import Conv3x3
 from mmr_tpu_torch.ops import conv3x3_packed as k6
 from mmr_tpu_torch.ops.confusion import confusion_stats
+from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 BF16 = torch.bfloat16
 
