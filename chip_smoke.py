@@ -13,7 +13,8 @@ front-end and head + loss).
 
 1. The card's name and power limit; build the CUDA kernels from
    ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``, one line of registers
-   and spills per Hopper kernel of ``common.cuh``), and each Hopper
+   and spills per Hopper kernel: ``common.cuh``'s, K1's
+   ``pending_conv_kernel`` and K5b's ``head_bwd_kernel``), and each Hopper
    kernel's dynamic shared memory and resident blocks per SM.
 2. One eval forward of one frame's 20 windows through the fused path,
    recording every kernel launch: each K1 (``fused_conv``) and K2
@@ -84,10 +85,14 @@ Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
 K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
 the port). Those times are of each launch repeated alone, wrapper (weight
-packs) included; phases 6–8 also print K3's and K6a's device time by part
+packs, cached per weight version for K1 and K5) included; phases 5–8 also
+print the device time of K1 (serve, train), K3, K5b and K6a by part
 (``device_split``: ``torch.profiler`` time of the kernels alone — K3's dy
-prep, dW, dx and the source-resolution dx of lazily ×2 inputs; K6a's
-forward and dx), per launch and summed.
+prep, dW, dx and the source-resolution dx of lazily ×2 inputs; K5b's dx +
+dW kernel and its reduction; K6a's forward and dx), per launch and summed,
+beside the share of the wrapper-included time that is host work; phases 5
+and 6 also time every K1 launch at each output-channel tile it can take
+(``k1_tile_ab``).
 Phases 5 and 6 run their plain-bf16 yardsticks with
 ``conv3x3_packed._FORCE = False``: the library conv they always measured.
 
@@ -305,8 +310,9 @@ def recording():
             out = _fn(*a, **kw)
             args = _sig.bind(*a, **kw)
             args.apply_defaults()
-            records.append((_kind, _clone(args.arguments), _clone(out),
-                            _in_backward()))
+            with torch.inference_mode(False):   # clones that keep versions
+                records.append((_kind, _clone(args.arguments), _clone(out),
+                                _in_backward()))
             return out
         wrapped.launches = 0
         recorders[kind] = wrapped
@@ -523,24 +529,29 @@ def time_cases(phase, cases):
               f"{c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
 
 
-# the kernels K3 and K6a launch (demangled CUDA names hold these), as K3's
-# parts
-K3_PARTS = {"dy_prep_kernel": "dy prep", "conv_dw_wg_kernel": "dW",
-            "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"}
+# the port's kernels each wrapper launches (demangled CUDA names hold these),
+# as parts of its device time; K6a's part is the case's label (forward, dx)
+PARTS = {
+    "K1": {"pending_conv_kernel": "conv"},
+    "K3": {"dy_prep_kernel": "dy prep", "conv_dw_wg_kernel": "dW",
+           "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"},
+    "K5b": {"head_bwd_kernel": "dx + dW", "head_bwd_reduce_kernel": "reduce"},
+    "K6a": {"conv_wg_kernel": None},
+}
 
 
 def device_split(phase, cases, kind, reps=5) -> dict:
     """Device time of the kernels each ``kind`` launch runs, by part, from
     ``torch.profiler`` (the wrapper's own weight packs and zero fills are
-    other kernels and not counted). K3: "dy prep", "dW", "dx" (of the
-    inputs that are not lazily upsampled, one launch) and "dx x2" (the
-    source-resolution dx of each lazily x2-upsampled input), by kernel
-    name; K6a: "forward" and "dx" by the case's label. Returns {part: ms
+    other kernels and not counted): the parts of ``PARTS[kind]`` by kernel
+    name (K6a: "forward" and "dx" by the case's label). Prints each launch's
+    parts, their sums and the share of the wrapper-included time (``ms``,
+    each launch timed alone) that is not device time. Returns {part: ms
     summed over cases}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn, split = wrapper(kind), {}
+    fn, split, names = wrapper(kind), {}, PARTS[kind]
     for c in (c for c in cases if c["kind"] == kind):
         args = c["args"]
         with torch.no_grad():
@@ -552,14 +563,14 @@ def device_split(phase, cases, kind, reps=5) -> dict:
                     fn(**args)
                 torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in K3_PARTS)]
+               and any(k in e.name for k in names)]
         parts = {}
         for e in evs:
             ms = e.time_range.elapsed_us() / 1e3 / reps
             if kind == "K6a":
                 part = "dx" if c["label"].endswith(" dx") else "forward"
             else:
-                part = next(v for k, v in K3_PARTS.items() if k in e.name)
+                part = next(v for k, v in names.items() if k in e.name)
             parts[part] = parts.get(part, 0.0) + ms
         for k, v in parts.items():
             split[k] = split.get(k, 0.0) + v
@@ -567,7 +578,49 @@ def device_split(phase, cases, kind, reps=5) -> dict:
             f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
     print(f"[{phase}] {kind} device split, summed over the launches (ms): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    timed = [c["ms"] for c in cases if c["kind"] == kind and "ms" in c]
+    if timed:
+        dev, alone = sum(split.values()), sum(timed)
+        print(f"[{phase}] {kind}: device {dev:.4f} ms, each launch timed alone "
+              f"with its wrapper {alone:.4f} ms: wrapper work "
+              f"{100 * (1 - dev / alone):.1f} %", flush=True)
     return split
+
+
+def k1_tile_ab(phase, cases) -> dict:
+    """K1's output-channel tiles A/B: every K1 case timed (CUDA events,
+    wrapper included, packs cached; the least of three runs of ``REPS // 2``
+    launches, so that a stall of the host does not decide) at each tile N
+    in (16, 32, 64) its cout takes, summed by cout. Prints the sums and the
+    fastest N per cout and returns {cout: {N: ms}}."""
+    from mmr_tpu_torch.ops import fused_conv as fc
+
+    table = {}
+    for c in (c for c in cases if c["kind"] == "K1"):
+        cout = c["args"]["weights"][0].shape[-1]
+        for n in (16, 32, 64):
+            if n > fc._wg_tile(cout)[0]:
+                continue
+            old = fc.K1_TILE.get(cout)
+            fc.K1_TILE[cout] = n
+            try:
+                with torch.no_grad():
+                    ms = min(cuda_ms(lambda: fc.fused_conv(**c["args"]),
+                                     REPS // 2) for _ in range(3))
+            finally:
+                if old is None:
+                    del fc.K1_TILE[cout]
+                else:
+                    fc.K1_TILE[cout] = old
+            row = table.setdefault(cout, {})
+            row[n] = row.get(n, 0.0) + ms
+    for cout, row in sorted(table.items()):
+        best = min(row, key=row.get)
+        print(f"[{phase}] K1 tile A/B, cout {cout}: " + ", ".join(
+            f"N={n} {ms:.4f} ms" for n, ms in row.items())
+            + f"; fastest N={best}, in use N="
+            f"{fc.K1_TILE.get(cout, fc._wg_tile(cout)[0])}", flush=True)
+    return table
 
 
 def kernel_entry(kind, cases, launches, per) -> dict:
@@ -707,10 +760,11 @@ def train_phase(model, dev, rng) -> dict:
         print(f"[6]     {t:8.3f} ms  x{cnt:5.1f}  {key}", flush=True)
 
     time_cases(6, cases)
-    split = device_split(6, cases, "K3")
+    k1_tile_ab(6, cases)
     per = f"sum over the launches of one train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]})"
     out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
-    out["K3"]["device_ms"] = split
+    for kind in ("K1", "K3", "K5b"):
+        out[kind]["device_ms"] = device_split(6, cases, kind)
     return out
 
 
@@ -1067,11 +1121,10 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     print(f"[1] kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
-    info = _build.library().mmr_hopper_kernel_info
-    for name, kind in _build.HOPPER_KERNELS.items():
+    for name, (entry, kind, tiles) in _build.HOPPER_KERNELS.items():
+        info = getattr(_build.library(), entry)
         print(f"[1] {name}: dynamic shared memory, blocks per SM: " + ", ".join(
-            f"N={n} {info(0, kind, n)} B, {info(1, kind, n)}"
-            for n in ((16, 32) if kind == 2 else (16, 32, 64))),
+            f"N={n} {info(0, kind, n)} B, {info(1, kind, n)}" for n in tiles),
             flush=True)
 
     # ---- model, one frame's windows --------------------------------------
@@ -1168,6 +1221,7 @@ def main() -> int:
 
     # ---- 5. times ----------------------------------------------------------
     time_cases(5, cases)
+    k1_tile_ab(5, cases)
     with torch.inference_mode(), library_conv3x3():
         for name, m in (("fused", model), ("plain bf16 cuDNN", plain16)):
             ts = sorted(cuda_ms(lambda: m(windows), 1, warmup=0 if i else 2)
@@ -1187,12 +1241,13 @@ def main() -> int:
 
     per = "sum over the launches of one 20-window forward"
     kernels = [kernel_entry("K1", cases, s1, per), kernel_entry("K2", cases, s2, per)]
+    kernels[0]["device_ms"] = device_split(5, cases, "K1")
     # ---- 6. training -------------------------------------------------------
     train = train_phase(model, dev, rng)
     for kind, e in zip(("K1", "K2"), kernels):   # their train-step numbers beside
         e.update({f"train_{k}": train[kind][k] for k in
                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                   "bound_by", "library_ms")})
+                   "bound_by", "library_ms", "device_ms") if k in train[kind]})
     kernels += [train[k] for k in ("K3", "K4", "K5a", "K5b")]
     # ---- 7. Path-A training, 8. Path-A evaluation ------------------------
     path_a, entries = path_a_train_phase(dev, args.seed)

@@ -4,12 +4,12 @@
 // the standalone conv K6/K8 (conv3x3.cu).
 //
 // Two generations of mainloop live here. The WMMA one (load_tile,
-// load_weights, mma_chunk, conv_dx_kernel, conv_dw_kernel): one block =
-// kTH output rows x kTW pixels, an input staged 16 channels at a time as a
-// (kTH+2) x (kTW+2) halo tile by synchronous register loads between two
-// __syncthreads, products as WMMA bf16 m16n16k16 (one warp per output row);
-// K1, K5a and K5b run on it. The Hopper one ("Hopper mainloops" below:
-// cp.async ring, wgmma): K3's dx and dW, K6a/K6b and K8a/K8b.
+// load_weights, mma_chunk): one block = kTH output rows x kTW pixels, an
+// input staged 16 channels at a time as a (kTH+2) x (kTW+2) halo tile by
+// synchronous register loads between two __syncthreads, products as WMMA
+// bf16 m16n16k16 (one warp per output row); only K5a still runs on it. The
+// Hopper one ("Hopper mainloops" below: cp.async ring, wgmma): K1, K3's dx
+// and dW, K5b, K6a/K6b and K8a/K8b.
 
 #pragma once
 
@@ -207,272 +207,21 @@ InputT<T> plain_input(const void* x, int c) {
                    0};
 }
 
-// --------------------------------------------------------------- dy sources
-// What the WMMA backward kernels below convolve: the upstream gradient of a
-// conv output, staged as bf16 tiles by a source type with halo_tile (a halo
-// tile of 16 channels) and core_tile (the tile's own pixels): the head-loss
-// source HeadDy (head_loss.cu) synthesizes d(logits) on the fly.
-
-// ----------------------------------------------------------- backward: dx
-// (WMMA; K5b's dx over HeadDy.) dx of one forward input: a forward-style
-// 3x3 conv of dy over the input's weight slice with flipped, transposed
-// taps (wt: (dy chunks, 9, 16, np) over the input's channels), then the
-// prologue's backward gm = g * act'(s*x + t): dx = gm*s (bf16), dscale +=
-// gm*x, dshift += gm. SAME padding carries no gradient: only in-image
-// positions are written.
-
-struct DxParams {
-  Input x;                  // the forward input (raw, prologue, c)
-  const __nv_bfloat16* wt;  // (dy chunks, 9, kKC, np) transposed taps
-  __nv_bfloat16* dx;        // raw-shaped gradient
-  float* dscale;            // (c,) or null when x.act == kNone
-  float* dshift;
-  int n, height, width, np;
-};
-
-template <int NF>
-constexpr int dx_smem_bytes() {
-  return kTilePix * kKC * 2 + 9 * kKC * (NF * 16 + 8) * 2 + kTH * 256 * 4 +
-         2 * NF * 16 * 4;
-}
-
-template <int NF, class Src>
-__global__ void __launch_bounds__(kThreads)
-    conv_dx_kernel(const DxParams p, const Src src) {
-  constexpr int kN = NF * 16;
-  constexpr int kNS = kN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = tile + kTilePix * kKC;
-  float* stage = reinterpret_cast<float*>(wsm + 9 * kKC * kNS);
-  float* dsum = stage + kTH * 256;  // (2, kN)
-
-  const int tiles_x = (p.width + kTW - 1) / kTW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.z * kN;
-  const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < 2 * kN; i += blockDim.x) dsum[i] = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-  const int nch = (src.c + kKC - 1) / kKC;
-  for (int ch = 0; ch < nch; ++ch) {
-    __syncthreads();
-    src.halo_tile(b, p.height, p.width, ty0, tx0, ch * kKC, tile);
-    load_weights(p.wt + (size_t)ch * 9 * kKC * p.np, p.np, n0, kN, wsm, kNS);
-    __syncthreads();
-    mma_chunk<NF>(tile, wsm, kNS, warp, acc);
-  }
-
-  const Input& x = p.x;
-  const int t = threadIdx.x;
-  const int cg = (t & 1) * 8;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(stage + warp * 256, acc[f], 16,
-                            wmma::mem_row_major);
-    __syncthreads();
-    const int ci0 = n0 + f * 16 + cg;
-    const int pix = t >> 1, row = pix >> 4, px = pix & 15;
-    const int sy = ty0 + row, sx = tx0 + px;
-    const bool ok = sy < p.height && sx < p.width;
-    float g[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) g[k] = stage[row * 256 + px * 16 + cg + k];
-    if (ok) {
-      const size_t base = ((size_t)(b * p.height + sy) * p.width + sx) * x.c;
-      for (int k = 0; k < 8; ++k) {
-        const int ci = ci0 + k;
-        if (ci >= x.c) break;
-        float d = g[k];
-        if (x.act != kNone) {
-          const float xi = __bfloat162float(x.x[base + ci]);
-          const float s = x.scale[ci];
-          const float v = __fadd_rn(__fmul_rn(xi, s), x.shift[ci]);
-          const float gm = d * act_grad(v, x.act);
-          d = gm * s;
-          atomicAdd(&dsum[f * 16 + cg + k], gm * xi);
-          atomicAdd(&dsum[kN + f * 16 + cg + k], gm);
-        }
-        p.dx[base + ci] = __float2bfloat16_rn(d);
-      }
-    }
-    __syncthreads();
-  }
-  if (x.act != kNone) {
-    for (int i = threadIdx.x; i < kN; i += blockDim.x) {
-      const int ci = n0 + i;
-      if (ci < x.c) {
-        atomicAdd(&p.dscale[ci], dsum[i]);
-        atomicAdd(&p.dshift[ci], dsum[kN + i]);
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------- backward: dW
-// (WMMA; K5b's dW and dbias over HeadDy.) dW[tap][ci][co] = sum over all
-// output pixels p of a(p + tap - 1)[ci] * dy(p)[co], with a the
-// prologue'd (bf16) input as the forward staged it. Blocks: x = one
-// 16-channel input chunk (over all inputs), y = one tile of
-// kN output channels, z = a share of the pixel tiles. Warp w of 9 owns tap
-// w and keeps its NF 16x16 f32 fragments in registers over the block's
-// pixel tiles; the block's partial sums reach dw by f32 atomics (order-
-// dependent rounding, ~1e-6 relative). With bias != null the chunk-0
-// blocks also sum dy (f32, before rounding) into dbias (HeadDy only).
-
-constexpr int kDwThreads = 9 * 32;
-
-template <class T>
-struct DwParamsT {
-  InputT<T> in[kMaxIn];
-  int n_in;
-  float* dw;     // (chunks, 9, kKC, np) f32
-  float* dbias;  // (np,) f32 or null
-  int n, height, width, np;
-};
-using DwParams = DwParamsT<__nv_bfloat16>;
-
-template <int NF>
-constexpr int dw_smem_bytes() {
-  return kTilePix * kKC * 2 + kTH * kTW * (NF * 16 + 8) * 2 + 9 * 256 * 4 +
-         NF * 16 * 4;
-}
-
-template <int NF, class Src, class T>
-__global__ void __launch_bounds__(kDwThreads)
-    conv_dw_kernel(const DwParamsT<T> p, const Src src) {
-  constexpr int kN = NF * 16;
-  constexpr int kNS = kN + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dyt = tile + kTilePix * kKC;
-  float* stage = reinterpret_cast<float*>(dyt + kTH * kTW * kNS);
-  float* bsum = stage + 9 * 256;  // (kN,)
-
-  const int chunk = blockIdx.x;
-  int j = 0;
-  while (j + 1 < p.n_in && chunk >= p.in[j + 1].chunk0) ++j;
-  const InputT<T>& in = p.in[j];
-  const int c0 = (chunk - in.chunk0) * kKC;
-  const int n0 = blockIdx.y * kN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool with_bias = p.dbias != nullptr && chunk == 0;
-  for (int i = threadIdx.x; i < kN; i += blockDim.x) bsum[i] = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  const int tiles_x = (p.width + kTW - 1) / kTW;
-  const int tiles_y = (p.height + kTH - 1) / kTH;
-  const int total = p.n * tiles_y * tiles_x;
-  const int dy_ = warp / 3, dx_ = warp % 3;
-  for (int tt = blockIdx.z; tt < total; tt += gridDim.z) {
-    const int b = tt / (tiles_y * tiles_x);
-    const int r = tt % (tiles_y * tiles_x);
-    const int ty0 = (r / tiles_x) * kTH;
-    const int tx0 = (r % tiles_x) * kTW;
-    __syncthreads();
-    load_tile(in, b, p.height, p.width, ty0, tx0, c0, tile);
-    src.core_tile(b, p.height, p.width, ty0, tx0, n0, kN, dyt, kNS,
-                  with_bias ? bsum : nullptr);
-    __syncthreads();
-#pragma unroll 2
-    for (int row = 0; row < kTH; ++row) {
-      // A = a^T: (16 channels) x (16 pixels of row+dy, from col dx)
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a;
-      wmma::load_matrix_sync(
-          a, tile + ((row + dy_) * (kTW + 2) + dx_) * kKC, kKC);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, dyt + row * kTW * kNS + f * 16, kNS);
-        wmma::mma_sync(acc[f], a, bm, acc[f]);
-      }
-    }
-  }
-
-  float* st = stage + warp * 256;
-  float* out = p.dw + ((size_t)chunk * 9 + warp) * kKC * p.np + n0;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      atomicAdd(&out[(size_t)(e >> 4) * p.np + f * 16 + (e & 15)], st[e]);
-    __syncwarp();
-  }
-  if (with_bias) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kN; i += blockDim.x)
-      atomicAdd(&p.dbias[n0 + i], bsum[i]);
-  }
-}
-
-template <int NF, class Src, class T>
-cudaError_t launch_dw(const DwParamsT<T>& p, const Src& src, int n_chunks,
-                      cudaStream_t stream) {
-  constexpr int smem = dw_smem_bytes<NF>();
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_dw_kernel<NF, Src, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return e;
-  const int tiles = p.n * ((p.height + kTH - 1) / kTH) *
-                    ((p.width + kTW - 1) / kTW);
-  const int xy = n_chunks * (p.np / (NF * 16));
-  int split = (132 * 8 + xy - 1) / xy;
-  if (split > tiles) split = tiles;
-  if (split < 1) split = 1;
-  const dim3 grid(n_chunks, p.np / (NF * 16), split);
-  conv_dw_kernel<NF, Src, T><<<grid, kDwThreads, smem, stream>>>(p, src);
-  return cudaGetLastError();
-}
-
-template <int NF, class Src>
-cudaError_t launch_dx(const DxParams& p, const Src& src,
-                      cudaStream_t stream) {
-  constexpr int smem = dx_smem_bytes<NF>();
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_dx_kernel<NF, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return e;
-  const int tiles = ((p.width + kTW - 1) / kTW) * ((p.height + kTH - 1) / kTH);
-  const dim3 grid(tiles, p.n, p.np / (NF * 16));
-  conv_dx_kernel<NF, Src><<<grid, kThreads, smem, stream>>>(p, src);
-  return cudaGetLastError();
-}
-
-template <class Src>
-cudaError_t launch_dx_nf(int nf, const DxParams& p, const Src& src,
-                         cudaStream_t s) {
-  switch (nf) {
-    case 1: return launch_dx<1>(p, src, s);
-    case 2: return launch_dx<2>(p, src, s);
-    case 4: return launch_dx<4>(p, src, s);
-    case 8: return launch_dx<8>(p, src, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // ======================================================== Hopper mainloops
 // The stride-1 conv of K6a (forward and dx; K8a at f32 or bf16 storage) and
-// K3's dx (conv_wg_kernel), the source-resolution dx of a lazily
-// x2-upsampled K3 input (conv_up2_dx_kernel) and the weight gradient of K3,
-// K6b and K8b (conv_dw_wg_kernel), built for the H100 (sm_90a):
+// K3's dx (conv_wg_kernel), K1's conv over pending inputs
+// (pending_conv_kernel), the source-resolution dx of a lazily x2-upsampled
+// K3 input (conv_up2_dx_kernel) and the weight gradient of K3, K6b and K8b
+// (conv_dw_wg_kernel), built for the H100 (sm_90a); K5b (head_loss.cu)
+// builds its own tile from the same pieces:
 //
 // - Operands reach shared memory by cp.async (16 B a copy, zero-fill for the
 //   halo, the ragged edge and channels beyond c) in a ring of 2 stages (3
 //   for the conv at N = 64); an operand that must be converted on the way
-//   (f32 storage, a channel count not a multiple of 8, K3's prologue'd and
-//   lazily upsampled dW input) is staged through registers instead, dW's
-//   input one pixel tile ahead. The products on one stage run while the
+//   (f32 storage, a channel count not a multiple of 8, K1's and K3's
+//   prologue'd and lazily upsampled inputs) is staged through registers
+//   instead (fetch8, prologue8), K1's one chunk ahead and dW's one pixel
+//   tile ahead. The products on one stage run while the
 //   next stages' loads are in flight: one __syncthreads per stage, after
 //   cp.async.wait_group. A thread that stored through registers issues
 //   fence.proxy.async after its stores (wgmma reads shared memory through
@@ -646,6 +395,77 @@ struct Wgmma<64> {
 // into even and odd columns, so each combined tap reads a contiguous run of
 // source-resolution slots.
 
+// With kPend (K1's pending_conv_kernel) the operand is the concat of up to 8
+// pending inputs (in[], each in concat order from chunk0, its channels
+// padded to 16 a chunk: the K loop runs over all their chunks and the tap
+// pack is over that concat), each staged through registers one chunk ahead
+// with its prologue act(s*x + t) (f32, no FMA contraction, rounded to bf16)
+// and its lazy x2 (fine pixel (y, x) reads source pixel (y/2, x/2)); SAME
+// padding is zero after the prologue, and a lazy input's border is the fine
+// tensor's. With mom != null the epilogue adds Sum y and Sum y^2 of the f32
+// outputs (bias included, before the bf16 rounding) into mom, one f32
+// atomic per channel and block, as dscale / dshift are added.
+
+// 8 channels [xc, xc + 8) of pixel (yy, xx) (inside the image) of the image
+// an input stands for (a lazy x2 input: its source pixel (yy/2, xx/2)), as
+// bf16 (an f32 input rounded), zero beyond the input's c
+template <class T>
+__device__ __forceinline__ uint4 fetch8(const InputT<T>& in, int b,
+                                        int height, int width, int yy,
+                                        int xx, int xc, bool xvec) {
+  const int hs = in.up2x ? height >> 1 : height;
+  const int ws = in.up2x ? width >> 1 : width;
+  const int sy = in.up2x ? yy >> 1 : yy;
+  const int sx = in.up2x ? xx >> 1 : xx;
+  const T* src = in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + xc;
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+  if (xvec) {
+    load8_bf16(src, e);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (xc + k < in.c) e[k] = to_bf16(src[k]);
+  }
+  return raw;
+}
+
+// act(s*v + t) of 8 bf16 values in place, rounded to bf16 (identity for
+// kNone), the act chosen once for the 8
+__device__ __forceinline__ void prologue8(__nv_bfloat16* e, const float* s,
+                                          const float* t, int act) {
+  if (act == kNone) return;
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = __fadd_rn(__fmul_rn(__bfloat162float(e[k]), s[k]), t[k]);
+  if (act == kRelu) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = fmaxf(v[k], 0.f);
+  } else if (act == kHswish) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float g = fminf(fmaxf(__fadd_rn(v[k], 3.f), 0.f), 6.f);
+      v[k] = __fmul_rn(__fmul_rn(v[k], g), 1.f / 6.f);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
+}
+
+// the prologue vectors of channels [xc, xc + 8) of an input: (1, 0) beyond
+// c, so that the padding stays act(0) = 0
+template <class T>
+__device__ __forceinline__ void prologue_vec8(const InputT<T>& in, int xc,
+                                              float* s, float* t) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const bool on = in.act != kNone && xc + k < in.c;
+    s[k] = on ? in.scale[xc + k] : 1.f;
+    t[k] = on ? in.shift[xc + k] : 0.f;
+  }
+}
+
 // One output of the conv: block columns [off, off + c) are its channels
 // (off a multiple of 8), so one launch can write the dx of several inputs
 // that convolve the same dy.
@@ -662,13 +482,16 @@ struct WgOut {
 
 template <class T>
 struct WgParams {
-  const T* a;               // the operand, NHWC (n, ah, aw, c)
-  int c, ah, aw;
+  const T* a;               // the operand, NHWC (n, ah, aw, c); or, with
+  int c, ah, aw;            // kPend, c = 16 * the inputs' chunks
+  Input in[kMaxIn];         // kPend: the pending inputs (chunk0 in chunks)
+  int n_in;
   const __nv_bfloat16* wt;  // (c chunks, taps, 2, np, 8) bf16
   int np;                   // columns, a multiple of the tile N
   int n, oh, ow;
   const float* bias;        // (out[0].c,) or null
   int relu;
+  float* mom;               // zeroed (2, out[0].c) f32 or null
   WgOut<T> out[kMaxIn];
   int n_out;
 };
@@ -725,9 +548,156 @@ __device__ __forceinline__ void store2(float* dst, float v0, float v1,
   }
 }
 
-template <int N, bool kUp2, class T>
+// K1's A operand, staged through registers one chunk ahead: load() issues
+// the global loads of chunk ch of the pending inputs (thread t takes
+// channel half t & 1 and every (kThr/2)-th pixel of the kPix halo pixels,
+// kSlots a row, from fine pixel (y0 - 1, x0 - 1)), store() applies the
+// input's prologue to the pixels inside the image (the others stay zero:
+// SAME padding after the prologue) and writes them into a ring slot, its
+// two halves kPix units apart, then fences them for the tensor cores.
+template <int kPix, int kSlots, int kThr>
+struct PendingStager {
+  static constexpr int kHalf = kThr / 2;
+  static constexpr int kPer = (kPix + kHalf - 1) / kHalf;
+  uint4 raw[kPer];
+  unsigned live;
+  int j, xc;
+
+  template <class P>
+  __device__ __forceinline__ void load(const P& p, int ch, int b, int y0,
+                                       int x0) {
+    j = 0;
+    while (j + 1 < p.n_in && ch >= p.in[j + 1].chunk0) ++j;
+    const Input& in = p.in[j];
+    xc = (ch - in.chunk0) * kKC + 8 * (threadIdx.x & 1);
+    const bool xvec = in.c % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(in.x) % 16 == 0;
+    live = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int pix = (threadIdx.x >> 1) + q * kHalf;
+      const int yy = y0 - 1 + pix / kSlots;
+      const int xx = x0 - 1 + pix % kSlots;
+      raw[q] = make_uint4(0, 0, 0, 0);
+      if (pix < kPix && yy >= 0 && yy < p.oh && xx >= 0 && xx < p.ow &&
+          xc < in.c) {
+        live |= 1u << q;
+        raw[q] = fetch8(in, b, p.oh, p.ow, yy, xx, xc, xvec);
+      }
+    }
+  }
+
+  template <class P>
+  __device__ __forceinline__ void store(const P& p, unsigned char* slot) {
+    float sc[8], sh[8];
+    prologue_vec8(p.in[j], xc, sc, sh);
+    const int act = p.in[j].act;
+    unsigned char* dst = slot + (threadIdx.x & 1) * kPix * 16;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int pix = (threadIdx.x >> 1) + q * kHalf;
+      if (pix >= kPix) continue;
+      if (live >> q & 1u)
+        prologue8(reinterpret_cast<__nv_bfloat16*>(&raw[q]), sc, sh, act);
+      *reinterpret_cast<uint4*>(dst + pix * 16) = raw[q];
+    }
+    fence_proxy_async();  // stores the tensor cores will read
+  }
+};
+
+// The epilogue from registers of one warpgroup's R output rows from oy (a
+// 64-pixel segment from ox0; columns n0 .. n0 + N of the block): accumulator
+// j of row r holds pixel 16*w + lane/4 + 8*((j/2)%2) of the segment, column
+// 8*(j/4) + 2*(lane%4) + j%2. Column group nb (8 columns) belongs to output
+// oi[nb] (-1: none). An output with a prologue gets its dx through the
+// prologue's backward and its (gm*x, gm) added into (s1, s2); the others
+// y + bias (ReLU), with (y, y^2) added into (s1, s2) when p.mom != null.
+template <int N, int R, class T>
+__device__ __forceinline__ void wg_epilogue(const WgParams<T>& p,
+                                            const float (&acc)[R][N / 2],
+                                            int oy, int ox0, int b, int n0,
+                                            float (&s1)[N / 8][2],
+                                            float (&s2)[N / 8][2]) {
+  const int w = (threadIdx.x >> 5) & 3, l = threadIdx.x & 31;
+  int oi[N / 8];
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb) {
+    oi[nb] = -1;
+    const int col = n0 + 8 * nb;
+    for (int o = 0; o < p.n_out; ++o)
+      if (col >= p.out[o].off && col < p.out[o].off + p.out[o].c) oi[nb] = o;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ox = ox0 + 16 * w + (l >> 2) + 8 * h;
+      if (oy + r >= p.oh || ox >= p.ow) continue;
+      const size_t pix = ((size_t)b * p.oh + oy + r) * p.ow + ox;
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb) {
+        if (oi[nb] < 0) continue;
+        const WgOut<T>& o = p.out[oi[nb]];
+        const int co = n0 + 8 * nb + 2 * (l & 3) - o.off;
+        if (co >= o.c) continue;
+        const bool pair = co + 1 < o.c;
+        float v[2] = {acc[r][4 * nb + 2 * h], acc[r][4 * nb + 2 * h + 1]};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (k == 1 && !pair) break;
+          if (o.act != kNone) {
+            const float xi = __bfloat162float(o.x[pix * o.c + co + k]);
+            const float sc = o.scale[co + k];
+            const float pre = __fadd_rn(__fmul_rn(xi, sc), o.shift[co + k]);
+            const float gm = v[k] * act_grad(pre, o.act);
+            v[k] = gm * sc;
+            s1[nb][k] += gm * xi;
+            s2[nb][k] += gm;
+          } else {
+            if (p.bias != nullptr) v[k] += p.bias[co + k];
+            if (p.relu) v[k] = fmaxf(v[k], 0.f);
+            if (p.mom != nullptr) {
+              s1[nb][k] += v[k];
+              s2[nb][k] += v[k] * v[k];
+            }
+          }
+        }
+        store2(o.y + pix * o.c + co, v[0], v[1], pair, o.c % 2 == 0);
+      }
+    }
+  }
+}
+
+// the block's column sums: (s1, s2) of every thread reduced over its warp's
+// pixels by shuffles, then one shared atomic per column and warp into red
+// (2N, zeroed)
+template <int N>
+__device__ __forceinline__ void wg_colsums(const float (&s1)[N / 8][2],
+                                           const float (&s2)[N / 8][2],
+                                           float* red) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float a = s1[nb][k], t = s2[nb][k];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        a += __shfl_xor_sync(kFull, a, off);
+        t += __shfl_xor_sync(kFull, t, off);
+      }
+      if (l < 4) {
+        atomicAdd(&red[8 * nb + 2 * l + k], a);
+        atomicAdd(&red[N + 8 * nb + 2 * l + k], t);
+      }
+    }
+  }
+}
+
+template <int N, bool kUp2, bool kPend, class T>
 __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
   using G = WgTile<N, kUp2>;
+  static_assert(!(kPend && kUp2), "pending inputs are staged at fine size");
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -743,36 +713,44 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
   float* red = reinterpret_cast<float*>(smem + G::kStages * G::kStageBytes);
   for (int i = tid; i < 2 * N; i += G::kThreads) red[i] = 0.f;
 
-  // stage chunk ch (channels [16 ch, 16 ch + 16)) into ring slot s
+  PendingStager<G::kAUnits, G::kSlots, G::kThreads> pend;
+  if (kPend && nch > 0) pend.load(p, 0, b, oy0, ox0);
+
+  // stage chunk ch (channels [16 ch, 16 ch + 16)) into ring slot s and
+  // commit; with kPend, A from the registers (which then take chunk ch + 1)
   auto stage = [&](int ch, int s) {
     const uint32_t sa = sbase + s * G::kStageBytes;
     unsigned char* pa = smem + s * G::kStageBytes;
-    for (int i = tid; i < 2 * G::kAUnits; i += G::kThreads) {
-      const int g = i / G::kAUnits;
-      const int u = i - g * G::kAUnits;
-      const int row = u / (G::kPlanes * G::kSlots);
-      const int rem = u - row * (G::kPlanes * G::kSlots);
-      const int plane = rem / G::kSlots;
-      const int slot = rem - plane * G::kSlots;
-      const int y = kUp2 ? 2 * oy0 - 1 + row : oy0 - 1 + row;
-      const int x = kUp2 ? 2 * (ox0 + slot) - plane : ox0 - 1 + slot;
-      const int cb = ch * kKC + 8 * g;
-      const bool ok = y >= 0 && y < p.ah && x >= 0 && x < p.aw && cb < p.c;
-      const T* src =
-          p.a + (ok ? (((size_t)b * p.ah + y) * p.aw + x) * p.c + cb : 0);
-      if (vec) {
-        cp_async16(sa + i * 16, src, ok);
-      } else {
-        __align__(16) __nv_bfloat16 o[8];
+    if constexpr (kPend) {
+      pend.store(p, pa);
+    } else {
+      for (int i = tid; i < 2 * G::kAUnits; i += G::kThreads) {
+        const int g = i / G::kAUnits;
+        const int u = i - g * G::kAUnits;
+        const int row = u / (G::kPlanes * G::kSlots);
+        const int rem = u - row * (G::kPlanes * G::kSlots);
+        const int plane = rem / G::kSlots;
+        const int slot = rem - plane * G::kSlots;
+        const int y = kUp2 ? 2 * oy0 - 1 + row : oy0 - 1 + row;
+        const int x = kUp2 ? 2 * (ox0 + slot) - plane : ox0 - 1 + slot;
+        const int cb = ch * kKC + 8 * g;
+        const bool ok = y >= 0 && y < p.ah && x >= 0 && x < p.aw && cb < p.c;
+        const T* src =
+            p.a + (ok ? (((size_t)b * p.ah + y) * p.aw + x) * p.c + cb : 0);
+        if (vec) {
+          cp_async16(sa + i * 16, src, ok);
+        } else {
+          __align__(16) __nv_bfloat16 o[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          o[k] = (ok && cb + k < p.c) ? to_bf16(src[k])
-                                      : __float2bfloat16_rn(0.f);
-        *reinterpret_cast<uint4*>(pa + i * 16) =
-            *reinterpret_cast<const uint4*>(o);
+          for (int k = 0; k < 8; ++k)
+            o[k] = (ok && cb + k < p.c) ? to_bf16(src[k])
+                                        : __float2bfloat16_rn(0.f);
+          *reinterpret_cast<uint4*>(pa + i * 16) =
+              *reinterpret_cast<const uint4*>(o);
+        }
       }
+      if (!vec) fence_proxy_async();  // stores the tensor cores will read
     }
-    if (!vec) fence_proxy_async();  // stores the tensor cores will read
     const uint32_t sb = sa + G::kABytes;
     const __nv_bfloat16* w = p.wt + (size_t)ch * G::kTaps * 2 * p.np * 8;
     for (int i = tid; i < G::kTaps * 2 * N; i += G::kThreads) {
@@ -781,6 +759,7 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
                  true);
     }
     cp_async_commit();
+    if (kPend && ch + 1 < nch) pend.load(p, ch + 1, b, oy0, ox0);
   };
 
   float acc[G::kWgRows][N / 2];
@@ -822,86 +801,30 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
     for (int r = 0; r < G::kWgRows; ++r) fence_regs<N / 2>(acc[r]);
   }
 
-  // epilogue from registers: accumulator j of row r holds pixel 16*w +
-  // lane/4 + 8*((j/2)%2) of the segment, column 8*(j/4) + 2*(lane%4) + j%2
-  // of the block's N; column group nb (8 columns) belongs to output
-  // oi[nb] (-1: none)
-  const int w = (tid >> 5) & 3, l = tid & 31;
-  int oi[N / 8];
-  bool pro = false;   // some output goes through a prologue (block-uniform)
-#pragma unroll
-  for (int nb = 0; nb < N / 8; ++nb) {
-    oi[nb] = -1;
-    const int col = n0 + 8 * nb;
-    for (int o = 0; o < p.n_out; ++o)
-      if (col >= p.out[o].off && col < p.out[o].off + p.out[o].c) oi[nb] = o;
-  }
-  for (int o = 0; o < p.n_out; ++o) pro = pro || p.out[o].act != kNone;
-  float ssum[N / 8][2], tsum[N / 8][2];
+  // epilogue from registers; the block's column sums (dscale, dshift of the
+  // outputs with a prologue; the moments) once per channel into memory
+  bool sums = p.mom != nullptr;   // block-uniform
+  for (int o = 0; o < p.n_out; ++o) sums = sums || p.out[o].act != kNone;
+  float s1[N / 8][2], s2[N / 8][2];
 #pragma unroll
   for (int nb = 0; nb < N / 8; ++nb)
-    ssum[nb][0] = ssum[nb][1] = tsum[nb][0] = tsum[nb][1] = 0.f;
-#pragma unroll
-  for (int r = 0; r < G::kWgRows; ++r) {
-    const int oy = oy0 + wg * G::kWgRows + r;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int ox = ox0 + 16 * w + (l >> 2) + 8 * h;
-      if (oy >= p.oh || ox >= p.ow) continue;
-      const size_t pix = ((size_t)b * p.oh + oy) * p.ow + ox;
-#pragma unroll
-      for (int nb = 0; nb < N / 8; ++nb) {
-        if (oi[nb] < 0) continue;
-        const WgOut<T>& o = p.out[oi[nb]];
-        const int co = n0 + 8 * nb + 2 * (l & 3) - o.off;
-        if (co >= o.c) continue;
-        const bool pair = co + 1 < o.c;
-        float v[2] = {acc[r][4 * nb + 2 * h], acc[r][4 * nb + 2 * h + 1]};
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          if (k == 1 && !pair) break;
-          if (o.act != kNone) {
-            const float xi = __bfloat162float(o.x[pix * o.c + co + k]);
-            const float sc = o.scale[co + k];
-            const float pre = __fadd_rn(__fmul_rn(xi, sc), o.shift[co + k]);
-            const float gm = v[k] * act_grad(pre, o.act);
-            v[k] = gm * sc;
-            ssum[nb][k] += gm * xi;
-            tsum[nb][k] += gm;
-          } else {
-            if (p.bias != nullptr) v[k] += p.bias[co + k];
-            if (p.relu) v[k] = fmaxf(v[k], 0.f);
-          }
-        }
-        store2(o.y + pix * o.c + co, v[0], v[1], pair, o.c % 2 == 0);
-      }
-    }
-  }
-  if (pro) {
-#pragma unroll
-    for (int nb = 0; nb < N / 8; ++nb) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        float a = ssum[nb][k], t = tsum[nb][k];
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          a += __shfl_xor_sync(kFull, a, off);
-          t += __shfl_xor_sync(kFull, t, off);
-        }
-        if (l < 4) {
-          atomicAdd(&red[8 * nb + 2 * l + k], a);
-          atomicAdd(&red[N + 8 * nb + 2 * l + k], t);
-        }
-      }
-    }
+    s1[nb][0] = s1[nb][1] = s2[nb][0] = s2[nb][1] = 0.f;
+  wg_epilogue<N, G::kWgRows>(p, acc, oy0 + wg * G::kWgRows, ox0, b, n0, s1,
+                             s2);
+  if (sums) {
+    wg_colsums<N>(s1, s2, red);
     __syncthreads();
     for (int i = tid; i < N; i += G::kThreads) {
       for (int o = 0; o < p.n_out; ++o) {
         const WgOut<T>& out = p.out[o];
         const int ch = n0 + i - out.off;
-        if (ch >= 0 && ch < out.c && out.act != kNone) {
+        if (ch < 0 || ch >= out.c) continue;
+        if (out.act != kNone) {
           atomicAdd(&out.dscale[ch], red[i]);
           atomicAdd(&out.dshift[ch], red[N + i]);
+        } else if (p.mom != nullptr) {
+          atomicAdd(&p.mom[ch], red[i]);
+          atomicAdd(&p.mom[out.c + ch], red[N + i]);
         }
       }
     }
@@ -911,13 +834,20 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
 template <int N, class T>
 __global__ void __launch_bounds__(WgTile<N, false>::kThreads)
     conv_wg_kernel(const WgParams<T> p) {
-  wg_conv<N, false>(p);
+  wg_conv<N, false, false>(p);
 }
 
 template <int N>
 __global__ void __launch_bounds__(WgTile<N, true>::kThreads)
     conv_up2_dx_kernel(const WgParams<__nv_bfloat16> p) {
-  wg_conv<N, true>(p);
+  wg_conv<N, true, false>(p);
+}
+
+// two blocks a SM at N <= 32 (their 256 threads at most 128 registers)
+template <int N>
+__global__ void __launch_bounds__(WgTile<N, false>::kThreads, N < 64 ? 2 : 1)
+    pending_conv_kernel(const WgParams<__nv_bfloat16> p) {
+  wg_conv<N, false, true>(p);
 }
 
 // a Hopper kernel's launch attributes: its dynamic shared memory, and the
@@ -931,6 +861,18 @@ cudaError_t hopper_attrs(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// resident blocks per SM of a Hopper kernel at its launch attributes (the
+// occupancy calculator on the current card), -1 on an error
+template <class K>
+int blocks_per_sm(K kernel, int threads, int smem) {
+  int n = -1;
+  if (hopper_attrs(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 template <int N, bool kUp2, class K, class T>
@@ -952,6 +894,20 @@ cudaError_t launch_conv_wg(int ntile, const WgParams<T>& p, cudaStream_t s) {
     case 16: return launch_wg<16, false>(conv_wg_kernel<16, T>, p, s);
     case 32: return launch_wg<32, false>(conv_wg_kernel<32, T>, p, s);
     case 64: return launch_wg<64, false>(conv_wg_kernel<64, T>, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K1's conv over pending inputs (p.in, p.n_in; p.c = 16 * their chunks;
+// T = bf16)
+template <class T>
+cudaError_t launch_pending_conv(int ntile, const WgParams<T>& p,
+                                cudaStream_t s) {
+  if (p.np % ntile != 0) return cudaErrorInvalidValue;
+  switch (ntile) {
+    case 16: return launch_wg<16, false>(pending_conv_kernel<16>, p, s);
+    case 32: return launch_wg<32, false>(pending_conv_kernel<32>, p, s);
+    case 64: return launch_wg<64, false>(pending_conv_kernel<64>, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -987,29 +943,6 @@ cudaError_t launch_up2_dx(int ntile, const WgParams<T>& p, cudaStream_t s) {
 // rounding, ~1e-6 relative).
 
 constexpr int kDwWgThreads = 384;
-
-// act(s*v + t) of 8 bf16 values in place, rounded to bf16 (identity for
-// kNone), the act chosen once for the 8
-__device__ __forceinline__ void prologue8(__nv_bfloat16* e, const float* s,
-                                          const float* t, int act) {
-  if (act == kNone) return;
-  float v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    v[k] = __fadd_rn(__fmul_rn(__bfloat162float(e[k]), s[k]), t[k]);
-  if (act == kRelu) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = fmaxf(v[k], 0.f);
-  } else if (act == kHswish) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float g = fminf(fmaxf(__fadd_rn(v[k], 3.f), 0.f), 6.f);
-      v[k] = __fmul_rn(__fmul_rn(v[k], g), 1.f / 6.f);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
-}
 
 template <class T>
 struct DwWgParams {
@@ -1084,8 +1017,6 @@ __global__ void __launch_bounds__(kDwWgThreads)
   const InputT<T> in = p.in[j];
   const int gstride = kDwWgThreads / ng;
   const int gl = tid / ng;
-  const int hs = in.up2x ? p.height >> 1 : p.height;
-  const int ws = in.up2x ? p.width >> 1 : p.width;
   const bool xvec =
       in.c % 8 == 0 && reinterpret_cast<uintptr_t>(in.x) % 16 == 0;
   const bool dvec = sizeof(T) == 2 && p.cout % 8 == 0 &&
@@ -1096,12 +1027,7 @@ __global__ void __launch_bounds__(kDwWgThreads)
   const int total = p.n * tiles_y * tiles_x;
   const int per = (G::kAUnits + gstride - 1) / gstride;
   float sc[8], sh[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const bool on = in.act != kNone && xc + k < in.c;
-    sc[k] = on ? in.scale[xc + k] : 1.f;
-    sh[k] = on ? in.shift[xc + k] : 0.f;
-  }
+  prologue_vec8(in, xc, sc, sh);
   for (int i = tid; i < 8 * G::kAUnits; i += kDwWgThreads)
     if (!(livemask >> (i / G::kAUnits) & 1u))
       for (int s = 0; s < G::kStages; ++s)
@@ -1131,17 +1057,7 @@ __global__ void __launch_bounds__(kDwWgThreads)
       if (gl < gstride && q < per && u < G::kAUnits && yy >= 0 &&
           yy < p.height && xx >= 0 && xx < p.width) {
         live |= 1u << q;
-        const int sy = in.up2x ? yy >> 1 : yy;
-        const int sx = in.up2x ? xx >> 1 : xx;
-        const T* src = in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + xc;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw[q]);
-        if (xvec) {
-          load8_bf16(src, e);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if (xc + k < in.c) e[k] = to_bf16(src[k]);
-        }
+        raw[q] = fetch8(in, b, p.height, p.width, yy, xx, xc, xvec);
       }
     }
   };

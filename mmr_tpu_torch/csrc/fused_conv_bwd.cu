@@ -158,16 +158,6 @@ int hopper_smem(int kind) {
                      : -1;
 }
 
-template <class K>
-int blocks_per_sm(K kernel, int threads, int smem) {
-  int n = -1;
-  if (hopper_attrs(kernel, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return n;
-}
-
 template <int N>
 int hopper_blocks(int kind) {
   if (kind == 2 && N > 32) return -1;

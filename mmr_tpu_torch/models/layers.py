@@ -8,11 +8,14 @@ Conventions:
   compute dtype (bf16 by default) is the dtype of the tensors it is fed
   (flax ``nn.Conv(dtype=...)`` semantics).
 - BatchNorm follows flax (``mmr_tpu/models/layers.py::FusedBatchNorm``):
-  train mode normalizes with the batch's f32 statistics from one pass of
-  Σx and Σx² (biased variance ``max(E[x²] − E[x]², 0)``) and updates the
+  train mode normalizes with the batch's f32 statistics and updates the
   running statistics with flax momentum 0.9 (torch's 0.1); eval mode folds
-  the running statistics. Either way the normalization is one per-channel
-  affine. ``F.batch_norm`` is not used: it stores the unbiased variance.
+  the running statistics. A bf16 input takes them from one pass of Σx and
+  Σx² (biased variance ``max(E[x²] − E[x]², 0)``, as the kernels' moments
+  give them) and is normalized by one per-channel affine; an f32 input
+  takes the variance in two passes, ``mean((x − mean)²)``, and is
+  normalized centred. ``F.batch_norm`` is not used: it stores the unbiased
+  variance.
 """
 
 from __future__ import annotations
@@ -150,9 +153,14 @@ class FusedBatchNorm(nn.Module):
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
 
     def _centred(self, x):
-        """``((x − mean)·s + β)`` in f32, rounded to x's dtype."""
+        """``((x − mean)·s + β)`` in f32, rounded to x's dtype. In train
+        mode the variance is two-pass, ``mean((x − mean)²)``: E[x²] − E[x]²
+        put the f32 step-1 gradient of a UNet++/ResNet-18 case 3.7e-3 from
+        float64 (relative L2), the two-pass form 7.2e-6 (CPU measurement)."""
         if self.training:
-            mean, var = moments_to_stats(self._moments(x), x.numel() // x.shape[1])
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
             self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

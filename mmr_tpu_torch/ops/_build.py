@@ -45,14 +45,22 @@ SIGNATURES = {
     "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "mmr_fused_conv_down_bwd": [_P] * 3 + [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "mmr_head_loss_fwd": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P],
-    "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 8
-                          + [_I] * 4 + [_P]),
+    "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] + [_P] * 5
+                          + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
     "mmr_hopper_kernel_info": [_I, _I, _I],
+    "mmr_fused_conv_info": [_I, _I, _I],
+    "mmr_head_loss_bwd_info": [_I, _I, _I],
 }
-# the Hopper kernels (common.cuh) by mangled name, and their kind for
-# ``mmr_hopper_kernel_info`` (0 conv, 1 source-resolution dx, 2 dW)
-HOPPER_KERNELS = {"conv_wg_kernel": 0, "conv_up2_dx_kernel": 1,
-                  "conv_dw_wg_kernel": 2}
+# the Hopper kernels by mangled name: the entry that reports their shared
+# memory and blocks per SM, their kind there (``mmr_hopper_kernel_info``: 0
+# conv, 1 source-resolution dx, 2 dW) and their output-channel tiles
+HOPPER_KERNELS = {
+    "conv_wg_kernel": ("mmr_hopper_kernel_info", 0, (16, 32, 64)),
+    "conv_up2_dx_kernel": ("mmr_hopper_kernel_info", 1, (16, 32, 64)),
+    "conv_dw_wg_kernel": ("mmr_hopper_kernel_info", 2, (16, 32)),
+    "pending_conv_kernel": ("mmr_fused_conv_info", 0, (16, 32, 64)),
+    "head_bwd_kernel": ("mmr_head_loss_bwd_info", 0, (16, 32)),
+}
 
 
 def _nvcc() -> str:

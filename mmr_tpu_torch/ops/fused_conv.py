@@ -193,40 +193,32 @@ def _arr(ctype, vals):
     return ctypes.cast((ctype * len(vals))(*vals), ctypes.c_void_p)
 
 
-def _fragments(cout: int) -> tuple[int, int]:
-    """(nf, np): 16-channel output fragments per block (1, 2, 4 or 8) and
-    cout padded to a multiple of 16·nf."""
-    nf = min(8, 1 << max(0, (-(-cout // 16) - 1).bit_length()))
-    return nf, -(-cout // (16 * nf)) * 16 * nf
+# Weight packs are built once per weight version: the key holds each
+# weight's address, shape, strides, dtype and device, the entry its
+# autograd version counters, which every in-place update bumps (the
+# optimizer's step; a view of a flat buffer shares its base's counter), and
+# the weights themselves, so no other tensor can take their memory while
+# the entry lives.
+_PACKS: dict = {}
+_PACKS_MAX = 64
 
 
-def _pack_weights(weights: list[torch.Tensor], cout: int, np_: int):
-    """(3,3,c_j,cout) HWIO per input -> bf16 (chunks, 9, 16, np_): each
-    input's channels padded to 16-channel chunks, cout padded to np_."""
-    parts = []
-    for w in weights:
-        c = w.shape[2]
-        nch = -(-c // 16)
-        wp = F.pad(w.to(BF16), (0, np_ - cout, 0, nch * 16 - c))
-        parts.append(wp.reshape(9, nch, 16, np_).permute(1, 0, 2, 3))
-    return torch.cat(parts).contiguous()
-
-
-def _pack_transposed(w: torch.Tensor):
-    """HWIO (3,3,c,cout) -> the dx taps of a backward kernel: flipped and
-    transposed, packed as (cout chunks, 9, 16, np) over the c channels.
-    Returns (pack, nf, np)."""
-    c = w.shape[2]
-    nf, np_ = _fragments(c)
-    wt = w.flip(0, 1).transpose(2, 3)
-    return _pack_weights([wt], c, np_), nf, np_
-
-
-def _unpack_dw(dwp: torch.Tensor, chunk0: int, c: int, cout: int):
-    """(chunks, 9, 16, np) f32 kernel output -> one input's HWIO dW."""
-    nch = -(-c // 16)
-    d = dwp[chunk0:chunk0 + nch].permute(1, 0, 2, 3).reshape(9, nch * 16, -1)
-    return d[:, :c, :cout].reshape(3, 3, c, cout)
+def _cached_pack(tag, weights: list[torch.Tensor], make):
+    """``make()``, built once per version of ``weights`` (every call for an
+    inference tensor, which keeps no version counter)."""
+    if any(w.is_inference() for w in weights):
+        return make()
+    key = (tag,) + tuple((w.data_ptr(), tuple(w.shape), w.stride(), w.dtype,
+                          w.device) for w in weights)
+    version = tuple(w._version for w in weights)
+    hit = _PACKS.get(key)
+    if hit is not None and hit[0] == version:
+        return hit[1]
+    if hit is None and len(_PACKS) >= _PACKS_MAX:
+        _PACKS.pop(next(iter(_PACKS)))
+    pack = make()
+    _PACKS[key] = (version, pack, list(weights))
+    return pack
 
 
 # The Hopper kernels (``common.cuh``'s cp.async + wgmma mainloops: K3's dx
@@ -249,6 +241,14 @@ def _pack_taps(taps: torch.Tensor, np_: int) -> torch.Tensor:
     nch = -(-k // 16)
     wp = F.pad(taps.to(BF16), (0, np_ - n, 0, nch * 16 - k))
     return wp.reshape(t, nch, 2, 8, np_).permute(1, 0, 2, 4, 3).contiguous()
+
+
+def _concat_taps(weights: list[torch.Tensor]) -> torch.Tensor:
+    """HWIO (3, 3, c_j, cout) per input -> the taps (9, K, cout) of K1's
+    K loop: the inputs' channels in concat order, each input's padded to a
+    multiple of 16 (its chunks start on a chunk)."""
+    return torch.cat([F.pad(w.reshape(9, w.shape[2], w.shape[3]),
+                            (0, 0, 0, -w.shape[2] % 16)) for w in weights], 1)
 
 
 def _dx_taps(w: torch.Tensor) -> torch.Tensor:
@@ -312,6 +312,12 @@ def _unpack_dw_wg(dwp: torch.Tensor, row0: int, c: int, cout: int):
 
 # ------------------------------------------------------------------- K1
 
+# K1's output-channel tile (the wgmma N: 16, 32 or 64) by cout, where it
+# differs from the widest that fits (``_wg_tile``): chosen by an A/B of the
+# tiles inside one chip run (``chip_smoke.py``'s ``k1_tile_ab``)
+K1_TILE: dict[int, int] = {24: 16}
+
+
 def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
                    bias: torch.Tensor | None = None,
                    emit_moments: bool = False, dtype: torch.dtype = BF16):
@@ -358,8 +364,10 @@ def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
     if not _launch_device(device):
         return fused_conv_ref(inputs, weights, bias, emit_moments)
 
-    nf, np_ = _fragments(cout)
-    wt = _pack_weights(weights, cout, np_)
+    ntile = K1_TILE.get(cout, _wg_tile(cout)[0])
+    np_ = -(-cout // ntile) * ntile
+    wt = _cached_pack(("K1", np_), weights,
+                      lambda: _pack_taps(_concat_taps(weights), np_))
     bias_f = None if bias is None else bias.float().contiguous()
     y = torch.empty((batch, h, w, cout), dtype=BF16, device=device)
     mom = (torch.zeros((2, cout), dtype=torch.float32, device=device)
@@ -373,7 +381,7 @@ def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
         _arr(I, [0 if p.scale is None else ACTS[p.act] for p in inputs]),
         _arr(I, [int(p.up2x) for p in inputs]),
         wt.data_ptr(), _ptr(bias_f), y.data_ptr(), _ptr(mom), batch, h, w,
-        cout, np_, nf, _stream())
+        cout, np_, ntile, _stream())
     _raise_on(err, "fused_conv")
     fused_conv.launches += 1
     return (y, mom) if emit_moments else y

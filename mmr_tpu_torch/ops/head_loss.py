@@ -26,12 +26,13 @@ import torch.nn.functional as F
 
 from mmr_tpu_torch.losses.dice_ce import SMOOTH
 from mmr_tpu_torch.ops import _build
-from mmr_tpu_torch.ops.fused_conv import (ACTS, BF16, Pending, _check_bias,
-                                          _check_grad, _check_pending,
-                                          _launch_device, _pack_transposed,
-                                          _pack_weights, _raise_on,
-                                          _round, _stream, _unpack_dw,
-                                          activated, fused_conv_bwd_ref)
+from mmr_tpu_torch.ops.fused_conv import (ACTS, BF16, Pending, _cached_pack,
+                                          _check_bias, _check_grad,
+                                          _check_pending, _dx_taps,
+                                          _launch_device, _pack_taps,
+                                          _raise_on, _round, _stream,
+                                          _wg_tile, activated,
+                                          fused_conv_bwd_ref)
 
 
 def _onehot(labels: torch.Tensor, nc: int) -> torch.Tensor:
@@ -40,6 +41,15 @@ def _onehot(labels: torch.Tensor, nc: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K5a
+
+def _pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, c, nc) -> K5a's bf16 WMMA pack (chunks, 9, 16, 16): the
+    channels padded to 16-channel chunks, the classes to 16."""
+    c, nc = w.shape[2], w.shape[3]
+    nch = -(-c // 16)
+    wp = F.pad(w.to(BF16), (0, 16 - nc, 0, nch * 16 - c))
+    return wp.reshape(9, nch, 16, 16).permute(1, 0, 2, 3).contiguous()
+
 
 def head_loss_fwd_ref(x: Pending, w: torch.Tensor, bias: torch.Tensor,
                       labels: torch.Tensor, with_conf: bool = True,
@@ -98,7 +108,7 @@ def head_loss_fwd(x: Pending, w: torch.Tensor, bias: torch.Tensor,
 
     h, wd = x.raw.shape[1], x.raw.shape[2]
     f32 = dict(dtype=torch.float32, device=device)
-    wt = _pack_weights([w], nc, 16)
+    wt = _cached_pack("K5a", [w], lambda: _pack_weights(w))
     lab = labels.to(torch.int32).contiguous()
     logp = torch.empty((batch, h, wd, nc), dtype=BF16, device=device)
     stats = torch.zeros((batch, 4, nc), **f32)
@@ -147,35 +157,49 @@ def head_loss_bwd_ref(x: Pending, w: torch.Tensor, logp: torch.Tensor,
     return dxs[0], dws[0], dpros[0], dbias
 
 
+def _max_blocks(device: torch.device) -> int:
+    """Rows of K5b's per-block sums: four blocks a SM at most."""
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def head_loss_bwd(x: Pending, w: torch.Tensor, logp: torch.Tensor,
                   labels: torch.Tensor, dstats: torch.Tensor):
     """K5b: from the forward's input, weights, log-prob surface and labels
     and the statistics' cotangent ``dstats`` (B, 4, nc) f32, returns ``(dx
-    (bf16, like x.raw), dW (f32 HWIO), (d scale, d shift), dbias)``."""
+    (bf16, like x.raw), dW (f32 HWIO), (d scale, d shift), dbias)``. The
+    kernel takes a head input of at most 32 channels (the flagship's has
+    16): a wider one on the card raises."""
     device, batch, nc = _check_head(x, w, labels)
     _check_grad("logp", logp, tuple(x.raw.shape[:3]) + (nc,), device)
     if dstats.shape != (batch, 4, nc) or dstats.device != device:
         raise ValueError(f"dstats must be ({batch}, 4, {nc}) on {device}")
     if not _launch_device(device):
         return head_loss_bwd_ref(x, w, logp, labels, dstats)
+    if x.c > 32:
+        raise ValueError(f"the head backward kernel takes at most 32 input "
+                         f"channels, not {x.c}")
 
     h, wd = x.raw.shape[1], x.raw.shape[2]
     f32 = dict(dtype=torch.float32, device=device)
-    wt_t, nf, np_ = _pack_transposed(w)
+    ntile = _wg_tile(x.c)[0]
+    wt_t = _cached_pack(("K5b", ntile), [w],
+                        lambda: _pack_taps(_dx_taps(w), ntile))
+    rows = _max_blocks(device)
+    part = torch.empty((rows, 9 * ntile * 16 + 16 + 2 * ntile), **f32)
     lab = labels.to(torch.int32).contiguous()
     dx = torch.empty_like(x.raw)
-    dscale, dshift = torch.zeros(x.c, **f32), torch.zeros(x.c, **f32)
-    dwp = torch.zeros((-(-x.c // 16), 9, 16, 16), **f32)
-    dbias = torch.zeros(16, **f32)
+    dscale, dshift = torch.empty(x.c, **f32), torch.empty(x.c, **f32)
+    dw = torch.empty(w.shape, **f32)
+    dbias = torch.empty(nc, **f32)
     err = _build.library().mmr_head_loss_bwd(
         x.raw.data_ptr(), x.scale.data_ptr(), x.shift.data_ptr(), ACTS[x.act],
-        x.c, wt_t.data_ptr(), nf, np_, logp.data_ptr(), lab.data_ptr(),
+        x.c, wt_t.data_ptr(), ntile, logp.data_ptr(), lab.data_ptr(),
         dstats.float().contiguous().data_ptr(), dx.data_ptr(),
-        dscale.data_ptr(), dshift.data_ptr(), dwp.data_ptr(),
-        dbias.data_ptr(), batch, h, wd, nc, _stream())
+        part.data_ptr(), rows, dw.data_ptr(), dscale.data_ptr(),
+        dshift.data_ptr(), dbias.data_ptr(), batch, h, wd, nc, _stream())
     _raise_on(err, "head_loss_bwd")
     head_loss_bwd.launches += 1
-    return dx, _unpack_dw(dwp, 0, x.c, nc), (dscale, dshift), dbias[:nc]
+    return dx, dw, (dscale, dshift), dbias
 
 
 head_loss_bwd.launches = 0

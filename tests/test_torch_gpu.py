@@ -111,6 +111,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     big = torch.zeros(1, 8, 16, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):          # dense weights beyond shared memory
         fused_conv_down(Pending(big), torch.zeros(3, 3, 64, 64, device=dev))
+    ones = torch.ones(40, device=dev)
+    head_in = Pending(torch.zeros(1, 8, 16, 40, device=dev, dtype=torch.bfloat16),
+                      ones, ones, "relu")
+    with pytest.raises(ValueError):          # a head input wider than 32
+        head_loss_bwd(head_in, torch.zeros(3, 3, 40, 10, device=dev),
+                      torch.zeros(1, 8, 16, 10, device=dev, dtype=torch.bfloat16),
+                      torch.zeros(1, 8, 16, device=dev, dtype=torch.long),
+                      torch.zeros(1, 4, 10, device=dev))
 
 
 def test_fused_model_matches_plain(dev):
@@ -224,6 +232,67 @@ def test_k1_moments_and_k3(dev, spec, cout, hw, batch):
     _grad_close("dbias", got[3], want[3])
 
 
+# K1 on the Hopper tile's edges: W = 80 (a 64-pixel segment and 16 more),
+# H = 20 (not a multiple of a block's 8 rows), 1, 4 and 8 inputs with a
+# lazy x2 input and 24 / 48-channel inputs (chunks padded to 16), cout 16,
+# 32, 64 and 256; (input channels, lazily upsampled?) per input
+K1_EDGES = [
+    ([(24, False)], 16),
+    ([(16, True), (24, False), (48, False), (16, False)], 32),
+    ([(32, True), (24, False), (24, False), (48, False), (16, False),
+      (16, False), (8, False), (5, False)], 64),
+    ([(256, True), (24, False), (24, False), (48, False)], 256),
+]
+
+
+def _k1_inputs(g, dev, spec, cout, hw, batch):
+    """Pending inputs (acts relu, hswish, linear and none in turn) and
+    their HWIO weight slices."""
+    H, W = hw
+    ins, ws = [], []
+    for j, (c, up) in enumerate(spec):
+        h, w = (H // 2, W // 2) if up else (H, W)
+        x = _rand(g, dev, batch, h, w, c, dtype=torch.bfloat16)
+        act = ["relu", "hswish", "linear", None][j % 4]
+        s = torch.rand(c, device=dev, generator=g) + 0.5
+        t = _rand(g, dev, c, scale=0.3)
+        ins.append(Pending(x, up2x=up) if act is None
+                   else Pending(x, s, t, act, up))
+        ws.append(_rand(g, dev, 3, 3, c, cout, scale=0.1))
+    return ins, ws
+
+
+@pytest.mark.parametrize("mom", [False, True])
+@pytest.mark.parametrize("spec,cout", K1_EDGES)
+def test_k1_hopper_edges(dev, spec, cout, mom):
+    g = torch.Generator(device=dev).manual_seed(14)
+    ins, ws = _k1_inputs(g, dev, spec, cout, (20, 80), 2)
+    bias = _rand(g, dev, cout)
+    before = fused_conv.launches
+    got = fused_conv(ins, ws, bias, emit_moments=mom)
+    assert fused_conv.launches == before + 1
+    want = fused_conv_ref(ins, ws, bias, emit_moments=mom)
+    if mom:
+        _close(got[0], want[0])
+        _mom_close(got[1], want[1])
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("ntile", [16, 32, 64])
+def test_k1_tiles_agree(dev, ntile, monkeypatch):
+    """Every output-channel tile K1 can take gives the plain result."""
+    from mmr_tpu_torch.ops import fused_conv as fc
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    ins, ws = _k1_inputs(g, dev, [(24, True), (40, False)], 96, (18, 136), 2)
+    monkeypatch.setitem(fc.K1_TILE, 96, ntile)
+    y, mom = fused_conv(ins, ws, emit_moments=True)
+    y_ref, mom_ref = fused_conv_ref(ins, ws, emit_moments=True)
+    _close(y, y_ref)
+    _mom_close(mom, mom_ref)
+
+
 @pytest.mark.parametrize("depthwise,hw,batch", [
     (False, (34, 66), 2), (True, (34, 66), 2),
     (False, (512, 640), 8), (True, (256, 320), 8)])     # the stem, b0_0
@@ -282,6 +351,35 @@ def test_k5_head_loss(dev, hw, batch, nc):
                           [got[0], got[1], *got[2], got[3]],
                           [want[0], want[1], *want[2], want[3]]):
         _grad_close(name, a, b)
+
+
+@pytest.mark.parametrize("nc", [10, 16])
+@pytest.mark.parametrize("cin", [16, 24])
+def test_k5b_ragged_tile(dev, nc, cin):
+    """K5b over tiles cut by the image's edge (H not a multiple of a tile's
+    4 rows, W not of its 64 pixels): dx, dW, d(scale, shift) and dbias
+    against the plain version; a 24-channel input takes the 32-wide tile."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    batch, hw = 3, (22, 100)
+    x = Pending(_rand(g, dev, batch, *hw, cin, dtype=torch.bfloat16),
+                torch.rand(cin, device=dev, generator=g) + 0.5,
+                _rand(g, dev, cin, scale=0.3), "relu")
+    w = _rand(g, dev, 3, 3, cin, nc, scale=0.3)
+    labels = torch.randint(-1, nc, (batch, *hw), device=dev, generator=g)
+    logp = torch.log_softmax(_rand(g, dev, batch, *hw, nc, scale=2.0), -1)
+    logp = logp.to(torch.bfloat16)
+    dstats = _rand(g, dev, batch, 4, nc, scale=1e-3)
+    dstats[:, 3] = 1.0 / labels.numel()
+    got = head_loss_bwd(x, w, logp, labels, dstats)
+    want = head_loss_bwd_ref(x, w, logp, labels, dstats)
+    for name, a, b in zip(["dx", "dw", "dscale", "dshift", "dbias"],
+                          [got[0], got[1], *got[2], got[3]],
+                          [want[0], want[1], *want[2], want[3]]):
+        assert a.shape == b.shape, name
+        _grad_close(name, a, b)
+    again = head_loss_bwd(x, w, logp, labels, dstats)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[3], again[3])
 
 
 def test_fused_train_step_on_card(dev):

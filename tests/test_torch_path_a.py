@@ -164,6 +164,54 @@ def test_path_a_step_matches_jax(case):
                                    atol=1e-4 * np.abs(want).max(), err_msg=n)
 
 
+def test_f32_bn_grads_match_float64_oracle():
+    """The f32 step-1 gradient of UNet++/ResNet-18 against the reference's
+    torch oracle (``tests/test_models.py::_TorchSmpUnetPP``) run in float64,
+    on ``tests/test_train_parity.py``'s case (its seed-11 init with BN
+    running statistics perturbed, its first 2 × 64 × 64 batch of 6
+    classes): relative L2 ≤ 1e-4. The f32 BN's two-pass variance gives
+    7.2e-6 here; E[x²] − E[x]² gave 3.7e-3 (leaf ``x_2_3/conv1/bn/bias`` at
+    1.09e-2). On other draws of this net a few train-mode BN channels over
+    8 values of the 2 × 2 rows can amplify f32 rounding to ~1e-3 for any
+    f32 BN (torch's own included), so the case is this fixed one."""
+    import torch.nn as tnn
+
+    from mmr_tpu.models.pretrained import import_smp_unetpp_state_dict
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from tests.test_models import _TorchSmpUnetPP
+    from tests.test_train_parity import CLASSES, _dice_ce_torch
+
+    with torch.random.fork_rng():
+        torch.manual_seed(11)
+        oracle = _TorchSmpUnetPP(num_classes=CLASSES)
+        for m in oracle.modules():
+            if isinstance(m, tnn.BatchNorm2d):
+                m.running_mean.uniform_(-0.2, 0.2)
+                m.running_var.uniform_(0.8, 1.2)
+    sd = {k: v.clone() for k, v in oracle.state_dict().items()}
+    params, stats = import_smp_unetpp_state_dict(sd, "resnet18")
+    rng = np.random.RandomState(6210)   # tests/conftest.py's ``rng``
+    x = rng.rand(2, 64, 64, 3).astype(np.float32)
+    rng.rand(2, 64, 64, 3)
+    y = torch.from_numpy(rng.randint(0, CLASSES, (2, 64, 64)))
+
+    oracle.double().train()
+    _dice_ce_torch(oracle(torch.from_numpy(x).double().permute(0, 3, 1, 2)),
+                   y.long()).backward()
+    grads = dict(sd, **{k: p.grad for k, p in oracle.named_parameters()})
+    want = _flat(import_smp_unetpp_state_dict(grads, "resnet18")[0], params)
+
+    model = create_model("smp_UNet++", classes=CLASSES, device="cpu",
+                         dtype=torch.float32)
+    model.load_state_dict(from_jax_variables({"params": params,
+                                              "batch_stats": stats}))
+    model.train()
+    dice_ce_loss(model(torch.from_numpy(x)), y).backward()
+    got = _flat(to_jax_variables({n: p.grad for n, p in
+                                  model.named_parameters()})["params"], params)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-4
+
+
 @pytest.mark.parametrize("clip,differential", [(None, False), (1.0, True)])
 def test_adam_matches_optax(rng, clip, differential):
     """``build_optimizer("adam")`` vs the JAX optax chain (clip →
