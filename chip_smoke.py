@@ -14,8 +14,10 @@ front-end and head + loss).
 1. The card's name and power limit; build the CUDA kernels from
    ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``, one line of registers
    and spills per Hopper kernel: ``common.cuh``'s, K1's
-   ``pending_conv_kernel`` and K5b's ``head_bwd_kernel``), and each Hopper
-   kernel's dynamic shared memory and resident blocks per SM.
+   ``pending_conv_kernel``, K5b's ``head_bwd_kernel`` and the stride-2
+   pair's ``down_*_kernel``s), and each Hopper kernel's dynamic shared
+   memory and resident blocks per SM (K2's and K4's at the flagship's
+   input channels).
 2. One eval forward of one frame's 20 windows through the fused path,
    recording every kernel launch: each K1 (``fused_conv``) and K2
    (``fused_conv_down``) launch is held against its plain PyTorch version
@@ -46,6 +48,11 @@ front-end and head + loss).
    device events; each training kernel's time, plain time, bound and one
    library call (cuDNN ``convolution_backward`` on the materialized input
    for K3/K4; ``F.conv2d`` + log-softmax + DiceCE under autograd for K5).
+   6e. K4's dense dx (not on the flagship's path, whose stem reads the
+   image): the train-mode stem on a B=8 512×640 image that requires a
+   gradient, its K4 launch (dW and dx) held at the backward bound, timed
+   beside its bound, plain version and ``convolution_backward`` with the
+   input mask on, split by device kernel; its own entry in the kernels line.
 
 7. Path-A training: Path A's canonical configuration (smp UNet++ over
    ResNet-18, 10 classes, full width, random weights from ``--seed``, BN
@@ -85,11 +92,13 @@ Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
 K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
 the port). Those times are of each launch repeated alone, wrapper (weight
-packs, cached per weight version for K1 and K5) included; phases 5–8 also
-print the device time of K1 (serve, train), K3, K5b and K6a by part
-(``device_split``: ``torch.profiler`` time of the kernels alone — K3's dy
-prep, dW, dx and the source-resolution dx of lazily ×2 inputs; K5b's dx +
-dW kernel and its reduction; K6a's forward and dx), per launch and summed,
+packs, cached per weight version for K1, K2, K4 and K5) included; phases
+5–8 also print the device time of K1 and K2 (serve, train), K3, K4, K5b
+and K6a by part (``device_split``: ``torch.profiler`` time of the kernels
+alone — K2's dense and depthwise kernels and their moments' reduction;
+K3's dy prep, dW, dx and the source-resolution dx of lazily ×2 inputs;
+K4's dense and depthwise kernels and their reduction; K5b's dx + dW
+kernel and its reduction; K6a's forward and dx), per launch and summed,
 beside the share of the wrapper-included time that is host work; phases 5
 and 6 also time every K1 launch at each output-channel tile it can take
 (``k1_tile_ab``).
@@ -533,49 +542,112 @@ def time_cases(phase, cases):
 # as parts of its device time; K6a's part is the case's label (forward, dx)
 PARTS = {
     "K1": {"pending_conv_kernel": "conv"},
+    "K2": {"down_stem_kernel": "dense", "down_dw_fwd_kernel": "depthwise",
+           "down_rows_reduce_kernel": "reduce"},
     "K3": {"dy_prep_kernel": "dy prep", "conv_dw_wg_kernel": "dW",
            "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"},
+    "K4": {"down_stem_bwd_kernel": "dense", "down_dw_bwd_kernel": "depthwise",
+           "down_rows_reduce_kernel": "reduce"},
     "K5b": {"head_bwd_kernel": "dx + dW", "head_bwd_reduce_kernel": "reduce"},
     "K6a": {"conv_wg_kernel": None},
 }
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` without the profiler: CUDA events around
+    ``reps`` back-to-back replays of one CUDA graph of it (no host work
+    between the launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _profiled_parts(fn, args, names, part_of, reps):
+    """({part: ms a call}, {part: events counted}) of ``reps`` calls of
+    ``fn(**args)`` under ``torch.profiler``, a warm-up call inside it
+    first. The profiler has been seen to lose some calls' events (0.2 to
+    0.8 of them a call) and, without a synchronize at each step, to count
+    the warm-up's: the profile is taken again, up to three times, until
+    every part counts a whole number of events a call, and a part's time
+    is its mean event time times its events a call, rounded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+            for _ in range(reps + 1):   # each call done before its step ends
+                fn(**args)
+                torch.cuda.synchronize()
+                prof.step()
+        total, counts = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and any(k in e.name for k in names):
+                part = part_of(e.name)
+                total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+                counts[part] = counts.get(part, 0) + 1
+        if all(n % reps == 0 for n in counts.values()):
+            break
+    return ({k: v / counts[k] * max(1, round(counts[k] / reps))
+             for k, v in total.items()}, counts)
+
+
 def device_split(phase, cases, kind, reps=5) -> dict:
     """Device time of the kernels each ``kind`` launch runs, by part, from
-    ``torch.profiler`` (the wrapper's own weight packs and zero fills are
-    other kernels and not counted): the parts of ``PARTS[kind]`` by kernel
-    name (K6a: "forward" and "dx" by the case's label). Prints each launch's
-    parts, their sums and the share of the wrapper-included time (``ms``,
-    each launch timed alone) that is not device time. Returns {part: ms
-    summed over cases}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` (``_profiled_parts``; the wrapper's own weight packs
+    and zero fills are other kernels and not counted): the parts of
+    ``PARTS[kind]`` by kernel name (K6a: "forward" and "dx" by the case's
+    label). Prints each launch's parts with their events counted a call (a
+    fraction: events lost), K2's and K4's persistent grid as their C
+    entries size it (blocks, blocks a SM, SMs) and their device time from a
+    CUDA graph's replays (``graph_ms``, no profiler), the parts' sums and
+    the share of the wrapper-included time (``ms``, each launch timed
+    alone) that is not device time. Returns {part: ms summed over cases}."""
     fn, split, names = wrapper(kind), {}, PARTS[kind]
     for c in (c for c in cases if c["kind"] == kind):
         args = c["args"]
         with torch.no_grad():
             fn(**args)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn(**args)
-                torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in names)]
-        parts = {}
-        for e in evs:
-            ms = e.time_range.elapsed_us() / 1e3 / reps
-            if kind == "K6a":
-                part = "dx" if c["label"].endswith(" dx") else "forward"
-            else:
-                part = next(v for k, v in names.items() if k in e.name)
-            parts[part] = parts.get(part, 0.0) + ms
+        torch.cuda.synchronize()
+        if kind == "K6a":
+            label = "dx" if c["label"].endswith(" dx") else "forward"
+            part_of = lambda name, label=label: label
+        else:
+            part_of = lambda name: next(v for k, v in names.items() if k in name)
+        parts, counts = _profiled_parts(fn, args, names, part_of, reps)
         for k, v in parts.items():
             split[k] = split.get(k, 0.0) + v
+        grid = ""
+        if kind in ("K2", "K4"):
+            from mmr_tpu_torch.ops.fused_conv import down_grid
+
+            gr = down_grid(args["x"], args["w"], args["depthwise"],
+                           kind == "K4", bool(args.get("need_dx")))
+            try:
+                with torch.no_grad():
+                    graph = f"{graph_ms(lambda: fn(**args)):.4f} ms"
+            except RuntimeError as e:   # a diagnostic: say why, go on
+                graph = f"not measured ({str(e)[:80]})"
+            grid = (f"; grid {gr['blocks']} blocks ({gr['per_sm']} a SM x "
+                    f"{gr['sms']} SMs, {gr['smem']} B shared memory); "
+                    f"{graph} a call from a CUDA graph's replays")
         print(f"[{phase}] {kind:3s} {c['label']:14s} device " + ", ".join(
-            f"{k} {v:.4f}" for k, v in parts.items()) + " ms", flush=True)
+            f"{k} {v:.4f} ({counts[k] / reps:g} a call)"
+            for k, v in parts.items()) + " ms" + grid, flush=True)
     print(f"[{phase}] {kind} device split, summed over the launches (ms): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
     timed = [c["ms"] for c in cases if c["kind"] == kind and "ms" in c]
@@ -763,9 +835,49 @@ def train_phase(model, dev, rng) -> dict:
     k1_tile_ab(6, cases)
     per = f"sum over the launches of one train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]})"
     out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
-    for kind in ("K1", "K3", "K5b"):
+    for kind in ("K1", "K2", "K3", "K4", "K5b"):
         out[kind]["device_ms"] = device_split(6, cases, kind)
     return out
+
+
+def stem_dx_phase(model, dev) -> dict:
+    """Phase 6e: K4's dense dx (``need_dx``; not on the flagship's path,
+    whose stem reads the image) at the stem's shape: the train-mode stem
+    (``fused_stem``: K2 with moments, then K4) on a B=8 512×640 image that
+    requires a gradient, its BN affine from the moments, a loss on the
+    pending output. The K4 launch is held against its plain version,
+    timed, split by device kernel; returns its kernel entry."""
+    from mmr_tpu_torch.models.fused_encoder import fused_stem
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    enc = model.encoder
+    enc.train()
+    x = torch.randn(TRAIN_BATCH, 3, *ROI, device=dev, generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    with recording() as (records, recorders):
+        f = fused_stem(enc, x)
+        r = torch.randn(f.raw.shape, device=dev, generator=gen)
+        ((f.raw.float() * r).sum() + (f.scale * f.scale).sum()
+         + f.shift.sum()).backward()
+        torch.cuda.synchronize()
+    enc.eval()
+    launches = {k: rec.launches for k, rec in recorders.items()}
+    print(f"[6e] launches of the stem's train step with the image's gradient: "
+          f"{launches}", flush=True)
+    check(launches == _counts(K2=1, K4=1), "expected one K2 and one K4 launch")
+    k4 = [rec for rec in records if rec[0] == "K4"]
+    check(k4[0][1]["need_dx"] and not k4[0][1]["depthwise"],
+          "the stem's K4 launch did not compute the dense dx")
+    check(bool(torch.isfinite(x.grad).all()), "non-finite image gradient")
+    cases = hold_records("6e", k4)
+    time_cases("6e", cases)
+    entry = kernel_entry("K4", cases, launches["K4"],
+                         f"one launch: the stem's dW and dense dx (need_dx) at "
+                         f"B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]}; not on the "
+                         "flagship's path")
+    entry["name"] = "fused_conv_down_bwd (dense dx)"
+    entry["device_ms"] = device_split("6e", cases, "K4")
+    return entry
 
 
 # ------------------------------------------------------------- Path A
@@ -1241,7 +1353,8 @@ def main() -> int:
 
     per = "sum over the launches of one 20-window forward"
     kernels = [kernel_entry("K1", cases, s1, per), kernel_entry("K2", cases, s2, per)]
-    kernels[0]["device_ms"] = device_split(5, cases, "K1")
+    for e, kind in zip(kernels, ("K1", "K2")):
+        e["device_ms"] = device_split(5, cases, kind)
     # ---- 6. training -------------------------------------------------------
     train = train_phase(model, dev, rng)
     for kind, e in zip(("K1", "K2"), kernels):   # their train-step numbers beside
@@ -1249,6 +1362,7 @@ def main() -> int:
                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                    "bound_by", "library_ms", "device_ms") if k in train[kind]})
     kernels += [train[k] for k in ("K3", "K4", "K5a", "K5b")]
+    kernels.insert(-2, stem_dx_phase(model, dev))
     # ---- 7. Path-A training, 8. Path-A evaluation ------------------------
     path_a, entries = path_a_train_phase(dev, args.seed)
     evals = path_a_eval_phase(path_a, dev, args.seed)

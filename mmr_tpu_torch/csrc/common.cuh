@@ -1,7 +1,8 @@
 // Device code shared by the port's conv kernels: K1 (fused_conv.cu), its
 // backward K3 (fused_conv_bwd.cu), the head+loss pair K5a/K5b
-// (head_loss.cu), the stride-2 pair K2/K4 (prologue, moments, dy prep) and
-// the standalone conv K6/K8 (conv3x3.cu).
+// (head_loss.cu), the stride-2 pair K2/K4 (through down_tile.cuh: the
+// prologue, cp.async, launch attributes) and the standalone conv K6/K8
+// (conv3x3.cu).
 //
 // Two generations of mainloop live here. The WMMA one (load_tile,
 // load_weights, mma_chunk): one block = kTH output rows x kTW pixels, an
@@ -102,17 +103,6 @@ __device__ __forceinline__ float act_grad(float v, int act) {
   if (act == kHswish)
     return v <= -3.f ? 0.f : (v >= 3.f ? 1.f : (2.f * v + 3.f) / 6.f);
   return 1.f;
-}
-
-// pro(x[idx]) of channel c, rounded to bf16 (identity without a prologue)
-__device__ __forceinline__ float load_act(const __nv_bfloat16* x,
-                                          const float* scale,
-                                          const float* shift, int act,
-                                          size_t idx, int c) {
-  const float v = __bfloat162float(x[idx]);
-  if (act == kNone) return v;
-  return __bfloat162float(
-      __float2bfloat16_rn(prologue(v, scale[c], shift[c], act)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -9,170 +9,365 @@
 // source rows/cols 2r-1 .. 2r+1 of pro(x) * W (+ bias), with the same
 // optional prologue pro(v) = act(s*v + t) as K1 (f32, rounded to bf16 before
 // the multiply-accumulate; zero padding AFTER the prologue), f32
-// accumulation and y stored raw in bf16. With mom != null it also emits
-// mom[0][c] += sum y, mom[1][c] += sum y^2 from the f32 values (bias
-// included) before the rounding: per-block shared sums, then f32 atomics.
-// Two specialisations:
+// accumulation and y stored raw in bf16. With part != null each block also
+// writes its row of sums, Sum y and Sum y^2 over its tile from the f32
+// values (bias included) before the rounding, and down_rows_reduce_kernel
+// adds the rows in block order into the (2, cout) moments: no atomics, the
+// same result on every run. The TPU kernel's phase split, Toeplitz taps and
+// diagonal-expanded depthwise weights are layout artefacts, not carried
+// over.
 //
-// - dense (the mbv3 stem, Cin = 3): one thread per output pixel computes
-//   all output channels from the 9 x Cin source values it reads once
-//   (6-byte pixels: scalar loads, cached in L1 across the overlapping
-//   windows of neighbouring threads); weights live in shared memory as f32.
-// - depthwise (b0_0, C = 16): one thread per (output pixel, channel), so a
-//   warp reads contiguous channel runs. The TPU kernel ran the depthwise
-//   conv as a diagonal-expanded dense conv at C x the MACs; here it does the
-//   9 MACs per output value the function needs.
+// A persistent grid (as many blocks as fit the card, each walking tiles
+// blockIdx.x, + gridDim.x, ...) over tiles of 4 output rows
+// (down_tile.cuh): a tile's 9 source rows with their halo come into shared
+// memory by 16-byte cp.async, one tile ahead (two raw buffers), the
+// prologue is applied once per staged value, and the products run from
+// shared memory:
+// - dense (the mbv3 stem, 3 -> 16; cin <= 16, cout <= 32), 64 output
+//   columns: the (pixels x 9*cin, padded to 16) patch matrix times the
+//   (9*cin x cout) weights as mma.sync m16n8k16, a warp per 16 output
+//   pixels; the A fragments are gathered from the staged tile through a
+//   table of the patch columns' offsets, the B fragments come packed by the
+//   wrapper (`_stem_frags`). f32 products of bf16 values are exact, so only
+//   the order of the sums differs from the plain version.
+// - depthwise (b0_0, C = 16; C in {8, 16, 32, 64}), 32 output columns:
+//   CUDA-core FMAs, a thread per (output pixel, 8 channels), 16-byte loads
+//   and stores.
 //
-// Bound on an H100: both launches do 2*9*Cin ops per output value against
-// 2 bytes per input value read and output value written, far below the
-// 295 op/byte ridge, so they are bound by device-memory bytes; the design
-// reads each input byte from device memory about once (the overlapping 3x3
-// windows hit L1/L2) and writes each output once.
+// Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): 2*9*cin*cout operations
+// per output pixel against 2*(cin*4 + cout) bytes per output pixel read
+// and written, far below the 295 op/byte ridge: bytes bound it, 0.011 ms
+// for the stem and 0.008 ms for b0_0 at B = 8 (0.019 ms in training; 0.047
+// ms for a 20-window serving batch). The design reads each source byte
+// from device memory once (a tile's halo row is the next tile's first,
+// 1/8 more through L2), writes y once, and keeps the prologue's output and
+// the moments out of device memory.
 
-#include "common.cuh"
+#include "down_tile.cuh"
 
 namespace {
 
-constexpr int kCoBlock = 16;
-
 struct DownParams {
-  const __nv_bfloat16* x;  // (n, h, w, cin)
-  const float* scale;      // (cin,) or null when act == kNone
+  const __nv_bfloat16* x;   // (n, h, w, cin), 16-byte aligned
+  const float* scale;       // (cin,) or null when act == kNone
   const float* shift;
   int act;
-  const __nv_bfloat16* wt;  // dense: (9, cin, cout); depthwise: (9, cin)
+  const __nv_bfloat16* wt;  // dense: the B fragments (ks, nt, 32, 4);
+                            // depthwise: (9, cin)
   const float* bias;        // (cout,) or null
   __nv_bfloat16* y;         // (n, ho, wo, cout)
-  float* mom;               // (2, cout) or null
-  int n, h, w, cin, cout, ho, wo;
+  float* part;              // (gridDim.x, 2 * cout) or null
+  long long x_end;          // byte address one past x
+  int n, h, w, cin, cout, ho, wo, ks, nt, tiles_y, tiles_x, tiles;
 };
 
-__global__ void __launch_bounds__(kThreads) down_dense_kernel(
-    const DownParams p) {
-  extern __shared__ float wsm[];  // (9, cin, cout) f32, then (2, cout) sums
-  float* msm = wsm + 9 * p.cin * p.cout;
-  const int nw = 9 * p.cin * p.cout;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x)
-    wsm[i] = __bfloat162float(p.wt[i]);
-  for (int i = threadIdx.x; i < 2 * p.cout; i += blockDim.x) msm[i] = 0.f;
-  __syncthreads();
+struct StemSmem {
+  using S = SrcTile<kDenseTW>;
+  // two raw tiles, act tile, prologue vectors (2, 16), patch-column
+  // offsets (16 * 9), warp moments (8, 2, 32)
+  __host__ __device__ static int act_off(int cin) {
+    return 2 * S::raw_bytes(cin);
+  }
+  __host__ __device__ static int pro_off(int cin) {
+    return act_off(cin) + S::act_bytes(cin);
+  }
+  __host__ __device__ static int koff_off(int cin) {
+    return pro_off(cin) + 128;
+  }
+  __host__ __device__ static int red_off(int cin) {
+    return koff_off(cin) + 16 * 9 * 4;
+  }
+  __host__ __device__ static int bytes(int cin) {
+    return red_off(cin) + 8 * 2 * 32 * 4;
+  }
+};
 
-  const int lane = threadIdx.x & 31;
-  const long long total = (long long)p.n * p.ho * p.wo;
-  // block-uniform trip count: the moments' warp shuffles need every lane
-  for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
-       base += (long long)gridDim.x * blockDim.x) {
-    const long long idx = base + threadIdx.x;
-    const bool ok = idx < total;
-    const int ox = (int)(idx % p.wo);
-    const long long t = idx / p.wo;
-    const int oy = (int)(t % p.ho);
-    const int b = (int)(t / p.ho);
-    __nv_bfloat16* dst = p.y + (size_t)idx * p.cout;
-    for (int co0 = 0; co0 < p.cout; co0 += kCoBlock) {
-      float acc[kCoBlock];
+// channels co (and co + 1 when two) of one pixel; a paired store when
+// cout is even (then co, even, is 4-byte aligned)
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float v0,
+                                           float v1, bool two, bool even) {
+  if (two && even) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  dst[0] = __float2bfloat16_rn(v0);
+  if (two) dst[1] = __float2bfloat16_rn(v1);
+}
+
+__global__ void __launch_bounds__(kDownThreads) down_stem_kernel(
+    const DownParams p) {
+  using S = SrcTile<kDenseTW>;
+  using M = StemSmem;
+  extern __shared__ __align__(16) char down_smem[];
+  char* smem = down_smem;
+  __nv_bfloat16* act =
+      reinterpret_cast<__nv_bfloat16*>(smem + M::act_off(p.cin));
+  float* pro = reinterpret_cast<float*>(smem + M::pro_off(p.cin));
+  int* koff = reinterpret_cast<int*>(smem + M::koff_off(p.cin));
+  float* red = reinterpret_cast<float*>(smem + M::red_off(p.cin));
+  const int rb = S::raw_bytes(p.cin);
+  int tile = blockIdx.x;
+  stage_src<kDenseTW>(p.x, p.x_end,
+                      down_tile(tile, p.tiles_y, p.tiles_x, kDenseTW), p.h,
+                      p.w, p.cin, smem);
+  cp_async_commit();
+  const int as = S::act_stride(p.cin);
+  // patch column k = tap * cin + ci -> its offset from a pixel's window
+  for (int i = threadIdx.x; i < 16 * p.ks; i += kDownThreads) {
+    const int tap = i / p.cin, ci = i - tap * p.cin;
+    koff[i] = i < 9 * p.cin ? (tap / 3) * as + (tap % 3) * p.cin + ci : -1;
+  }
+  if (p.act != kNone && threadIdx.x < p.cin) {
+    pro[threadIdx.x] = p.scale[threadIdx.x];
+    pro[16 + threadIdx.x] = p.shift[threadIdx.x];
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const uint2* wf = reinterpret_cast<const uint2*>(p.wt);
+  float s1[4][2] = {}, s2[4][2] = {};
+  constexpr int kSegs = kDenseTW / 16;
+  // tiles blockIdx.x, + gridDim.x, ...: the next tile's source rows are
+  // copied into the other raw buffer while this one is computed
+  for (int n = 0; tile < p.tiles; tile += gridDim.x, ++n) {
+    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, kDenseTW);
+    if (tile + gridDim.x < p.tiles)
+      stage_src<kDenseTW>(
+          p.x, p.x_end,
+          down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, kDenseTW), p.h,
+          p.w, p.cin, smem + ((n + 1) & 1) * rb);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    activate_src<kDenseTW>(p.x, t, p.h, p.w, p.cin, smem + (n & 1) * rb, act,
+                           pro, pro + 16, p.act);
+    __syncthreads();
+    for (int mt = warp; mt < kDownTH * kSegs; mt += 8) {
+      const int oyl = mt / kSegs, ox0 = (mt - oyl * kSegs) * 16;
+      // windows of pixels g and g + 8 (+8 output columns = +16 source ones)
+      const int pa = 2 * oyl * as + 2 * (ox0 + g) * p.cin;
+      const int pb = pa + 16 * p.cin;
+      float acc[4][4] = {};
+      for (int ks = 0; ks < p.ks; ++ks) {
+        const int* ko = koff + ks * 16 + 2 * q;
+        const int o0 = ko[0], o1 = ko[1], o2 = ko[8], o3 = ko[9];
+        uint32_t a[4];
+        a[0] = pack_bf16(tap_at(act, pa, o0), tap_at(act, pa, o1));
+        a[1] = pack_bf16(tap_at(act, pb, o0), tap_at(act, pb, o1));
+        a[2] = pack_bf16(tap_at(act, pa, o2), tap_at(act, pa, o3));
+        a[3] = pack_bf16(tap_at(act, pb, o2), tap_at(act, pb, o3));
 #pragma unroll
-      for (int k = 0; k < kCoBlock; ++k) acc[k] = 0.f;
-      for (int tap = 0; tap < 9 && ok; ++tap) {
-        const int iy = 2 * oy - 1 + tap / 3;
-        const int ix = 2 * ox - 1 + tap % 3;
-        if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w) continue;
-        const size_t base_i = ((size_t)(b * p.h + iy) * p.w + ix) * p.cin;
-        for (int ci = 0; ci < p.cin; ++ci) {
-          const float v = load_act(p.x, p.scale, p.shift, p.act, base_i + ci,
-                                   ci);
-          const float* wr = wsm + (tap * p.cin + ci) * p.cout + co0;
-#pragma unroll
-          for (int k = 0; k < kCoBlock; ++k)
-            if (co0 + k < p.cout) acc[k] = fmaf(v, wr[k], acc[k]);
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= p.nt) break;
+          const uint2 b = wf[(ks * p.nt + nt) * 32 + lane];
+          mma16816(acc[nt], a, b.x, b.y);
         }
       }
+      const int oy = t.r0 + oyl, oxa = t.c0 + ox0 + g;
+      const bool va = oy < p.ho && oxa < p.wo, vb = oy < p.ho && oxa + 8 < p.wo;
+      __nv_bfloat16* ya =
+          p.y + ((size_t)(t.b * p.ho + oy) * p.wo + oxa) * p.cout;
+      __nv_bfloat16* yb = ya + 8 * p.cout;
+      const bool even = (p.cout & 1) == 0;
 #pragma unroll
-      for (int k = 0; k < kCoBlock; ++k)
-        if (p.bias != nullptr && co0 + k < p.cout) acc[k] += p.bias[co0 + k];
-      if (ok) {
-        __align__(16) __nv_bfloat16 o[kCoBlock];
-#pragma unroll
-        for (int k = 0; k < kCoBlock; ++k) o[k] = __float2bfloat16_rn(acc[k]);
-        __nv_bfloat16* d = dst + co0;
-        if (co0 + kCoBlock <= p.cout &&
-            reinterpret_cast<uintptr_t>(d) % 16 == 0) {
-          reinterpret_cast<uint4*>(d)[0] = reinterpret_cast<const uint4*>(o)[0];
-          reinterpret_cast<uint4*>(d)[1] = reinterpret_cast<const uint4*>(o)[1];
-        } else {
-          for (int k = 0; k < kCoBlock && co0 + k < p.cout; ++k) d[k] = o[k];
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = nt * 8 + 2 * q;
+        if (nt >= p.nt || co >= p.cout) continue;
+        const bool two = co + 1 < p.cout;
+        const float b0 = p.bias ? p.bias[co] : 0.f;
+        const float b1 = p.bias && two ? p.bias[co + 1] : 0.f;
+        const float v0 = acc[nt][0] + b0, v1 = acc[nt][1] + b1;
+        const float v2 = acc[nt][2] + b0, v3 = acc[nt][3] + b1;
+        if (va) {
+          store_pair(ya + co, v0, v1, two, even);
+          s1[nt][0] += v0;
+          s2[nt][0] += v0 * v0;
+          if (two) {
+            s1[nt][1] += v1;
+            s2[nt][1] += v1 * v1;
+          }
         }
-      }
-      if (p.mom != nullptr) {
-#pragma unroll
-        for (int k = 0; k < kCoBlock; ++k) {
-          const float v = (ok && co0 + k < p.cout) ? acc[k] : 0.f;
-          const float s1 = warp_sum(v);
-          const float s2 = warp_sum(v * v);
-          if (lane == 0 && co0 + k < p.cout) {
-            atomicAdd(&msm[co0 + k], s1);
-            atomicAdd(&msm[p.cout + co0 + k], s2);
+        if (vb) {
+          store_pair(yb + co, v2, v3, two, even);
+          s1[nt][0] += v2;
+          s2[nt][0] += v2 * v2;
+          if (two) {
+            s1[nt][1] += v3;
+            s2[nt][1] += v3 * v3;
           }
         }
       }
     }
   }
-  if (p.mom != nullptr) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * p.cout; i += blockDim.x)
-      atomicAdd(&p.mom[i], msm[i]);
+  if (p.part == nullptr) return;
+  // the warp's sums over its 8 row groups g, then the warps in order
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[nt][e] += __shfl_xor_sync(kFull, s1[nt][e], off);
+        s2[nt][e] += __shfl_xor_sync(kFull, s2[nt][e], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[(warp * 2) * 32 + nt * 8 + 2 * q + e] = s1[nt][e];
+        red[(warp * 2 + 1) * 32 + nt * 8 + 2 * q + e] = s2[nt][e];
+      }
+  }
+  __syncthreads();
+  float* row = p.part + (size_t)blockIdx.x * 2 * p.cout;
+  for (int j = threadIdx.x; j < 2 * p.cout; j += kDownThreads) {
+    const int stat = j / p.cout, c = j - stat * p.cout;
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[(w * 2 + stat) * 32 + c];
+    row[j] = s;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) down_dw_kernel(
+struct DwSmem {
+  using S = SrcTile<kDwTW>;
+  // two raw tiles, act tile, weights (9, c) and prologue vectors (2, c)
+  // f32, warp moments (8, 2, 64)
+  __host__ __device__ static int act_off(int c) { return 2 * S::raw_bytes(c); }
+  __host__ __device__ static int w_off(int c) {
+    return act_off(c) + S::act_bytes(c);
+  }
+  __host__ __device__ static int pro_off(int c) { return w_off(c) + 9 * c * 4; }
+  __host__ __device__ static int red_off(int c) {
+    return pro_off(c) + 2 * c * 4;
+  }
+  __host__ __device__ static int bytes(int c) {
+    return red_off(c) + 8 * 2 * 64 * 4;
+  }
+};
+
+// c = cin = cout in {8, 16, 32, 64}
+__global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
     const DownParams p) {
-  extern __shared__ float msm[];  // (2, cin) block sums
-  for (int i = threadIdx.x; i < 2 * p.cin; i += blockDim.x) msm[i] = 0.f;
-  __syncthreads();
-  const long long total = (long long)p.n * p.ho * p.wo * p.cin;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % p.cin);
-    const long long pix = idx / p.cin;
-    const int ox = (int)(pix % p.wo);
-    const long long t = pix / p.wo;
-    const int oy = (int)(t % p.ho);
-    const int b = (int)(t / p.ho);
-    float acc = 0.f;
+  using S = SrcTile<kDwTW>;
+  using M = DwSmem;
+  extern __shared__ __align__(16) char down_smem[];
+  char* smem = down_smem;
+  const int c = p.cin;
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + M::act_off(c));
+  float* wsm = reinterpret_cast<float*>(smem + M::w_off(c));
+  float* pro = reinterpret_cast<float*>(smem + M::pro_off(c));
+  float* red = reinterpret_cast<float*>(smem + M::red_off(c));
+  const int rb = S::raw_bytes(c);
+  int tile = blockIdx.x;
+  stage_src<kDwTW>(p.x, p.x_end, down_tile(tile, p.tiles_y, p.tiles_x, kDwTW),
+                   p.h, p.w, c, smem);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 9 * c; i += kDownThreads)
+    wsm[i] = __bfloat162float(p.wt[i]);
+  if (p.act != kNone && threadIdx.x < c) {
+    pro[threadIdx.x] = p.scale[threadIdx.x];
+    pro[c + threadIdx.x] = p.shift[threadIdx.x];
+  }
+  const int groups = c / 8, grp = threadIdx.x % groups, c0 = grp * 8;
+  const int as = S::act_stride(c);
+  float s1[8] = {}, s2[8] = {}, bv[8];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int iy = 2 * oy - 1 + tap / 3;
-      const int ix = 2 * ox - 1 + tap % 3;
-      if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w) continue;
-      const float v = load_act(p.x, p.scale, p.shift, p.act,
-                               ((size_t)(b * p.h + iy) * p.w + ix) * p.cin + c,
-                               c);
-      acc = fmaf(v, __bfloat162float(p.wt[tap * p.cin + c]), acc);
-    }
-    if (p.bias != nullptr) acc += p.bias[c];
-    p.y[idx] = __float2bfloat16_rn(acc);
-    if (p.mom != nullptr) {
-      atomicAdd(&msm[c], acc);
-      atomicAdd(&msm[p.cin + c], acc * acc);
-    }
-  }
-  if (p.mom != nullptr) {
+  for (int k = 0; k < 8; ++k) bv[k] = p.bias ? p.bias[c0 + k] : 0.f;
+  for (int n = 0; tile < p.tiles; tile += gridDim.x, ++n) {
+    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, kDwTW);
+    if (tile + gridDim.x < p.tiles)
+      stage_src<kDwTW>(p.x, p.x_end,
+                       down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, kDwTW),
+                       p.h, p.w, c, smem + ((n + 1) & 1) * rb);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    for (int i = threadIdx.x; i < 2 * p.cin; i += blockDim.x)
-      atomicAdd(&p.mom[i], msm[i]);
+    activate_src<kDwTW>(p.x, t, p.h, p.w, c, smem + (n & 1) * rb, act, pro,
+                        pro + c, p.act);
+    __syncthreads();
+    for (int it = threadIdx.x; it < kDownTH * kDwTW * groups;
+         it += kDownThreads) {
+      const int px = it / groups, oyl = px / kDwTW, oxl = px - oyl * kDwTW;
+      float acc[8] = {};
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        float v[8];
+        load8(act + (2 * oyl + tap / 3) * as + (2 * oxl + tap % 3) * c + c0, v);
+        const float* wr = wsm + tap * c + c0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] = fmaf(v[k], wr[k], acc[k]);
+      }
+      const int oy = t.r0 + oyl, ox = t.c0 + oxl;
+      if (oy >= p.ho || ox >= p.wo) continue;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        acc[k] += bv[k];
+        s1[k] += acc[k];
+        s2[k] += acc[k] * acc[k];
+      }
+      __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(acc[k]);
+      *reinterpret_cast<uint4*>(
+          p.y + ((size_t)(t.b * p.ho + oy) * p.wo + ox) * c + c0) =
+          *reinterpret_cast<const uint4*>(o);
+    }
   }
+  if (p.part == nullptr) return;
+  // lanes of one channel group: lane mod groups; then the warps in order
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    for (int off = groups; off < 32; off <<= 1) {
+      s1[k] += __shfl_xor_sync(kFull, s1[k], off);
+      s2[k] += __shfl_xor_sync(kFull, s2[k], off);
+    }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < groups) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      red[(warp * 2) * 64 + c0 + k] = s1[k];
+      red[(warp * 2 + 1) * 64 + c0 + k] = s2[k];
+    }
+  }
+  __syncthreads();
+  float* row = p.part + (size_t)blockIdx.x * 2 * c;
+  for (int j = threadIdx.x; j < 2 * c; j += kDownThreads) {
+    const int stat = j / c, ch = j - stat * c;
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[(w * 2 + stat) * 64 + ch];
+    row[j] = s;
+  }
+}
+
+using DownKernel = void (*)(const DownParams);
+
+// the kernel of a launch and its dynamic shared memory; false outside the
+// kernels' channels
+bool down_fwd_kernel(int cin, int cout, int depthwise, DownKernel* k,
+                     int* smem) {
+  if (!down_channels_ok(cin, cout, depthwise)) return false;
+  *k = depthwise ? &down_dw_fwd_kernel : &down_stem_kernel;
+  *smem = depthwise ? DwSmem::bytes(cin) : StemSmem::bytes(cin);
+  return true;
 }
 
 }  // namespace
 
-// Host entry (plain C interface, bound with ctypes). depthwise != 0 selects
-// the depthwise kernel (then cout == cin). mom: a zeroed (2, cout) f32
-// buffer or null. Returns a cudaError_t.
+// Host entry (plain C interface, bound with ctypes). x: (n, h, w, cin) bf16,
+// 16-byte aligned; scale, shift: (cin,) f32 or null (act 0); wt: dense, the
+// B fragments of `_stem_frags` (ks = ceil(9 cin / 16), nt = ceil(cout / 8),
+// 32, 4) bf16 (cin <= 16, cout <= 32); depthwise, (9, cin) bf16 (cout ==
+// cin in {8, 16, 32, 64}); bias: (cout,) f32 or null; y: (n, ho, wo, cout)
+// bf16; part: f32 scratch of part_rows rows of 2 * cout (one a tile is
+// always enough) and mom the (2, cout) moments, or both null. One launch of
+// a persistent grid (mmr_fused_conv_down_grid), then the moments'
+// reduction. Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
                                    const void* shift, int act, const void* wt,
-                                   const void* bias, void* y, void* mom, int n,
-                                   int h, int w, int cin, int cout,
-                                   int depthwise, void* stream) {
+                                   const void* bias, void* y, void* part,
+                                   void* mom, int part_rows, int n, int h,
+                                   int w, int cin, int cout, int depthwise,
+                                   void* stream) {
   DownParams p{};
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.scale = static_cast<const float*>(scale);
@@ -181,7 +376,7 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.bias = static_cast<const float*>(bias);
   p.y = static_cast<__nv_bfloat16*>(y);
-  p.mom = static_cast<float*>(mom);
+  p.part = static_cast<float*>(part);
   p.n = n;
   p.h = h;
   p.w = w;
@@ -189,20 +384,56 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
   p.cout = cout;
   p.ho = (h + 1) / 2;
   p.wo = (w + 1) / 2;
+  p.ks = (9 * cin + 15) / 16;
+  p.nt = (cout + 7) / 8;
+  p.x_end = (long long)reinterpret_cast<uintptr_t>(x) +
+            (long long)n * h * w * cin * 2;
+  DownKernel kernel;
+  int smem = 0;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || n < 1 || h < 1 || w < 1 ||
+      !down_fwd_kernel(cin, cout, depthwise, &kernel, &smem))
+    return (int)cudaErrorInvalidValue;
+  const DownTiles tl = down_tiles(n, h, w, depthwise);
+  p.tiles_y = tl.y;
+  p.tiles_x = tl.x;
+  p.tiles = tl.all;
+  DownGrid g{};
+  cudaError_t e = down_grid(kernel, smem, p.tiles, &g);
+  if (e != cudaSuccess) return (int)e;
+  if (part != nullptr && part_rows < g.blocks)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long work =
-      (long long)n * p.ho * p.wo * (depthwise ? (long long)cin : 1LL);
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (blocks < 1) blocks = 1;
-  if (depthwise) {
-    if (cout != cin) return (int)cudaErrorInvalidValue;
-    down_dw_kernel<<<(int)blocks, kThreads, 2 * cin * (int)sizeof(float), s>>>(
-        p);
-  } else {
-    const int smem = (9 * cin * cout + 2 * cout) * (int)sizeof(float);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    down_dense_kernel<<<(int)blocks, kThreads, smem, s>>>(p);
-  }
-  return (int)cudaGetLastError();
+  kernel<<<g.blocks, kDownThreads, smem, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess || part == nullptr) return (int)e;
+  return (int)launch_rows_reduce(p.part, g.blocks, 2 * cout,
+                                 static_cast<float*>(mom), s);
+}
+
+// The grid mmr_fused_conv_down launches at these arguments: out[0..4) =
+// {blocks, blocks a SM, SMs, dynamic shared memory}; it sets the kernel's
+// launch attributes as the launch does. Returns a cudaError_t.
+extern "C" int mmr_fused_conv_down_grid(int n, int h, int w, int cin,
+                                        int cout, int depthwise, void* out) {
+  DownKernel kernel;
+  int smem = 0;
+  if (n < 1 || h < 1 || w < 1 ||
+      !down_fwd_kernel(cin, cout, depthwise, &kernel, &smem))
+    return (int)cudaErrorInvalidValue;
+  return report_grid(kernel, smem, down_tiles(n, h, w, depthwise).all,
+                     static_cast<int*>(out));
+}
+
+// Dynamic shared memory in bytes (what = 0) or resident blocks per SM at
+// the launch's attributes (what = 1) of the dense kernel at c -> 16
+// channels (kind 0) or the depthwise one at c (kind 1). Returns -1
+// otherwise.
+extern "C" int mmr_fused_conv_down_info(int what, int kind, int c) {
+  DownKernel kernel;
+  int smem = 0;
+  int g[4];
+  if ((kind != 0 && kind != 1) ||
+      !down_fwd_kernel(c, kind ? c : 16, kind, &kernel, &smem))
+    return -1;
+  if (!what) return smem;
+  return report_grid(kernel, smem, 1 << 30, g) == 0 ? g[1] : -1;
 }

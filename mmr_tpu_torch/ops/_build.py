@@ -42,24 +42,34 @@ SIGNATURES = {
     "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P],
     "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],
-    "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
-    "mmr_fused_conv_down_bwd": [_P] * 3 + [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    "mmr_fused_conv_down_bwd": ([_P] * 3 + [_I] + [_P] * 6 + [_I] + [_P]
+                                + [_I] * 6 + [_P]),
     "mmr_head_loss_fwd": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P],
     "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] + [_P] * 5
                           + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
     "mmr_hopper_kernel_info": [_I, _I, _I],
     "mmr_fused_conv_info": [_I, _I, _I],
     "mmr_head_loss_bwd_info": [_I, _I, _I],
+    "mmr_fused_conv_down_info": [_I, _I, _I],
+    "mmr_fused_conv_down_bwd_info": [_I, _I, _I],
+    "mmr_fused_conv_down_grid": [_I] * 6 + [_P],
+    "mmr_fused_conv_down_bwd_grid": [_I] * 7 + [_P],
 }
 # the Hopper kernels by mangled name: the entry that reports their shared
 # memory and blocks per SM, their kind there (``mmr_hopper_kernel_info``: 0
-# conv, 1 source-resolution dx, 2 dW) and their output-channel tiles
+# conv, 1 source-resolution dx, 2 dW) and their output-channel tiles (the
+# stride-2 pair's: the flagship's input channels)
 HOPPER_KERNELS = {
     "conv_wg_kernel": ("mmr_hopper_kernel_info", 0, (16, 32, 64)),
     "conv_up2_dx_kernel": ("mmr_hopper_kernel_info", 1, (16, 32, 64)),
     "conv_dw_wg_kernel": ("mmr_hopper_kernel_info", 2, (16, 32)),
     "pending_conv_kernel": ("mmr_fused_conv_info", 0, (16, 32, 64)),
     "head_bwd_kernel": ("mmr_head_loss_bwd_info", 0, (16, 32)),
+    "down_stem_kernel": ("mmr_fused_conv_down_info", 0, (3,)),
+    "down_dw_fwd_kernel": ("mmr_fused_conv_down_info", 1, (16,)),
+    "down_stem_bwd_kernel": ("mmr_fused_conv_down_bwd_info", 0, (3,)),
+    "down_dw_bwd_kernel": ("mmr_fused_conv_down_bwd_info", 1, (16,)),
 }
 
 
@@ -87,9 +97,10 @@ def ptxas_summary(out: str) -> list[str]:
     for line in out.splitlines():
         m = re.search(r"Function properties for (\w+)", line)
         if m:
-            k = re.search(r"\d+(%s)ILi(\d+)E(f?)" % "|".join(HOPPER_KERNELS),
+            k = re.search(r"\d+(%s)(?:ILi(\d+)E(f?))?" % "|".join(HOPPER_KERNELS),
                           m.group(1))
-            name = k and f"{k.group(1)}<{k.group(2)}{', f32' if k.group(3) else ''}>"
+            name = k and (k.group(1) if k.group(2) is None else
+                          f"{k.group(1)}<{k.group(2)}{', f32' if k.group(3) else ''}>")
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:

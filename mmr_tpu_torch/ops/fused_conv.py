@@ -557,6 +557,14 @@ def fused_conv_down_ref(x: Pending, w: torch.Tensor,
     return (out, moments(y)) if emit_moments else out
 
 
+# K2's and K4's output tiles (``csrc/down_tile.cuh``): 4 output rows by 64
+# (dense) or 32 (depthwise) output columns; the channels the kernels take
+# (the plain versions take any)
+DOWN_TILE = {False: (4, 64), True: (4, 32)}
+DENSE_MAX_CIN, DENSE_MAX_COUT = 16, 32
+DEPTHWISE_C = (8, 16, 32, 64)
+
+
 def _check_down(x: Pending, w: torch.Tensor, bias, depthwise: bool):
     if x.up2x:
         raise ValueError("fused_conv_down does not take a lazily upsampled input")
@@ -568,16 +576,68 @@ def _check_down(x: Pending, w: torch.Tensor, bias, depthwise: bool):
         raise ValueError(f"weight {tuple(w.shape)} on {w.device}, expected "
                          f"{want} on {device}")
     cout = cin if depthwise else w.shape[3]
-    if not depthwise and (9 * cin + 2) * cout * 4 > 48 * 1024:
-        raise ValueError("the dense stride-2 kernel holds its weights in 48 KB "
-                         "of shared memory: (9*Cin+2)*Cout must be <= 12288")
     _check_bias(bias, cout, device)
     return device, batch, cout
 
 
-def _down_weights(w: torch.Tensor, depthwise: bool) -> torch.Tensor:
-    cin = w.shape[2] if not depthwise else w.shape[3]
-    return w.to(BF16).reshape(9, cin * (1 if depthwise else w.shape[3])).contiguous()
+def _check_down_kernel(cin: int, cout: int, depthwise: bool):
+    """The kernels' channels (a launch; the plain versions take any)."""
+    if depthwise and cin not in DEPTHWISE_C:
+        raise ValueError(f"the depthwise stride-2 kernels take C in {DEPTHWISE_C}")
+    if not depthwise and (cin > DENSE_MAX_CIN or cout > DENSE_MAX_COUT):
+        raise ValueError("the dense stride-2 kernels take Cin <= "
+                         f"{DENSE_MAX_CIN} and Cout <= {DENSE_MAX_COUT}")
+
+
+def _down_tiles(batch: int, h: int, w: int, depthwise: bool) -> int:
+    """The stride-2 kernels' tiles of a (batch, h, w) input, in (image,
+    tile row, tile column) order; block i of a grid of B blocks (B ≤ the
+    tiles) takes tiles i, i + B, ... and writes row i of the block sums."""
+    th, tw = DOWN_TILE[depthwise]
+    return batch * -(-((h + 1) // 2) // th) * -(-((w + 1) // 2) // tw)
+
+
+def down_grid(x: Pending, w: torch.Tensor, depthwise: bool = False,
+              backward: bool = False, need_dx: bool = False) -> dict:
+    """The persistent grid K2 (or K4, ``backward``) launches for these
+    arguments on the current card, as its C entry sizes it: blocks, blocks
+    a SM, SMs and dynamic shared memory (bytes)."""
+    n, h, wd, cin = x.raw.shape
+    cout = cin if depthwise else w.shape[3]
+    _check_down_kernel(cin, cout, depthwise)
+    out = torch.zeros(4, dtype=torch.int32)
+    lib = _build.library()
+    err = (lib.mmr_fused_conv_down_bwd_grid(n, h, wd, cin, cout,
+                                            int(depthwise), int(need_dx),
+                                            out.data_ptr())
+           if backward else
+           lib.mmr_fused_conv_down_grid(n, h, wd, cin, cout, int(depthwise),
+                                        out.data_ptr()))
+    _raise_on(err, "down_grid")
+    return dict(zip(("blocks", "per_sm", "sms", "smem"), out.tolist()))
+
+
+def _down_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO -> bf16 (9·cin·cout,) or, depthwise, (9·C,): tap-major."""
+    return w.to(BF16).reshape(-1).contiguous()
+
+
+def _stem_frags(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, cin, cout) -> the dense K2's mma.sync B fragments
+    (ks, nt, 32, 4) bf16, ks = ⌈9·cin / 16⌉, nt = ⌈cout / 8⌉: lane 4g + q
+    of (ks, nt) holds ``Wk[16·ks + 2q + (0, 1, 8, 9), 8·nt + g]``, Wk the
+    weights as (9·cin, cout) patch columns (tap-major), zero beyond."""
+    cin, cout = w.shape[2], w.shape[3]
+    k, ks, nt = 9 * cin, -(-9 * cin // 16), -(-cout // 8)
+    wk = F.pad(w.reshape(k, cout).to(BF16), (0, 8 * nt - cout, 0, 16 * ks - k))
+    return wk.reshape(ks, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3).reshape(
+        ks, nt, 32, 4)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data is not 16-byte aligned (the
+    stride-2 kernels copy and load 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_conv_down(x: Pending, w: torch.Tensor,
@@ -586,25 +646,35 @@ def fused_conv_down(x: Pending, w: torch.Tensor,
     """3×3 stride-2 pad-(1,1) conv of ``act(s·x + t)`` (+ bias).
 
     ``w``: HWIO (3, 3, Cin, Cout), or (3, 3, 1, C) with ``depthwise`` (a
-    true per-channel conv). Returns raw y as contiguous NHWC bf16 at
-    ((H+1)//2, (W+1)//2), and with ``emit_moments`` its (2, Cout) f32
-    moments. Not differentiable: see :func:`fused_conv_down_ad`."""
+    true per-channel conv); the kernel takes Cin ≤ 16 and Cout ≤ 32, or C
+    in 8, 16, 32, 64 (the plain version any). Returns raw y as contiguous NHWC bf16 at ((H+1)//2, (W+1)//2), and with
+    ``emit_moments`` its (2, Cout) f32 moments (the blocks' sums added in a
+    fixed order: the same on every run). Not differentiable: see
+    :func:`fused_conv_down_ad`."""
     device, batch, cout = _check_down(x, w, bias, depthwise)
     if not _launch_device(device):
         return fused_conv_down_ref(x, w, bias, depthwise, emit_moments)
 
+    _check_down_kernel(x.c, cout, depthwise)
     h, wd = x.raw.shape[1], x.raw.shape[2]
-    wt = _down_weights(w, depthwise)
+    raw = _aligned(x.raw)
+    wt = (_cached_pack(("down", True), [w], lambda: _down_weights(w))
+          if depthwise else
+          _cached_pack(("K2 frags",), [w], lambda: _stem_frags(w)))
     bias_f = None if bias is None else bias.float().contiguous()
+    rows = _down_tiles(batch, h, wd, depthwise)
     y = torch.empty((batch, (h + 1) // 2, (wd + 1) // 2, cout),
                     dtype=BF16, device=device)
-    mom = (torch.zeros((2, cout), dtype=torch.float32, device=device)
-           if emit_moments else None)
+    part = mom = None
+    if emit_moments:
+        part = torch.empty((rows, 2 * cout), dtype=torch.float32,
+                           device=device)
+        mom = torch.empty((2, cout), dtype=torch.float32, device=device)
     act = 0 if x.scale is None else ACTS[x.act]
     err = _build.library().mmr_fused_conv_down(
-        x.raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
-        _ptr(bias_f), y.data_ptr(), _ptr(mom), batch, h, wd, x.c, cout,
-        int(depthwise), _stream())
+        raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
+        _ptr(bias_f), y.data_ptr(), _ptr(part), _ptr(mom), rows, batch, h,
+        wd, x.c, cout, int(depthwise), _stream())
     _raise_on(err, "fused_conv_down")
     fused_conv_down.launches += 1
     return (y, mom) if emit_moments else y
@@ -646,9 +716,9 @@ def fused_conv_down_bwd(x: Pending, w: torch.Tensor, y: torch.Tensor | None,
                         has_bias: bool = False, depthwise: bool = False,
                         need_dx: bool = True):
     """K2's backward (K4): returns ``(dx or None, dW (f32 HWIO), (d scale,
-    d shift) or None, dbias or None)``. The dense kernel computes dW only
-    (the stem's input is the image): a dense ``need_dx`` on the card
-    raises."""
+    d shift) or None, dbias or None)``, dx through the prologue's backward
+    when ``need_dx``. One kernel launch and the fixed-order addition of its
+    blocks' sums: every output is the same on every run."""
     device, batch, cout = _check_down(x, w, None, depthwise)
     h, wd = x.raw.shape[1], x.raw.shape[2]
     shape = (batch, (h + 1) // 2, (wd + 1) // 2, cout)
@@ -659,30 +729,31 @@ def fused_conv_down_bwd(x: Pending, w: torch.Tensor, y: torch.Tensor | None,
     if not _launch_device(device):
         return fused_conv_down_bwd_ref(x, w, y, dy, dmom, has_bias,
                                        depthwise, need_dx)
-    if not depthwise and need_dx:
-        raise NotImplementedError(
-            "the dense stride-2 backward kernel computes dW only")
-    if depthwise and 256 % x.c:
-        raise ValueError("the depthwise backward kernels need 256 % C == 0")
 
+    _check_down_kernel(x.c, cout, depthwise)
     f32 = dict(dtype=torch.float32, device=device)
-    wt = _down_weights(w, depthwise)
-    dwp = torch.zeros(wt.shape, **f32)
+    wt = _cached_pack(("down", depthwise), [w], lambda: _down_weights(w))
+    nw, c = w.numel(), x.c
+    length = nw + cout + 2 * c
+    rows = _down_tiles(batch, h, wd, depthwise)
+    part = torch.empty((rows, length), **f32)
+    out = torch.empty(length, **f32)
     dx = torch.empty_like(x.raw) if need_dx else None
-    with_pro = need_dx and x.scale is not None
-    dpro = (torch.zeros(x.c, **f32), torch.zeros(x.c, **f32)) if with_pro else None
-    dbias = torch.zeros(cout, **f32) if has_bias else None
-    dye = torch.empty_like(dy) if dmom is not None else None
+    # the aligned inputs and dmom stay referenced until the launch
+    raw, dy = _aligned(x.raw), _aligned(dy)
+    y = None if dmom is None else _aligned(y)
+    dmom = None if dmom is None else dmom.contiguous()
     act = 0 if x.scale is None else ACTS[x.act]
     err = _build.library().mmr_fused_conv_down_bwd(
-        x.raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
-        dy.data_ptr(), _ptr(y), _ptr(None if dmom is None else dmom.contiguous()),
-        _ptr(dye), _ptr(dbias), _ptr(dx),
-        _ptr(dpro[0] if dpro else None), _ptr(dpro[1] if dpro else None),
-        dwp.data_ptr(), batch, h, wd, x.c, cout, int(depthwise), _stream())
+        raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
+        dy.data_ptr(), _ptr(y), _ptr(dmom), _ptr(dx), part.data_ptr(), rows,
+        out.data_ptr(), batch, h, wd, c, cout, int(depthwise), _stream())
     _raise_on(err, "fused_conv_down_bwd")
     fused_conv_down_bwd.launches += 1
-    return dx, dwp.reshape(w.shape), dpro, dbias
+    dpro = ((out[nw + cout:nw + cout + c], out[nw + cout + c:])
+            if need_dx and x.scale is not None else None)
+    dbias = out[nw:nw + cout] if has_bias else None
+    return dx, out[:nw].view(w.shape), dpro, dbias
 
 
 fused_conv_down_bwd.launches = 0

@@ -26,8 +26,9 @@ import jax.numpy as jnp
 import mmr_tpu.ops.pallas.packed_chain as pc
 from mmr_tpu.ops.pallas.conv3x3_packed import _toeplitz
 from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv,
-                                          fused_conv_down, fused_conv_down_ref,
-                                          fused_conv_ref)
+                                          fused_conv_down, fused_conv_down_bwd,
+                                          fused_conv_down_bwd_ref,
+                                          fused_conv_down_ref, fused_conv_ref)
 from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 ATOL, RTOL = 0.05, 0.02
@@ -211,6 +212,25 @@ class TestWrapperContract:
         assert torch.equal(fused_conv_down(Pending(x), w),
                            fused_conv_down_ref(Pending(x), w))
         assert (fused_conv.launches, fused_conv_down.launches) == before
+
+    @pytest.mark.parametrize("depthwise,cin,cout", [
+        (False, 64, 64), (True, 24, 24), (True, 128, 128)])
+    def test_cpu_stride2_takes_channels_beyond_the_kernels(self, depthwise,
+                                                           cin, cout):
+        """The kernels' channel limits hold on the card only: on the CPU the
+        stride-2 pair runs its plain versions at any channels."""
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(1, 6, 10, cin, generator=g).to(torch.bfloat16)
+        p = Pending(x, torch.rand(cin, generator=g) + 0.5,
+                    torch.randn(cin, generator=g), "relu")
+        w = torch.randn(3, 3, 1 if depthwise else cin, cout, generator=g)
+        y = fused_conv_down(p, w, depthwise=depthwise)
+        assert torch.equal(y, fused_conv_down_ref(p, w, depthwise=depthwise))
+        dy = torch.randn(y.shape, generator=g).to(torch.bfloat16)
+        got = fused_conv_down_bwd(p, w, None, dy, depthwise=depthwise)
+        want = fused_conv_down_bwd_ref(p, w, None, dy, depthwise=depthwise)
+        for a, b in [(got[0], want[0]), (got[1], want[1]), *zip(got[2], want[2])]:
+            assert torch.equal(a, b)
 
     @pytest.mark.parametrize("bad", ["dtype", "layout", "device", "weight"])
     def test_rejects(self, bad):

@@ -10,12 +10,14 @@ it also runs there without the JAX-side conftest:
 Kernel tolerance: atol = rtol = 2e-2 — both sides read the same bf16
 inputs and round the prologue at the same place; accumulation order and
 one bf16 rounding of y remain. Moments: rtol 1e-3 of the largest moment
-(f32 sums in another order; the kernels add block sums by atomics).
-Backward outputs (dx, dW, d(scale, shift), dbias): max|Δ| / max|ref| and
-‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16 inputs and round
-at the same places; summation order (the kernels add block partials by
-atomics) and one bf16 rounding of dx remain, so a dropped tap or a lost
-correction term fails. The confusion kernel counts in integers: exact.
+(f32 sums in another order: K1 adds block sums by atomics, K2 in a fixed
+order). Backward outputs (dx, dW, d(scale, shift), dbias): max|Δ| /
+max|ref| and ‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16
+inputs and round at the same places; summation order (K3 adds block
+partials by atomics, K4 and K5b in a fixed order) and one bf16 rounding
+of dx remain, so a dropped tap or a lost correction term fails. K2, K4
+and K5b give bit-equal results on a second launch. The confusion kernel
+counts in integers: exact.
 """
 
 import numpy as np
@@ -293,36 +295,88 @@ def test_k1_tiles_agree(dev, ntile, monkeypatch):
     _mom_close(mom, mom_ref)
 
 
-@pytest.mark.parametrize("depthwise,hw,batch", [
-    (False, (34, 66), 2), (True, (34, 66), 2),
-    (False, (512, 640), 8), (True, (256, 320), 8)])     # the stem, b0_0
-def test_k2_moments_and_k4(dev, depthwise, hw, batch):
+@pytest.mark.parametrize("depthwise,cin,cout,act,bias,hw,batch", [
+    (False, 3, 16, None, False, (34, 66), 2),
+    (True, 16, 16, "hswish", False, (34, 66), 2),
+    (False, 3, 16, None, False, (512, 640), 8),        # the stem
+    (True, 16, 16, "hswish", False, (256, 320), 8),    # b0_0
+    (False, 16, 16, "relu", True, (34, 66), 2),        # a prologue, a bias
+    (False, 3, 16, None, False, (33, 65), 2),          # odd H and W
+    (True, 16, 16, "hswish", True, (33, 65), 2),
+    (False, 4, 5, "hswish", True, (1, 65), 2),         # a 1-row image
+    (True, 16, 16, "relu", False, (1, 65), 2),
+    # the channels' edges, with more tiles than blocks (a block walks
+    # several): depthwise C 8, 32, 64 (one raw buffer), dense Cout 32
+    (True, 8, 8, "relu", True, (130, 258), 8),
+    (True, 32, 32, "hswish", True, (130, 258), 8),
+    (True, 64, 64, "linear", True, (130, 258), 8),
+    (False, 16, 32, "hswish", True, (130, 258), 8),
+    (False, 3, 32, None, False, (66, 130), 2),
+])
+def test_k2_moments_and_k4(dev, depthwise, cin, cout, act, bias, hw, batch):
+    """K2 with moments and K4 (dense: dW alone as the stem, then with dx;
+    depthwise: with dx) vs their plain versions; a second launch on the
+    same inputs gives bit-equal y, moments, dx, dW, dscale, dshift, dbias."""
     g = torch.Generator(device=dev).manual_seed(4)
-    c = 16 if depthwise else 3
-    x = _rand(g, dev, batch, *hw, c, dtype=torch.bfloat16)
-    s = torch.rand(c, device=dev, generator=g) + 0.5
-    t = _rand(g, dev, c, scale=0.3)
-    p = Pending(x, s, t, "hswish") if depthwise else Pending(x)
-    w = _rand(g, dev, 3, 3, 1 if depthwise else c, 16, scale=0.3)
-    w = w[..., :c] if depthwise else w
-    y, mom = fused_conv_down(p, w, depthwise=depthwise, emit_moments=True)
-    y_ref, mom_ref = fused_conv_down_ref(p, w, depthwise=depthwise,
-                                         emit_moments=True)
+    x = _rand(g, dev, batch, *hw, cin, dtype=torch.bfloat16)
+    s = torch.rand(cin, device=dev, generator=g) + 0.5
+    t = _rand(g, dev, cin, scale=0.3)
+    p = Pending(x) if act is None else Pending(x, s, t, act)
+    w = _rand(g, dev, 3, 3, 1 if depthwise else cin, cout, scale=0.3)
+    b = _rand(g, dev, cout, scale=0.5) if bias else None
+    y, mom = fused_conv_down(p, w, b, depthwise, emit_moments=True)
+    y_ref, mom_ref = fused_conv_down_ref(p, w, b, depthwise, emit_moments=True)
     _close(y, y_ref)
     _mom_close(mom, mom_ref)
+    y2, mom2 = fused_conv_down(p, w, b, depthwise, emit_moments=True)
+    assert torch.equal(y, y2) and torch.equal(mom, mom2)
     dy = _rand(g, dev, *y.shape, dtype=torch.bfloat16)
-    dmom = _rand(g, dev, 2, y.shape[-1], scale=1e-3)
-    before = fused_conv_down_bwd.launches
-    got = fused_conv_down_bwd(p, w, y, dy, dmom, depthwise=depthwise,
-                              need_dx=depthwise)
-    assert fused_conv_down_bwd.launches == before + 1
-    want = fused_conv_down_bwd_ref(p, w, y, dy, dmom, depthwise=depthwise,
-                                   need_dx=depthwise)
-    _grad_close("dw", got[1], want[1])
-    if depthwise:
-        _grad_close("dx", got[0], want[0])
-        for a, b in zip(got[2], want[2]):
-            _grad_close("dpro", a, b)
+    dmom = _rand(g, dev, 2, cout, scale=1e-3)
+    for need_dx in (True,) if depthwise else (False, True):
+        args = (p, w, y, dy, dmom, bias, depthwise, need_dx)
+        before = fused_conv_down_bwd.launches
+        got = fused_conv_down_bwd(*args)
+        assert fused_conv_down_bwd.launches == before + 1
+        want = fused_conv_down_bwd_ref(*args)
+        again = fused_conv_down_bwd(*args)
+        names = ["dx", "dw", "dpro", "dbias"]
+        for name, a, r, a2 in zip(names, got, want, again):
+            assert (a is None) == (r is None) == (a2 is None), name
+            if a is None:
+                continue
+            for u, v, u2 in zip(*(z if isinstance(z, tuple) else (z,)
+                                  for z in (a, r, a2))):
+                _grad_close(name, u, v)
+                assert torch.equal(u, u2), name
+
+
+def test_k2_k4_launch_in_any_order(dev):
+    """A launch does not depend on the launches before it: the kernels'
+    shared memory changes with the channels, and a smaller launch of a
+    kernel followed by a larger one must still run (dense Cin 16, 4, 16;
+    depthwise C 32, 16, 32, 64, 16)."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    for depthwise, cin, cout in [(False, 16, 16), (False, 4, 16),
+                                 (False, 16, 32), (True, 32, 32),
+                                 (True, 16, 16), (True, 32, 32),
+                                 (True, 64, 64), (True, 16, 16)]:
+        x = _rand(g, dev, 2, 18, 34, cin, dtype=torch.bfloat16)
+        s = torch.rand(cin, device=dev, generator=g) + 0.5
+        p = Pending(x, s, _rand(g, dev, cin, scale=0.3), "relu")
+        w = _rand(g, dev, 3, 3, 1 if depthwise else cin, cout, scale=0.3)
+        y, mom = fused_conv_down(p, w, None, depthwise, emit_moments=True)
+        y_ref, mom_ref = fused_conv_down_ref(p, w, None, depthwise,
+                                             emit_moments=True)
+        _close(y, y_ref)
+        _mom_close(mom, mom_ref)
+        dy = _rand(g, dev, *y.shape, dtype=torch.bfloat16)
+        for need_dx in (True,) if depthwise else (False, True):
+            args = (p, w, y, dy, None, False, depthwise, need_dx)
+            got = fused_conv_down_bwd(*args)
+            want = fused_conv_down_bwd_ref(*args)
+            _grad_close("dw", got[1], want[1])
+            if need_dx:
+                _grad_close("dx", got[0], want[0])
 
 
 @pytest.mark.parametrize("hw,batch,nc", [((20, 40), 2, 3), ((512, 640), 8, 10)])

@@ -4,9 +4,12 @@ tap pack (``_pack_taps``; one pack shared by the inputs of one K3 dx
 launch, ``_dx_packs``; K1's over the concat of its inputs' 16-channel
 chunks, ``_concat_taps``), the 16 combined taps of a lazily ×2-upsampled
 input's source-resolution dx as bf16 pairs hi + lo (``_up2_taps``), the dW
-layout (``_unpack_dw_wg``), K5b's per-block sums and their reduction, and
-the packs' cache per weight version (``_cached_pack``), each held against
-the HWIO math or the plain version it replaces.
+layout (``_unpack_dw_wg``), K5b's per-block sums and their reduction, the
+stride-2 pair's tiles (``_down_tiles``), dense K2's mma.sync B fragments
+(``_stem_frags``) and patch matrix, and K2's and K4's per-block sums and
+their reduction, and the packs' cache per weight version
+(``_cached_pack``), each held against the HWIO math or the plain version
+it replaces.
 
 The kernels run only on the card; here torch emulates what they compute
 from the packs: the stride-1 conv as 9 shifted products, the
@@ -30,12 +33,17 @@ import jax.numpy as jnp
 
 import mmr_tpu.ops.pallas.packed_chain as pc
 from mmr_tpu_torch.ops.conv3x3_packed import conv3x3_dw_ref, conv3x3_ref
-from mmr_tpu_torch.ops.fused_conv import (BF16, Pending, _cached_pack,
-                                          _concat_taps, _dx_packs, _dx_taps,
-                                          _pack_taps, _prologue_bwd,
+from mmr_tpu_torch.ops.fused_conv import (BF16, DOWN_TILE, Pending,
+                                          _cached_pack, _concat_taps,
+                                          _corrected_dy, _down_tiles,
+                                          _dx_packs, _dx_taps, _pack_taps,
+                                          _prologue_bwd, _stem_frags,
                                           _unpack_dw_wg, _up2_taps, _wg_tile,
-                                          activated, fused_conv_bwd_ref,
-                                          fused_conv_ref, moments)
+                                          act_grad, activated,
+                                          fused_conv_bwd_ref,
+                                          fused_conv_down_bwd_ref,
+                                          fused_conv_down_ref, fused_conv_ref,
+                                          moments)
 from mmr_tpu_torch.ops.head_loss import dlogits_ref, head_loss_bwd_ref
 from mmr_tpu_torch.ops.resize import upsample2x
 from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
@@ -385,3 +393,178 @@ def test_pack_cache_follows_weight_versions(rng):
         n = len(built)
         pack([wi]), pack([wi])
     assert len(built) == n + 2
+
+
+# ------------------------------------------------------------ K2 + K4
+
+def _down_tile_list(n, h, w, depthwise):
+    """The stride-2 kernels' output tiles (b, r0, c0), in block order."""
+    th, tw = DOWN_TILE[depthwise]
+    return [(b, r, c) for b in range(n) for r in range(0, (h + 1) // 2, th)
+            for c in range(0, (w + 1) // 2, tw)]
+
+
+def _src_tile(a, b, r0, c0, tw):
+    """A tile's staged source values: rows 2·r0 − 1 .. 2·r0 + 7, columns
+    2·c0 − 1 .. 2·c0 + 2·tw − 1 of ``a``, zero outside the image."""
+    h, w = a.shape[1:3]
+    t = torch.zeros(9, 2 * tw + 1, a.shape[3], dtype=a.dtype)
+    y0, x0 = 2 * r0 - 1, 2 * c0 - 1
+    ys, xs = slice(max(0, y0), min(h, y0 + 9)), slice(max(0, x0), min(w, x0 + 2 * tw + 1))
+    t[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0] = a[b, ys, xs]
+    return t
+
+
+def _frags_matrix(frags):
+    """The (16·ks, 8·nt) matrix the mma.sync B fragments stand for, read
+    back lane by lane: lane 4g + q holds rows 2q, 2q + 1, 2q + 8, 2q + 9 of
+    column g."""
+    ks, nt = frags.shape[:2]
+    m = torch.zeros(16 * ks, 8 * nt)
+    rows, cols = torch.arange(ks)[:, None] * 16, torch.arange(nt)[None, :] * 8
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for j, dk in enumerate((0, 1, 8, 9)):
+            m[rows + 2 * q + dk, cols + g] = frags[:, :, lane, j].float()
+    return m
+
+
+def _patches(tile, tw, ks):
+    """The dense kernels' patch matrix of a tile: one row per output pixel
+    (4 × tw), column k = tap·cin + ci gathered from the flattened tile at
+    the pixel's window plus the offset table's entry (zero at k ≥ 9·cin)."""
+    cin = tile.shape[2]
+    flat, row = tile.reshape(-1), (2 * tw + 1) * cin
+    k = torch.arange(16 * ks)
+    koff = torch.where(k < 9 * cin, (k // cin // 3) * row
+                       + (k // cin % 3) * cin + k % cin, -1)
+    oyl, oxl = torch.meshgrid(torch.arange(4), torch.arange(tw), indexing="ij")
+    base = (2 * oyl * row + 2 * oxl * cin).reshape(-1, 1)
+    return torch.where(koff >= 0, flat[base + koff.clamp(min=0)], 0.0)
+
+
+def _down_case(rng, n, h, w, cin, cout, depthwise):
+    x = Pending(torch.from_numpy(rng.randn(n, h, w, cin)).to(BF16),
+                torch.from_numpy(rng.rand(cin).astype(np.float32) + 0.5),
+                torch.from_numpy(rng.randn(cin).astype(np.float32) * 0.3),
+                "hswish")
+    wt = _bf16_valued(rng.randn(3, 3, 1 if depthwise else cin, cout) * 0.3)
+    bias = _bf16_valued(rng.randn(cout))
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("depthwise,cin,cout", [(False, 3, 16), (False, 4, 5),
+                                                (True, 16, 16)])
+def test_k2_tiles_and_block_sums_match_plain(rng, depthwise, cin, cout):
+    """K2 as its kernels compute it, on an image cut by both tile edges (H
+    9, W 150: a 5 × 75 output): per tile the staged, prologue'd source
+    values; dense, the patch matrix (through the offset table) times the
+    weights read back from the mma.sync B fragments (``_stem_frags``);
+    depthwise, the 9 taps' products per channel; + bias. Gives the plain
+    f32 conv (1e-5 of the largest); the blocks' rows of Σy, Σy² (block i
+    of 3 takes tiles i, i + 3, ...), added in block order, its moments;
+    ``_down_tiles`` counts the tiles."""
+    n, h, w = 2, 9, 150
+    x, wt, bias = _down_case(rng, n, h, w, cin, cout, depthwise)
+    a = activated(x)
+    tw = DOWN_TILE[depthwise][1]
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    wmat = None if depthwise else _frags_matrix(_stem_frags(wt)).double()
+    y = torch.zeros(n, ho, wo, cout, dtype=torch.float64)
+    tiles = _down_tile_list(n, h, w, depthwise)
+    rows = torch.zeros(3, 2 * cout, dtype=torch.float64)
+    for i, (b, r0, c0) in enumerate(tiles):
+        src = _src_tile(a, b, r0, c0, tw).double()
+        if depthwise:
+            out = sum(src[ky:ky + 8:2, kx:kx + 2 * tw:2] * wt[ky, kx, 0].double()
+                      for ky in range(3) for kx in range(3))
+        else:
+            out = (_patches(src, tw, wmat.shape[0] // 16) @ wmat)[:, :cout]
+            out = out.reshape(4, tw, cout)
+        out = (out + bias.double())[:min(4, ho - r0), :min(tw, wo - c0)]
+        y[b, r0:r0 + out.shape[0], c0:c0 + out.shape[1]] = out
+        rows[i % 3] += torch.cat([out.sum((0, 1)), (out * out).sum((0, 1))])
+    assert len(tiles) == _down_tiles(n, h, w, depthwise) > 3
+    want = F.conv2d(a.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), bias,
+                    stride=2, padding=1, groups=cin if depthwise else 1)
+    want = want.permute(0, 2, 3, 1)
+    assert _rel(y.float(), want)[0] < 1e-5
+    assert _rel(rows.sum(0).float().reshape(2, cout), moments(want))[0] < 1e-5
+    assert torch.equal(fused_conv_down_ref(x, wt, bias, depthwise),
+                       want.to(BF16))
+
+
+def _covering(s):
+    """(tap, output offset) pairs whose stride-2 window covers owned source
+    offset s of a tile."""
+    return [(1, s // 2)] if s % 2 == 0 else [(0, (s + 1) // 2), (2, (s - 1) // 2)]
+
+
+def _k4_rows(x, w, y, dy, dmom, depthwise, blocks):
+    """K4's block rows: block i takes tiles i, i + blocks, ... and sums
+    over its tiles' own output pixels dW (the staged prologue'd source
+    values times dye rounded to bf16) and dbias (the f32 dye), and over
+    its tiles' own source pixels (rows 2·r0 .. 2·r0 + 7, columns 2·c0 ..
+    2·c0 + 2·tw − 1) dscale and dshift: each source pixel gathers its ≤ 4
+    covering taps from the tile's dye with its halo row and column, then
+    the prologue's backward. A row: dW (HWIO order), dbias, dscale,
+    dshift. Also the whole dx."""
+    n, h, wd, cin = x.raw.shape
+    cout, nw = w.shape[3], w.numel()
+    ho, wo = (h + 1) // 2, (wd + 1) // 2
+    th, tw = DOWN_TILE[depthwise]
+    g = _corrected_dy(dy, y, dmom).double()
+    gb, a = g.to(BF16).double(), activated(x).double()
+    wr, xr = w.to(BF16).double(), x.raw.double()
+    s, t = x.scale.double(), x.shift.double()
+    rows = torch.zeros(blocks, nw + cout + 2 * cin, dtype=torch.float64)
+    dx = torch.zeros(n, h, wd, cin, dtype=torch.float64)
+    for i, (b, r0, c0) in enumerate(_down_tile_list(n, h, wd, depthwise)):
+        row = rows[i % blocks]
+        d = torch.zeros(th + 1, tw + 1, cout, dtype=torch.float64)
+        part = gb[b, r0:r0 + th + 1, c0:c0 + tw + 1]
+        d[:part.shape[0], :part.shape[1]] = part
+        src = _src_tile(a, b, r0, c0, tw)
+        for tap in range(9):
+            at = src[tap // 3:tap // 3 + 2 * th:2, tap % 3:tap % 3 + 2 * tw:2]
+            prod = (at * d[:th, :tw]).sum((0, 1)) if depthwise else torch.einsum(
+                "yxc,yxk->ck", at, d[:th, :tw]).reshape(-1)
+            row[tap * prod.numel():(tap + 1) * prod.numel()] += prod
+        row[nw:nw + cout] += g[b, r0:r0 + th, c0:c0 + tw].sum((0, 1))
+        for syl in range(min(2 * th, h - 2 * r0)):
+            for sxl in range(min(2 * tw, wd - 2 * c0)):
+                ga = 0
+                for ky, oy in _covering(syl):
+                    for kx, ox in _covering(sxl):
+                        ga = ga + (d[oy, ox] * wr[ky, kx, 0] if depthwise
+                                   else wr[ky, kx] @ d[oy, ox])
+                sy, sx = 2 * r0 + syl, 2 * c0 + sxl
+                v = xr[b, sy, sx]
+                gm = ga * act_grad(v * s + t, x.act).double()
+                dx[b, sy, sx] = gm * s
+                row[nw + cout:nw + cout + cin] += gm * v
+                row[nw + cout + cin:] += gm
+    return rows, dx
+
+
+@pytest.mark.parametrize("depthwise,cin,cout", [(False, 4, 5), (True, 16, 16)])
+def test_k4_block_sums_reduce_to_plain(rng, depthwise, cin, cout):
+    """K4's per-block sums on a ragged image (H 9, W 70: tiles cut by both
+    edges), with a hswish prologue, the moments' cotangent and dx, reduced
+    in block order and decoded as ``down_rows_reduce_kernel``'s output is,
+    give ``fused_conv_down_bwd_ref``'s dW, dbias, dscale and dshift (1e-5 of
+    the largest) and its dx (within one bf16 rounding)."""
+    n, h, w = 2, 9, 70
+    x, wt, _ = _down_case(rng, n, h, w, cin, cout, depthwise)
+    y = fused_conv_down_ref(x, wt, depthwise=depthwise)
+    dy = torch.from_numpy(rng.randn(*y.shape)).to(BF16)
+    dmom = torch.from_numpy(rng.randn(2, cout).astype(np.float32) * 1e-2)
+    rows, dx = _k4_rows(x, wt, y, dy, dmom, depthwise, blocks=3)
+    total, nw = rows.sum(0).float(), wt.numel()
+    got = [total[:nw].view(wt.shape), total[nw:nw + cout],
+           total[nw + cout:nw + cout + cin], total[nw + cout + cin:]]
+    dx_r, dw_r, (ds_r, dt_r), db_r = fused_conv_down_bwd_ref(
+        x, wt, y, dy, dmom, True, depthwise, True)
+    for g, want in zip(got, [dw_r, db_r, ds_r, dt_r]):
+        assert _rel(g, want)[0] < 1e-5
+    assert _within_bf16(dx.to(BF16), dx_r)

@@ -200,6 +200,55 @@ class TestFusedConvDownTrainVsJax:
         np.testing.assert_allclose(_np(mom), np.asarray(m_j), rtol=2e-2, atol=0.5)
         assert _rel(_np(wt.grad), g_j) < GRAD_REL
 
+    @pytest.fixture(scope="class")
+    def dense_dx_case(self):
+        """``TestFusedConvDownPhases2::test_full_bwd_with_pro_and_dx``'s
+        case, a dense Cin 4 -> 5 conv with a bias and a relu or hswish
+        prologue: the inputs and JAX's y and gradients for both prologues,
+        from one jitted program."""
+        rng = np.random.RandomState(7)
+        g_src, g_dst = self._geoms()
+        B, CIN, CO = 2, 4, 5
+        x = rng.randn(B, g_src.h, g_src.w, CIN).astype(np.float32)
+        w3 = (rng.randn(3, 3, CIN, CO) * 0.3).astype(np.float32)
+        s = (rng.rand(CIN) + 0.5).astype(np.float32)
+        t = (rng.randn(CIN) * 0.3).astype(np.float32)
+        bias = rng.randn(CO).astype(np.float32)
+        acts = ("relu", "hswish")
+
+        def jax_loss(act, x, w3, s, t, bias):
+            cfg = pc.DownCfg(g_src=g_src, g_dst=g_dst, l_in=g_src.lanes(CIN),
+                             lo=g_dst.lanes(CO), pro=act, has_bias=True,
+                             emit_moments=False, need_dx=True)
+            y_p, _ = pc.fused_conv_down(
+                cfg, pc.to_packed(x, g_src), w3, _pro(s, t, g_src, CIN),
+                pc.bias_lanes(bias, g_dst.p, g_dst.cp(CO)))
+            y = pc.from_packed(y_p, g_dst, CO).astype(jnp.float32)
+            return (y ** 2).sum(), y
+
+        grads = jax.value_and_grad(jax_loss, argnums=(1, 2, 3, 4, 5),
+                                   has_aux=True)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pc, "_INTERPRET", True)
+            out = jax.jit(lambda *a: [grads(act, *a) for act in acts])(
+                *map(jnp.asarray, (x, w3, s, t, bias)))
+        return (x, w3, s, t, bias), dict(zip(acts, out))
+
+    @pytest.mark.parametrize("act", ["relu", "hswish"])
+    def test_dense_full_bwd_with_pro_and_dx(self, dense_dx_case, act):
+        """K4's dense ``need_dx`` (the plain version on the CPU): dx
+        through the prologue, dW, dscale, dshift and dbias vs JAX's
+        interpreted ``_down_bwd_call`` with ``need_dx``."""
+        inputs, jax_out = dense_dx_case
+        (_, y_j), g_j = jax_out[act]
+        leaves = [_bf16_leaf(inputs[0])] + [_t(v, True) for v in inputs[1:]]
+        xt, wt, st, tt, bt = leaves
+        y = fused_conv_down_ad(Pending(xt, st, tt, act), wt, bt)
+        (y.float() ** 2).sum().backward()
+        np.testing.assert_allclose(_np(y), np.asarray(y_j), atol=0.05, rtol=0.02)
+        _assert_grads(["dx", "dw", "dscale", "dshift", "dbias"],
+                      [_np(v.grad) for v in leaves], g_j)
+
     def test_depthwise_b0_0_full_bwd(self, rng):
         """b0_0: a depthwise stride-2 conv through the stem's pending BN +
         hardswish, moments with a cotangent, every gradient; JAX runs it as
