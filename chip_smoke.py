@@ -15,9 +15,9 @@ front-end and head + loss).
    ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``, one line of registers
    and spills per Hopper kernel: ``common.cuh``'s, K1's
    ``pending_conv_kernel``, K5b's ``head_bwd_kernel`` and the stride-2
-   pair's ``down_*_kernel``s), and each Hopper kernel's dynamic shared
-   memory and resident blocks per SM (K2's and K4's at the flagship's
-   input channels).
+   pair's ``down_*_kernel``s, K6b/K8b's ``conv3x3_dw_kernel``), and each
+   Hopper kernel's dynamic shared memory and resident blocks per SM (K2's
+   and K4's at the flagship's input channels; the dW kernel's per mode).
 2. One eval forward of one frame's 20 windows through the fused path,
    recording every kernel launch: each K1 (``fused_conv``) and K2
    (``fused_conv_down``) launch is held against its plain PyTorch version
@@ -93,12 +93,14 @@ library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
 K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
 the port). Those times are of each launch repeated alone, wrapper (weight
 packs, cached per weight version for K1, K2, K4 and K5) included; phases
-5–8 also print the device time of K1 and K2 (serve, train), K3, K4, K5b
-and K6a by part (``device_split``: ``torch.profiler`` time of the kernels
-alone — K2's dense and depthwise kernels and their moments' reduction;
-K3's dy prep, dW, dx and the source-resolution dx of lazily ×2 inputs;
-K4's dense and depthwise kernels and their reduction; K5b's dx + dW
-kernel and its reduction; K6a's forward and dx), per launch and summed,
+5–10 also print the device time of K1 and K2 (serve, train), K3, K4, K5b,
+K6a, K6b (phases 7 and 9) and K8b (phase 10) by part (``device_split``:
+``torch.profiler`` time of the kernels alone — K2's dense and depthwise
+kernels and their moments' reduction; K3's dy prep, dW, dx and the
+source-resolution dx of lazily ×2 inputs; K4's dense and depthwise
+kernels and their reduction; K5b's dx + dW kernel and its reduction;
+K6a's forward and dx; K6b's and K8b's dW kernel and its reduction), per
+launch and summed,
 beside the share of the wrapper-included time that is host work; phases 5
 and 6 also time every K1 launch at each output-channel tile it can take
 (``k1_tile_ab``).
@@ -550,6 +552,8 @@ PARTS = {
            "down_rows_reduce_kernel": "reduce"},
     "K5b": {"head_bwd_kernel": "dx + dW", "head_bwd_reduce_kernel": "reduce"},
     "K6a": {"conv_wg_kernel": None},
+    "K6b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
+    "K8b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
 }
 
 
@@ -579,10 +583,11 @@ def _profiled_parts(fn, args, names, part_of, reps):
     """({part: ms a call}, {part: events counted}) of ``reps`` calls of
     ``fn(**args)`` under ``torch.profiler``, a warm-up call inside it
     first. The profiler has been seen to lose some calls' events (0.2 to
-    0.8 of them a call) and, without a synchronize at each step, to count
-    the warm-up's: the profile is taken again, up to three times, until
-    every part counts a whole number of events a call, and a part's time
-    is its mean event time times its events a call, rounded."""
+    0.8 of them a call, or all of them) and, without a synchronize at each
+    step, to count the warm-up's: the profile is taken again, up to three
+    times, until it has events and every part counts a whole number of
+    them a call, and a part's time is its mean event time times its events
+    a call, rounded. ({}, {}) when no profile had an event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -600,7 +605,7 @@ def _profiled_parts(fn, args, names, part_of, reps):
                 part = part_of(e.name)
                 total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
                 counts[part] = counts.get(part, 0) + 1
-        if all(n % reps == 0 for n in counts.values()):
+        if counts and all(n % reps == 0 for n in counts.values()):
             break
     return ({k: v / counts[k] * max(1, round(counts[k] / reps))
              for k, v in total.items()}, counts)
@@ -612,12 +617,14 @@ def device_split(phase, cases, kind, reps=5) -> dict:
     and zero fills are other kernels and not counted): the parts of
     ``PARTS[kind]`` by kernel name (K6a: "forward" and "dx" by the case's
     label). Prints each launch's parts with their events counted a call (a
-    fraction: events lost), K2's and K4's persistent grid as their C
-    entries size it (blocks, blocks a SM, SMs) and their device time from a
+    fraction: events lost; "not measured" where no profile had one), the
+    persistent grid of K2, K4, K6b and K8b as
+    their C entries size it (blocks, blocks a SM, SMs) and their device time from a
     CUDA graph's replays (``graph_ms``, no profiler), the parts' sums and
     the share of the wrapper-included time (``ms``, each launch timed
-    alone) that is not device time. Returns {part: ms summed over cases}."""
-    fn, split, names = wrapper(kind), {}, PARTS[kind]
+    alone) that is not device time, over the launches that were measured.
+    Returns {part: ms summed over the measured cases}."""
+    fn, split, names, measured = wrapper(kind), {}, PARTS[kind], []
     for c in (c for c in cases if c["kind"] == kind):
         args = c["args"]
         with torch.no_grad():
@@ -631,12 +638,20 @@ def device_split(phase, cases, kind, reps=5) -> dict:
         parts, counts = _profiled_parts(fn, args, names, part_of, reps)
         for k, v in parts.items():
             split[k] = split.get(k, 0.0) + v
+        if parts:
+            measured.append(c)
         grid = ""
-        if kind in ("K2", "K4"):
+        if kind in ("K2", "K4", "K6b", "K8b"):
+            from mmr_tpu_torch.ops.conv3x3_packed import dw_grid
             from mmr_tpu_torch.ops.fused_conv import down_grid
 
-            gr = down_grid(args["x"], args["w"], args["depthwise"],
-                           kind == "K4", bool(args.get("need_dx")))
+            if kind in ("K2", "K4"):
+                gr = down_grid(args["x"], args["w"], args["depthwise"],
+                               kind == "K4", bool(args.get("need_dx")))
+            else:
+                x, g = args["x"], args["g" if kind == "K6b" else "dy"]
+                gr = dw_grid(*x.shape, g.shape[-1], x.dtype == torch.float32,
+                             torch.cuda.current_device())
             try:
                 with torch.no_grad():
                     graph = f"{graph_ms(lambda: fn(**args)):.4f} ms"
@@ -645,12 +660,17 @@ def device_split(phase, cases, kind, reps=5) -> dict:
             grid = (f"; grid {gr['blocks']} blocks ({gr['per_sm']} a SM x "
                     f"{gr['sms']} SMs, {gr['smem']} B shared memory); "
                     f"{graph} a call from a CUDA graph's replays")
-        print(f"[{phase}] {kind:3s} {c['label']:14s} device " + ", ".join(
-            f"{k} {v:.4f} ({counts[k] / reps:g} a call)"
-            for k, v in parts.items()) + " ms" + grid, flush=True)
-    print(f"[{phase}] {kind} device split, summed over the launches (ms): "
+        dev = "not measured (no profiler event in 3 profiles)"
+        if parts:
+            dev = ", ".join(f"{k} {v:.4f} ({counts[k] / reps:g} a call)"
+                            for k, v in parts.items()) + " ms"
+        print(f"[{phase}] {kind:3s} {c['label']:14s} device {dev}{grid}",
+              flush=True)
+    n = sum(c["kind"] == kind for c in cases)
+    print(f"[{phase}] {kind} device split, summed over the {len(measured)} "
+          f"of {n} launches measured (ms): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
-    timed = [c["ms"] for c in cases if c["kind"] == kind and "ms" in c]
+    timed = [c["ms"] for c in measured if "ms" in c]
     if timed:
         dev, alone = sum(split.values()), sum(timed)
         print(f"[{phase}] {kind}: device {dev:.4f} ms, each launch timed alone "
@@ -995,11 +1015,11 @@ def path_a_train_phase(dev, seed):
     med = _timed_steps(7, lambda: step(state, images_d, masks_d, lr, g), TRAIN_STEPS)
     print(f"[7] {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
     time_cases(7, cases)
-    split = device_split(7, cases, "K6a")
     per = (f"sum over the launches of one Path-A train step (B={PATH_A_BATCH}, "
            f"{PATH_A_HW[0]}x{PATH_A_HW[1]}): forward and dx for K6a")
     out = {k: kernel_entry(k, cases, launches[k], per) for k in ("K6a", "K6b")}
-    out["K6a"]["device_ms"] = split
+    for k in ("K6a", "K6b"):
+        out[k]["device_ms"] = device_split(7, cases, k)
     return model, out
 
 
@@ -1101,8 +1121,11 @@ def zoo_phase(dev, seed) -> dict:
               f"+ {n_dx} dx, K6b {launches['K6b']}", flush=True)
         check(launches == _counts(K6a=k6 + dx, K6b=k6) and n_dx == dx,
               f"{zoo}: unexpected launch counts {launches}")
-        hold_records(9, records)
+        k6b = [c for c in hold_records(9, records) if c["kind"] == "K6b"]
         del records
+        if k6b:
+            time_cases(9, k6b)
+            device_split(9, k6b, "K6b")
         losses = [float(met["loss"])]
         for _ in range(ZOO_STEPS - 1):
             state, met = step(state, images, masks, lr, g)
@@ -1190,15 +1213,19 @@ def k8_phase(dev, seed) -> dict:
     cases = hold_records(10, records)
     del records
     time_cases(10, cases)
+    split = device_split(10, cases, "K8b")
     for dtype, shape in K8_EXTRA:
         recs, _ = _k8_run(dev, gen, dtype, shape)
         print(f"[10] {str(dtype)[6:]} {shape}:", flush=True)
         extra = hold_records(10, recs)
         del recs
         time_cases(10, extra)
+        device_split(10, extra, "K8b")
     per = (f"sum over the launches of one conv3x3_bias_act forward + backward, "
            f"bf16 {cin} -> {cout} on ({b}, {h}, {w}): forward and dx for K8a")
-    return {k: kernel_entry(k, cases, launches[k], per) for k in ("K8a", "K8b")}
+    out = {k: kernel_entry(k, cases, launches[k], per) for k in ("K8a", "K8b")}
+    out["K8b"]["device_ms"] = split
+    return out
 
 
 def main() -> int:
@@ -1233,11 +1260,13 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     print(f"[1] kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
-    for name, (entry, kind, tiles) in _build.HOPPER_KERNELS.items():
+    for name, (entry, kinds, tiles) in _build.HOPPER_KERNELS.items():
         info = getattr(_build.library(), entry)
-        print(f"[1] {name}: dynamic shared memory, blocks per SM: " + ", ".join(
-            f"N={n} {info(0, kind, n)} B, {info(1, kind, n)}" for n in tiles),
-            flush=True)
+        for kind in kinds if isinstance(kinds, tuple) else (kinds,):
+            mode = f" (mode {kind})" if isinstance(kinds, tuple) else ""
+            print(f"[1] {name}{mode}: dynamic shared memory, blocks per SM: "
+                  + ", ".join(f"N={n} {info(0, kind, n)} B, {info(1, kind, n)}"
+                              for n in tiles), flush=True)
 
     # ---- model, one frame's windows --------------------------------------
     gen = torch.Generator().manual_seed(args.seed)

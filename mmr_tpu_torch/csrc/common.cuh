@@ -10,7 +10,8 @@
 // synchronous register loads between two __syncthreads, products as WMMA
 // bf16 m16n16k16 (one warp per output row); only K5a still runs on it. The
 // Hopper one ("Hopper mainloops" below: cp.async ring, wgmma): K1, K3's dx
-// and dW, K5b, K6a/K6b and K8a/K8b.
+// and dW, K5b, K6a and K8a; K6b/K8b's dW kernel (conv3x3.cu) is built from
+// its pieces.
 
 #pragma once
 
@@ -18,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -201,7 +204,7 @@ InputT<T> plain_input(const void* x, int c) {
 // The stride-1 conv of K6a (forward and dx; K8a at f32 or bf16 storage) and
 // K3's dx (conv_wg_kernel), K1's conv over pending inputs
 // (pending_conv_kernel), the source-resolution dx of a lazily x2-upsampled
-// K3 input (conv_up2_dx_kernel) and the weight gradient of K3, K6b and K8b
+// K3 input (conv_up2_dx_kernel) and K3's weight gradient
 // (conv_dw_wg_kernel), built for the H100 (sm_90a); K5b (head_loss.cu)
 // builds its own tile from the same pieces:
 //
@@ -221,9 +224,9 @@ InputT<T> plain_input(const void* x, int c) {
 //   N = 16, 32 or 64 output channels a block (grid z tiles the rest), both
 //   operands read from shared memory through no-swizzle descriptors (core
 //   matrix: 8 rows x 16 B; LBO = the stride between the two 8-wide halves
-//   of K, SBO = the stride between 8-row groups of M or N). No shape runs
-//   on mma.sync: a narrow dW input (c < 64) leaves M rows zero, and a
-//   narrow output is wgmma n16.
+//   of K, SBO = the stride between 8-row groups of M or N). None of them
+//   runs on mma.sync: a narrow K3 dW input (c < 64) leaves M rows zero,
+//   and a narrow output is wgmma n16.
 // - Staging is channel-split: 8 channels of one pixel are one 16-byte row,
 //   consecutive pixels are consecutive rows, so a tap's shift is a whole
 //   number of rows and each tap's A operand is the staged tile itself at an
@@ -365,6 +368,19 @@ struct Wgmma<64> {
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major fragments) * b (16 x 8,
+// bf16, column fragments): lane = 4 * g + q holds a rows g, g + 8 at
+// columns 2q, 2q + 1 and 2q + 8, 2q + 9; b rows 2q, 2q + 1 and 2q + 8,
+// 2q + 9 of column g; d rows g, g + 8 at columns 2q, 2q + 1
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ------------------------------------------------------ stride-1 conv
 // y = conv(a, taps) over a 16-channel-chunked tap pack (c chunks, taps, 2,
@@ -865,6 +881,33 @@ int blocks_per_sm(K kernel, int threads, int smem) {
   return n;
 }
 
+// Resident blocks a SM of a kernel of `threads` threads at its launch
+// attributes (hopper_attrs, set just before) and dynamic shared memory on
+// device dev: the occupancy calculator is asked once per (kernel, shared
+// memory, device) in a process, a host cost a launch then no longer pays.
+template <class K>
+cudaError_t resident_per_sm(K kernel, int threads, int smem, int dev,
+                            int* per_sm) {
+  struct Entry {
+    const void* fn;
+    int smem, dev, per_sm;
+  };
+  static std::mutex mu;
+  static Entry memo[32];
+  static int n = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n; ++i)
+    if (memo[i].fn == fn && memo[i].smem == smem && memo[i].dev == dev) {
+      *per_sm = memo[i].per_sm;
+      return cudaSuccess;
+    }
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && n < 32) memo[n++] = Entry{fn, smem, dev, *per_sm};
+  return e;
+}
+
 template <int N, bool kUp2, class K, class T>
 cudaError_t launch_wg(K kernel, const WgParams<T>& p, cudaStream_t s) {
   using G = WgTile<N, kUp2>;
@@ -917,7 +960,8 @@ cudaError_t launch_up2_dx(int ntile, const WgParams<T>& p, cudaStream_t s) {
 // ----------------------------------------------------------- weight grad
 // dW[t][ci][co] = sum over the output pixels p of a(p + t - 1)[ci] *
 // dy(p)[co], a the prologue'd (bf16, lazily upsampled) input as the forward
-// staged it: K3's dW over all of a node's inputs, K6b and K8b (no prologue).
+// staged it: K3's dW over all of a node's inputs (K6b and K8b, one input
+// and no prologue, have conv3x3.cu's conv3x3_dw_kernel).
 // The inputs' channels, each padded to a multiple of 8, are the rows of dW
 // one after another; block: x = one 64-row chunk of them (wgmma M = 64 input
 // channels, of one input or several narrow ones: a node's four 16-channel
@@ -1026,8 +1070,8 @@ __global__ void __launch_bounds__(kDwWgThreads)
   fence_proxy_async();
 
   // The input tile through registers, one tile ahead: load_a issues the
-  // loads of tile tt into raw (an f32 input is rounded as it is loaded:
-  // K8b has no prologue), store_a applies the prologue and stores them into
+  // loads of tile tt into raw (an f32 input would be rounded as it is
+  // loaded), store_a applies the prologue and stores them into
   // ring slot s an iteration later, so their latency hides behind a whole
   // iteration. At most G::kPer units a thread.
   uint4 raw[G::kPer];
@@ -1172,9 +1216,14 @@ cudaError_t launch_dw_wg_n(const DwWgParams<T>& p, int n_chunks,
   const int tiles = p.n * ((p.height + DwTile<N>::kRows - 1) /
                            DwTile<N>::kRows) * ((p.width + kSeg - 1) / kSeg);
   const int xy = n_chunks * (p.np / N);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
   // about four blocks a SM, each with 4 or more pixel tiles (a block's
   // partial sums cost 9 * c * N atomics)
-  int split = (4 * 132 + xy - 1) / xy;
+  int split = (4 * sms + xy - 1) / xy;
   if (split > (tiles + 3) / 4) split = (tiles + 3) / 4;
   if (split < 1) split = 1;
   conv_dw_wg_kernel<N, T><<<dim3(n_chunks, p.np / N, split), kDwWgThreads,

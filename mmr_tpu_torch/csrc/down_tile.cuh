@@ -15,8 +15,6 @@
 
 #pragma once
 
-#include <mutex>
-
 #include "common.cuh"
 
 namespace {
@@ -184,19 +182,6 @@ __device__ __forceinline__ __nv_bfloat16 tap_at(const __nv_bfloat16* act,
   return off < 0 ? __float2bfloat16_rn(0.f) : act[base + off];
 }
 
-// d (16 x 8, f32) += a (16 x 16, bf16, row-major fragments) * b (16 x 8,
-// bf16, column fragments): lane = 4 * g + q holds a rows g, g + 8 at
-// columns 2q, 2q + 1 and 2q + 8, 2q + 9; b rows 2q, 2q + 1 and 2q + 8,
-// 2q + 9 of column g; d rows g, g + 8 at columns 2q, 2q + 1
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // out[j], j < units * nv: the sum, over ph = 0 .. kDownThreads / units - 1
 // in that order, of v[j % nv] of thread ph * units + j / nv (each thread
 // holds the sums of one unit of nv <= 8 columns). red: 8 * kDownThreads
@@ -260,32 +245,6 @@ struct DownGrid {
   int sms;      // the card's SMs
 };
 
-// Resident blocks a SM of a kernel at its launch attributes (hopper_attrs,
-// set just before) and dynamic shared memory on device dev: the occupancy
-// calculator is asked once per (kernel, shared memory, device) in a process,
-// a host cost a launch then no longer pays.
-template <class K>
-cudaError_t down_per_sm(K kernel, int smem, int dev, int* per_sm) {
-  struct Entry {
-    const void* fn;
-    int smem, dev, per_sm;
-  };
-  static std::mutex mu;
-  static Entry memo[32];
-  static int n = 0;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n; ++i)
-    if (memo[i].fn == fn && memo[i].smem == smem && memo[i].dev == dev) {
-      *per_sm = memo[i].per_sm;
-      return cudaSuccess;
-    }
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, kDownThreads, smem);
-  if (e == cudaSuccess && n < 32) memo[n++] = Entry{fn, smem, dev, *per_sm};
-  return e;
-}
-
 // Set the kernel's launch attributes (hopper_attrs, on every launch as for
 // the other Hopper kernels) and size its persistent grid over `tiles` tiles.
 // On an error the runtime's last error is cleared and returned.
@@ -296,7 +255,8 @@ cudaError_t down_grid(K kernel, int smem, int tiles, DownGrid* g) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&g->sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = hopper_attrs(kernel, smem);
-  if (e == cudaSuccess) e = down_per_sm(kernel, smem, dev, &g->per_sm);
+  if (e == cudaSuccess) e = resident_per_sm(kernel, kDownThreads, smem, dev,
+                                         &g->per_sm);
   if (e == cudaSuccess && g->per_sm < 1) e = cudaErrorInvalidConfiguration;
   if (e != cudaSuccess) {
     cudaGetLastError();

@@ -38,7 +38,9 @@ _L = ctypes.c_longlong
 # returns a cudaError_t
 SIGNATURES = {
     "mmr_conv3x3": [_P, _I, _I, _P, _P, _P] + [_I] * 7 + [_P],
-    "mmr_conv3x3_dw": [_P, _I, _I, _P, _I, _P] + [_I] * 5 + [_P],
+    "mmr_conv3x3_dw": [_P, _I, _I, _P, _I, _P, _I, _P] + [_I] * 3 + [_P],
+    "mmr_conv3x3_dw_grid": [_I] * 6 + [_P],
+    "mmr_conv3x3_dw_info": [_I, _I, _I],
     "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P],
     "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],
@@ -58,12 +60,15 @@ SIGNATURES = {
 }
 # the Hopper kernels by mangled name: the entry that reports their shared
 # memory and blocks per SM, their kind there (``mmr_hopper_kernel_info``: 0
-# conv, 1 source-resolution dx, 2 dW) and their output-channel tiles (the
-# stride-2 pair's: the flagship's input channels)
+# conv, 1 source-resolution dx, 2 K3's dW; ``mmr_conv3x3_dw_info``: the
+# modes 0 (cin <= 16), 1 (cin <= 32), 2 (64-channel chunks), each a kind)
+# and their output-channel tiles (the stride-2 pair's: the flagship's input
+# channels)
 HOPPER_KERNELS = {
     "conv_wg_kernel": ("mmr_hopper_kernel_info", 0, (16, 32, 64)),
     "conv_up2_dx_kernel": ("mmr_hopper_kernel_info", 1, (16, 32, 64)),
     "conv_dw_wg_kernel": ("mmr_hopper_kernel_info", 2, (16, 32)),
+    "conv3x3_dw_kernel": ("mmr_conv3x3_dw_info", (0, 1, 2), (16, 32, 64)),
     "pending_conv_kernel": ("mmr_fused_conv_info", 0, (16, 32, 64)),
     "head_bwd_kernel": ("mmr_head_loss_bwd_info", 0, (16, 32)),
     "down_stem_kernel": ("mmr_fused_conv_down_info", 0, (3,)),
@@ -91,16 +96,18 @@ def _digest(sources: list[Path]) -> str:
 
 
 def ptxas_summary(out: str) -> list[str]:
-    """"kernel<N>: registers; spills" for each Hopper kernel in nvcc's
-    ``-Xptxas -v`` output."""
+    """"kernel<ints[, f32]>: registers; spills" for each Hopper kernel in
+    nvcc's ``-Xptxas -v`` output."""
     rows, name, spill = {}, None, ""
     for line in out.splitlines():
         m = re.search(r"Function properties for (\w+)", line)
         if m:
-            k = re.search(r"\d+(%s)(?:ILi(\d+)E(f?))?" % "|".join(HOPPER_KERNELS),
+            k = re.search(r"\d+(%s)(I(?:Li\d+E)+f?)?" % "|".join(HOPPER_KERNELS),
                           m.group(1))
-            name = k and (k.group(1) if k.group(2) is None else
-                          f"{k.group(1)}<{k.group(2)}{', f32' if k.group(3) else ''}>")
+            args = k and k.group(2) and re.findall(r"Li(\d+)E", k.group(2))
+            name = k and (k.group(1) if not args else
+                          f"{k.group(1)}<{', '.join(args)}"
+                          f"{', f32' if k.group(2).endswith('f') else ''}>")
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:

@@ -23,9 +23,10 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
 
 from mmr_tpu_torch.ops import _build
+from mmr_tpu_torch.ops.conv3x3_packed import launch_dw
 from mmr_tpu_torch.ops.fused_conv import (BF16, _check_bias, _launch_device,
                                           _pack_taps, _ptr, _raise_on, _stream,
-                                          _unpack_dw_wg, _wg_tile)
+                                          _wg_tile)
 
 # True: conv3x3_bias_act runs K8a / K8b; False: the library conv
 # (``conv3x3.py::_FORCE_PALLAS``)
@@ -123,24 +124,16 @@ def conv3x3_shift_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     outside the image), f32 HWIO (3, 3, Cin, Cout)."""
     _check_x("x", x)
     _check_x("dy", dy)
-    batch, h, wd, cin = x.shape
-    cout = dy.shape[-1]
-    if (dy.shape[:3] != (batch, h, wd) or dy.device != x.device
+    if (dy.shape[:3] != x.shape[:3] or dy.device != x.device
             or dy.dtype != x.dtype):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does "
                          f"not match x {tuple(x.shape)} {x.dtype} on {x.device}")
     if not _launch_device(x.device):
         return conv3x3_shift_dw_ref(x, dy)
 
-    ntile, np_ = _wg_tile(cout, 32)
-    dwp = torch.zeros((9, 64 * -(-cin // 64), np_), dtype=torch.float32,
-                      device=x.device)
-    err = _build.library().mmr_conv3x3_dw(
-        x.data_ptr(), int(x.dtype == torch.float32), cin, dy.data_ptr(), cout,
-        dwp.data_ptr(), batch, h, wd, np_, ntile, _stream())
-    _raise_on(err, "conv3x3_shift_dw")
+    dw = launch_dw(x, dy, "conv3x3_shift_dw")
     conv3x3_shift_dw.launches += 1
-    return _unpack_dw_wg(dwp, 0, cin, cout)
+    return dw
 
 
 conv3x3_shift_dw.launches = 0

@@ -19,6 +19,8 @@ whose rounding they reproduce (bf16, as the kernels).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
@@ -27,7 +29,7 @@ from mmr_tpu_torch.ops import _build
 from mmr_tpu_torch.ops.fused_conv import (BF16, _check_bias, _check_grad,
                                           _launch_device, _pack_taps, _ptr,
                                           _raise_on, _round, _stream,
-                                          _unpack_dw_wg, _wg_tile)
+                                          _wg_tile)
 
 # None: dispatch by size; True / False: every bf16 Conv3x3 takes / skips
 # the kernel (tests and yardsticks; ``conv3x3_packed.py::_FORCE``)
@@ -126,18 +128,48 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if not _launch_device(x.device):
         return conv3x3_dw_ref(x, g)
 
-    ntile, np_ = _wg_tile(cout, 32)
-    dwp = torch.zeros((9, 64 * -(-cin // 64), np_), dtype=torch.float32,
-                      device=x.device)
-    err = _build.library().mmr_conv3x3_dw(
-        x.data_ptr(), 0, cin, g.data_ptr(), cout, dwp.data_ptr(), batch, h, wd,
-        np_, ntile, _stream())
-    _raise_on(err, "conv3x3_dw")
+    dw = launch_dw(x, g, "conv3x3_dw")
     conv3x3_dw.launches += 1
-    return _unpack_dw_wg(dwp, 0, cin, cout)
+    return dw
 
 
 conv3x3_dw.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def dw_grid(n: int, h: int, w: int, cin: int, cout: int, f32: bool,
+            device: int) -> dict:
+    """The persistent grid of K6b's / K8b's kernel (``conv3x3.cu``'s
+    ``conv3x3_dw_kernel``) at these shapes on the current card (``device``,
+    its index, keys the cache), as its C entry sizes it from the SM count
+    and the occupancy: blocks, blocks a SM, SMs, dynamic shared memory
+    (bytes), grid rows and the length of a row of block sums."""
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().mmr_conv3x3_dw_grid(n, h, w, cin, cout, int(f32),
+                                               out.data_ptr())
+    _raise_on(err, "conv3x3_dw grid")
+    return dict(zip(("blocks", "per_sm", "sms", "smem", "rows", "len"),
+                    out.tolist()))
+
+
+def launch_dw(x: torch.Tensor, g: torch.Tensor, name: str) -> torch.Tensor:
+    """The launch of K6b and K8b for checked CUDA tensors x (B, H, W, Cin)
+    and g (B, H, W, Cout) in one storage type, bf16 or f32: one persistent
+    grid writes a row of block sums a grid row into scratch, a second kernel
+    adds the rows in order into the f32 HWIO dW it returns (no atomics: the
+    same bits on every launch)."""
+    batch, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    f32 = x.dtype == torch.float32
+    grid = dw_grid(batch, h, wd, cin, cout, f32, torch.cuda.current_device())
+    part = torch.empty((grid["rows"], grid["len"]), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    err = _build.library().mmr_conv3x3_dw(
+        x.data_ptr(), int(f32), cin, g.data_ptr(), cout, part.data_ptr(),
+        grid["rows"], dw.data_ptr(), batch, h, wd, _stream())
+    _raise_on(err, name)
+    return dw
 
 
 # -------------------------------------------------------------- autograd

@@ -15,9 +15,9 @@ order). Backward outputs (dx, dW, d(scale, shift), dbias): max|Δ| /
 max|ref| and ‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16
 inputs and round at the same places; summation order (K3 adds block
 partials by atomics, K4 and K5b in a fixed order) and one bf16 rounding
-of dx remain, so a dropped tap or a lost correction term fails. K2, K4
-and K5b give bit-equal results on a second launch. The confusion kernel
-counts in integers: exact.
+of dx remain, so a dropped tap or a lost correction term fails. K2, K4,
+K5b, K6b and K8b give bit-equal results on a second launch. The confusion
+kernel counts in integers: exact.
 """
 
 import numpy as np
@@ -470,11 +470,15 @@ def test_fused_train_step_on_card(dev):
 
 # (B, H, W, Cin, Cout): ragged small shapes, then convs of Path A's 256x256
 # B=8 step: x_0_2.conv1, x_0_3.conv1, a 64 -> 64 conv2, x_0_4.conv2, the
-# head, and the head's dx (K6a over its cotangent: Cin 10 -> Cout 16)
+# head, and the head's dx (K6a over its cotangent: Cin 10 -> Cout 16), and
+# the step's other cout-64 dW shapes (cin 64 .. 320 at 64x64 and 128x128)
 K6_CONVS = [(2, 18, 40, 5, 10), (2, 16, 32, 24, 200),
             (8, 64, 64, 320, 64), (8, 128, 128, 320, 32),
             (8, 128, 128, 64, 64), (8, 256, 256, 16, 16),
             (8, 256, 256, 16, 10), (8, 256, 256, 10, 16),
+            (8, 128, 128, 256, 64), (8, 128, 128, 192, 64),
+            (8, 128, 128, 128, 64), (8, 64, 64, 256, 64),
+            (8, 64, 64, 192, 64), (8, 64, 64, 64, 64),
             # the Hopper tiles' edges: odd H, W = 80 and 136, 200 channels
             (2, 19, 80, 200, 64), (2, 9, 136, 320, 10), (1, 33, 40, 10, 5)]
 
@@ -495,7 +499,9 @@ def test_k6a_k6b(dev, b, h, w, cin, cout):
     before = conv3x3_dw.launches
     dw = conv3x3_dw(x, gy)
     assert conv3x3_dw.launches == before + 1
+    assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
     _grad_close("dw", dw, conv3x3_dw_ref(x, gy))
+    assert torch.equal(conv3x3_dw(x, gy), dw)    # no atomics: the same bits
 
 
 def test_k6_autograd_op(dev):
@@ -588,10 +594,12 @@ def test_path_a_train_and_eval_on_card(dev):
 # ------------------------------------------------ K8a, K8b; the zoo on K6
 
 # (B, H, W, Cin, Cout): cin 3 / 8 / 16 / 24, H not a multiple of 16 (nor
-# of the 8-row block), cout 1 .. 2 fragments, and the 16 -> 16 shape the
-# TPU kernel was written for (conv3x3.py:4-7) at a smaller batch
+# of the 8-row block), cout 1 .. 2 fragments, the 16 -> 16 shape the TPU
+# kernel was written for (conv3x3.py:4-7) at a smaller batch and at its
+# own (more pixel tiles than the dW grid has blocks), and dW's wide modes
 K8_CONVS = [(2, 21, 30, 3, 16), (2, 16, 32, 8, 8), (1, 40, 24, 16, 24),
-            (2, 34, 50, 24, 16), (4, 512, 512, 16, 16), (2, 17, 136, 10, 5)]
+            (2, 34, 50, 24, 16), (4, 512, 512, 16, 16), (2, 17, 136, 10, 5),
+            (32, 512, 512, 16, 16), (2, 19, 80, 72, 64), (2, 9, 136, 40, 24)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", K8_CONVS)
@@ -621,6 +629,7 @@ def test_k8a_k8b(dev, b, h, w, cin, cout, dtype):
     assert dw.dtype == torch.float32 and dw.shape == (3, 3, cin, cout)
     _grad_close("dw", dw, conv3x3_shift_dw_ref(x, dy))
     assert conv3x3_shift_dw.launches == before + 1
+    assert torch.equal(conv3x3_shift_dw(x, dy), dw)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -653,6 +662,50 @@ def test_k8_bias_act_force_dispatch(dev, dtype, monkeypatch):
             gin, w.flip(0, 1).transpose(2, 3), torch.zeros(16, device=dev)))
         _grad_close("dw", w.grad, k8.conv3x3_shift_dw_ref(x, gin))
         _grad_close("dbias", bias.grad, gm.sum((0, 1, 2)))
+
+
+# K6b's and K8b's narrow inputs (mma.sync: cin <= 32) against every output
+# width class; odd H, W = 80 and 136 (partial 64-pixel tiles)
+DW_NARROW = [(cin, cout) for cin in (3, 5, 10, 16, 24, 32)
+             for cout in (5, 10, 16, 24, 64)]
+
+
+@pytest.mark.parametrize("cin,cout", DW_NARROW)
+def test_k6b_k8b_narrow(dev, cin, cout):
+    """K6b (bf16) and K8b (bf16 and f32 storage) at cin <= 32, each held
+    against its plain version and bit-equal on a second launch."""
+    from mmr_tpu_torch.ops.conv3x3 import (conv3x3_shift_dw,
+                                           conv3x3_shift_dw_ref)
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    for b, h, w in ((2, 19, 80), (1, 17, 136)):
+        x = _rand(g, dev, b, h, w, cin, dtype=torch.bfloat16)
+        gy = _rand(g, dev, b, h, w, cout, dtype=torch.bfloat16)
+        dw = conv3x3_dw(x, gy)
+        _grad_close("dw", dw, conv3x3_dw_ref(x, gy))
+        assert torch.equal(conv3x3_dw(x, gy), dw)
+        xf, gf = x.float(), gy.float()
+        dwf = conv3x3_shift_dw(xf, gf)
+        _grad_close("dw f32", dwf, conv3x3_shift_dw_ref(xf, gf))
+        assert torch.equal(conv3x3_shift_dw(xf, gf), dwf)
+
+
+def test_k6b_k8b_launch_in_any_order(dev):
+    """A dW launch does not depend on the launches before it: the kernel's
+    mode, tile and shared memory change with the channels (narrow, wide,
+    narrow, f32, wide, narrow), and each launch sets its attributes."""
+    from mmr_tpu_torch.ops.conv3x3 import (conv3x3_shift_dw,
+                                           conv3x3_shift_dw_ref)
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    for cin, cout, dtype in [(16, 16, torch.bfloat16), (256, 64, torch.bfloat16),
+                             (3, 64, torch.bfloat16), (16, 16, torch.float32),
+                             (320, 32, torch.bfloat16), (24, 10, torch.bfloat16),
+                             (16, 16, torch.bfloat16)]:
+        x = _rand(g, dev, 2, 18, 70, cin, dtype=dtype)
+        dy = _rand(g, dev, 2, 18, 70, cout, dtype=dtype)
+        dw = conv3x3_shift_dw(x, dy)
+        _grad_close("dw", dw, conv3x3_shift_dw_ref(x, dy))
 
 
 # the zoo's K6 shapes at 256x256, B=8: UNet's cin-3 inc.conv1, UNet's

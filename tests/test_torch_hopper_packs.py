@@ -4,7 +4,9 @@ tap pack (``_pack_taps``; one pack shared by the inputs of one K3 dx
 launch, ``_dx_packs``; K1's over the concat of its inputs' 16-channel
 chunks, ``_concat_taps``), the 16 combined taps of a lazily ×2-upsampled
 input's source-resolution dx as bf16 pairs hi + lo (``_up2_taps``), the dW
-layout (``_unpack_dw_wg``), K5b's per-block sums and their reduction, the
+layout of K3 (``_unpack_dw_wg``), K6b's and K8b's own dW partition
+(``conv3x3.cu``'s ``conv3x3_dw_kernel``), K5b's per-block sums and their
+reduction, the
 stride-2 pair's tiles (``_down_tiles``), dense K2's mma.sync B fragments
 (``_stem_frags``) and patch matrix, and K2's and K4's per-block sums and
 their reduction, and the packs' cache per weight version
@@ -145,8 +147,10 @@ def test_shared_dx_pack_matches_hwio(rng):
 
 def test_dw_layout_matches_hwio(rng):
     """K3's dW over three inputs (their channels padded to 8: rows from 0,
-    40 and 48 of the (9, cpad, np) buffer) and K6b's, unpacked, equal the
-    HWIO weight gradients."""
+    40 and 48 of the (9, cpad, np) buffer), unpacked by ``_unpack_dw_wg``,
+    equals the HWIO weight gradients of ``fused_conv_bwd_ref`` and of the
+    standalone conv's plain dW (K6b writes HWIO itself and does not come
+    here: ``test_dw_kernel_partition_matches_plain``)."""
     xs = [torch.from_numpy(rng.randn(2, 8, 10, c).astype(np.float32))
           for c in (40, 5, 24)]
     g = torch.from_numpy(rng.randn(2, 8, 10, 20).astype(np.float32))
@@ -166,6 +170,78 @@ def test_dw_layout_matches_hwio(rng):
         got = _unpack_dw_wg(dwp, row0, x.shape[3], 20)
         assert _rel(got, want)[0] < 1e-5
         assert _rel(got, conv3x3_dw_ref(x, g))[0] < 1e-5
+
+
+def _dw_cfg(cin, cout):
+    """``conv3x3.cu``'s ``DwCfg`` for these channels: (x channels a block,
+    output channels a block N, rows of a pixel tile, warps splitting the K
+    steps of a tile)."""
+    mode = 0 if cin <= 16 else 1 if cin <= 32 else 2
+    n = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    groups = 8 if mode == 2 else 2 * (mode + 1)
+
+    def fits(r):   # 2 stages of r tile rows in the narrow modes' 113 KB
+        halo = -(-(r + 2) * 66 // 8) * 8
+        return 2 * 16 * (groups * halo + n // 8 * r * 64) <= 113 * 1024
+
+    rows = 3 if mode == 2 else next((r for r in (12, 8, 4) if fits(r)), 2)
+    kg = 1 if mode == 2 else 8 // (n // (8 * (2 // (mode + 1))))
+    return 8 * groups, n, rows, kg
+
+
+def _dw_rows(x, g, grid_rows):
+    """``conv3x3_dw_kernel``'s block sums: grid row r takes pixel tiles r,
+    r + grid_rows, ... (tile rows x 64 pixels, in (image, row, column)
+    order); its x tile is the (rows + 2) x 66 halo, flattened to one
+    16-byte row a pixel, its channels padded to the block's M (16 or 32:
+    the mma.sync fragments; a 64-channel chunk on wgmma); each 16-pixel K
+    step multiplies x at tap t's shift ((rr + t // 3) * 66 + px + t % 3)
+    by g, into the sums of warp ks % kKG; the warps' sums are added in
+    order. Returns (grid_rows, 9, cpad, np)."""
+    n, h, w, cin = x.shape
+    cout = g.shape[3]
+    m, nt, tr, kg = _dw_cfg(cin, cout)
+    cpad, np_ = m * -(-cin // m), nt * -(-cout // nt)
+    ty, tx = -(-h // tr), -(-w // 64)
+    xp = F.pad(x, (0, cpad - cin, 1, tx * 64 + 1 - w, 1, ty * tr + 1 - h))
+    gp = F.pad(g, (0, np_ - cout, 0, tx * 64 - w, 0, ty * tr - h))
+    acc = torch.zeros(grid_rows, kg, 9, cpad, np_)
+    for t in range(n * ty * tx):
+        b, r = divmod(t, ty * tx)
+        py0, px0 = r // tx * tr, r % tx * 64
+        halo = xp[b, py0:py0 + tr + 2, px0:px0 + 66].reshape(-1, cpad)
+        gt = gp[b, py0:py0 + tr, px0:px0 + 64].reshape(-1, np_)
+        for ks in range(tr * 4):
+            rr, px = ks // 4, ks % 4 * 16
+            gk = gt[rr * 64 + px:rr * 64 + px + 16]
+            for tap in range(9):
+                u0 = (rr + tap // 3) * 66 + px + tap % 3
+                acc[t % grid_rows, ks % kg, tap] += halo[u0:u0 + 16].T @ gk
+    part = acc[:, 0]
+    for k in range(1, kg):
+        part = part + acc[:, k]
+    return part
+
+
+@pytest.mark.parametrize("cin,cout,grid_rows", [(5, 10, 3), (24, 64, 5),
+                                                (72, 80, 4), (16, 16, 2),
+                                                (40, 16, 3)])
+def test_dw_kernel_partition_matches_plain(rng, cin, cout, grid_rows):
+    """K6b's and K8b's kernel partition on a ragged image (H = 9, W = 70:
+    tiles cut by both edges): narrow M (cin 5 and 16 in one 16-channel
+    fragment, tiles of 12 rows; 24 in two; 40 and 72 in one and two
+    64-channel chunks, tiles of 3 rows), the block walk over pixel
+    tiles, the warps' sums and the grid rows added in order, read back in
+    HWIO as ``dw_rows_reduce_kernel`` does, equal ``conv3x3_dw_ref`` (1e-5
+    of the largest value)."""
+    x = _bf16_valued(rng.randn(2, 9, 70, cin))
+    g = _bf16_valued(rng.randn(2, 9, 70, cout))
+    part = _dw_rows(x, g, grid_rows)
+    dw = part[0]
+    for r in range(1, grid_rows):
+        dw = dw + part[r]
+    got = dw[:, :cin, :cout].reshape(3, 3, cin, cout)
+    assert _rel(got, conv3x3_dw_ref(x, g))[0] < 1e-5
 
 
 def test_up2_taps_f32(rng):
