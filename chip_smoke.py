@@ -15,9 +15,11 @@ front-end and head + loss).
    ``mmr_tpu_torch/csrc`` (build time, ``ptxas -v``, one line of registers
    and spills per Hopper kernel: ``common.cuh``'s, K1's
    ``pending_conv_kernel``, K5b's ``head_bwd_kernel`` and the stride-2
-   pair's ``down_*_kernel``s, K6b/K8b's ``conv3x3_dw_kernel``), and each
-   Hopper kernel's dynamic shared memory and resident blocks per SM (K2's
-   and K4's at the flagship's input channels; the dW kernel's per mode).
+   pair's ``down_*_kernel``s, K6b/K8b's ``conv3x3_dw_kernel``, the narrow
+   tile's ``narrow_head_kernel`` (K5a) and ``narrow_conv_kernel`` (K8a)),
+   and each Hopper kernel's dynamic shared memory and resident blocks per
+   SM (K2's and K4's at the flagship's input channels; the dW kernel's per
+   mode; the narrow tile's at cin 16 and 32).
 2. One eval forward of one frame's 20 windows through the fused path,
    recording every kernel launch: each K1 (``fused_conv``) and K2
    (``fused_conv_down``) launch is held against its plain PyTorch version
@@ -40,7 +42,8 @@ front-end and head + loss).
    outputs max|Δ| / max|ref| and ‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read
    the same bf16 inputs and round at the same places, so a dropped tap or
    a lost correction term fails) and the launch counts checked
-   (20 K1 + 20 K3, 2 K2 + 2 K4, 1 K5a + 1 K5b); the fused step vs the plain
+   (20 K1 + 20 K3, 2 K2 + 2 K4, 1 K5a + 1 K5b), K5a's statistics and
+   confusion bit-equal on a second launch; the fused step vs the plain
    f32 step on the same weights and batch (loss rtol 2e-2; train-mode head
    argmax agreement with plain f32 no lower than the plain bf16 model's,
    less 0.02); five steps on one batch (the loss falls);
@@ -86,21 +89,23 @@ front-end and head + loss).
     512) bf16: forward, dx and dW (2 K8a + 1 K8b launches) held against
     the plain versions (forward 2e-2, dx and dW at ``GRAD_REL``) and timed
     beside their bound, plain and library calls; then an f32-storage case
-    and one with H not a multiple of 16, held and timed.
+    and one with H not a multiple of 16, held and timed; each K8a launch
+    (forward, dx) split by device kernel with its persistent grid.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
 K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
 the port). Those times are of each launch repeated alone, wrapper (weight
-packs, cached per weight version for K1, K2, K4 and K5) included; phases
-5–10 also print the device time of K1 and K2 (serve, train), K3, K4, K5b,
-K6a, K6b (phases 7 and 9) and K8b (phase 10) by part (``device_split``:
-``torch.profiler`` time of the kernels alone — K2's dense and depthwise
-kernels and their moments' reduction; K3's dy prep, dW, dx and the
-source-resolution dx of lazily ×2 inputs; K4's dense and depthwise
-kernels and their reduction; K5b's dx + dW kernel and its reduction;
-K6a's forward and dx; K6b's and K8b's dW kernel and its reduction), per
-launch and summed,
+packs, cached per weight version for K1, K2, K4, K5 and K8a) included; phases
+5–10 also print the device time of K1 and K2 (serve, train), K3, K4, K5a,
+K5b, K6a, K6b (phases 7 and 9), K8a and K8b (phase 10) by part
+(``device_split``: ``torch.profiler`` time of the kernels alone — K2's
+dense and depthwise kernels and their moments' reduction; K3's dy prep,
+dW, dx and the source-resolution dx of lazily ×2 inputs; K4's dense and
+depthwise kernels and their reduction; K5a's head kernel and its rows'
+reduction; K5b's dx + dW kernel and its reduction; K6a's and K8a's
+forward and dx; K6b's and K8b's dW kernel and its reduction), per launch
+and summed,
 beside the share of the wrapper-included time that is host work; phases 5
 and 6 also time every K1 launch at each output-channel tile it can take
 (``k1_tile_ab``).
@@ -541,7 +546,8 @@ def time_cases(phase, cases):
 
 
 # the port's kernels each wrapper launches (demangled CUDA names hold these),
-# as parts of its device time; K6a's part is the case's label (forward, dx)
+# as parts of its device time; K6a's and K8a's part is the case's label
+# (forward, dx)
 PARTS = {
     "K1": {"pending_conv_kernel": "conv"},
     "K2": {"down_stem_kernel": "dense", "down_dw_fwd_kernel": "depthwise",
@@ -550,8 +556,10 @@ PARTS = {
            "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"},
     "K4": {"down_stem_bwd_kernel": "dense", "down_dw_bwd_kernel": "depthwise",
            "down_rows_reduce_kernel": "reduce"},
+    "K5a": {"narrow_head_kernel": "head", "head_rows_reduce_kernel": "reduce"},
     "K5b": {"head_bwd_kernel": "dx + dW", "head_bwd_reduce_kernel": "reduce"},
     "K6a": {"conv_wg_kernel": None},
+    "K8a": {"narrow_conv_kernel": None},
     "K6b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
     "K8b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
 }
@@ -611,14 +619,40 @@ def _profiled_parts(fn, args, names, part_of, reps):
              for k, v in total.items()}, counts)
 
 
+def persistent_grid(kind, args):
+    """The persistent grid a launch of ``kind`` on ``args`` runs, as its C
+    entry sizes it from the card (blocks, blocks a SM, SMs, shared memory),
+    or None for a kernel whose grid follows its tiles."""
+    from mmr_tpu_torch.ops.conv3x3 import narrow_grid, uses_narrow
+    from mmr_tpu_torch.ops.conv3x3_packed import dw_grid
+    from mmr_tpu_torch.ops.fused_conv import down_grid
+    from mmr_tpu_torch.ops.head_loss import LABEL_KINDS, head_grid
+
+    dev = torch.cuda.current_device()
+    if kind in ("K2", "K4"):
+        return down_grid(args["x"], args["w"], args["depthwise"], kind == "K4",
+                         bool(args.get("need_dx")))
+    if kind in ("K6b", "K8b"):
+        x, g = args["x"], args["g" if kind == "K6b" else "dy"]
+        return dw_grid(*x.shape, g.shape[-1], x.dtype == torch.float32, dev)
+    if kind == "K5a":
+        return head_grid(*args["x"].raw.shape, args["w"].shape[-1],
+                         LABEL_KINDS[args["labels"].dtype], dev)
+    if kind == "K8a" and uses_narrow(args["x"].shape[-1], args["w"].shape[-1]):
+        x = args["x"]
+        return narrow_grid(*x.shape, args["w"].shape[-1],
+                           x.dtype == torch.float32, dev)
+    return None
+
+
 def device_split(phase, cases, kind, reps=5) -> dict:
     """Device time of the kernels each ``kind`` launch runs, by part, from
     ``torch.profiler`` (``_profiled_parts``; the wrapper's own weight packs
     and zero fills are other kernels and not counted): the parts of
-    ``PARTS[kind]`` by kernel name (K6a: "forward" and "dx" by the case's
-    label). Prints each launch's parts with their events counted a call (a
-    fraction: events lost; "not measured" where no profile had one), the
-    persistent grid of K2, K4, K6b and K8b as
+    ``PARTS[kind]`` by kernel name (K6a, K8a: "forward" and "dx" by the
+    case's label). Prints each launch's parts with their events counted a
+    call (a fraction: events lost; "not measured" where no profile had
+    one), the persistent grid of K2, K4, K5a, K6b, K8a and K8b as
     their C entries size it (blocks, blocks a SM, SMs) and their device time from a
     CUDA graph's replays (``graph_ms``, no profiler), the parts' sums and
     the share of the wrapper-included time (``ms``, each launch timed
@@ -630,7 +664,7 @@ def device_split(phase, cases, kind, reps=5) -> dict:
         with torch.no_grad():
             fn(**args)
         torch.cuda.synchronize()
-        if kind == "K6a":
+        if kind in ("K6a", "K8a"):
             label = "dx" if c["label"].endswith(" dx") else "forward"
             part_of = lambda name, label=label: label
         else:
@@ -641,17 +675,8 @@ def device_split(phase, cases, kind, reps=5) -> dict:
         if parts:
             measured.append(c)
         grid = ""
-        if kind in ("K2", "K4", "K6b", "K8b"):
-            from mmr_tpu_torch.ops.conv3x3_packed import dw_grid
-            from mmr_tpu_torch.ops.fused_conv import down_grid
-
-            if kind in ("K2", "K4"):
-                gr = down_grid(args["x"], args["w"], args["depthwise"],
-                               kind == "K4", bool(args.get("need_dx")))
-            else:
-                x, g = args["x"], args["g" if kind == "K6b" else "dy"]
-                gr = dw_grid(*x.shape, g.shape[-1], x.dtype == torch.float32,
-                             torch.cuda.current_device())
+        gr = persistent_grid(kind, args)
+        if gr is not None:
             try:
                 with torch.no_grad():
                     graph = f"{graph_ms(lambda: fn(**args)):.4f} ms"
@@ -809,6 +834,13 @@ def train_phase(model, dev, rng) -> dict:
     k1_mom = sum(1 for k, args, *_ in records if k == "K1" and args["emit_moments"])
     check(k1_mom == TRAIN_COUNTS["K1"], f"{k1_mom} K1 launches emitted moments")
     cases = hold_records(6, records)
+    head = next(c for c in cases if c["kind"] == "K5a")
+    with torch.no_grad():
+        again = wrapper("K5a")(**head["args"])
+    _, stats, conf = next(rec[2] for rec in records if rec[0] == "K5a")
+    check(torch.equal(again[1], stats) and torch.equal(again[2], conf),
+          "K5a's statistics differ on a second launch")
+    print("[6] K5a stats and conf bit-equal on a second launch", flush=True)
 
     # ---- 6b'. fused step loss vs the plain f32 step -----------------------
     pstate, pstep = trainer(plain)
@@ -855,7 +887,7 @@ def train_phase(model, dev, rng) -> dict:
     k1_tile_ab(6, cases)
     per = f"sum over the launches of one train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]})"
     out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
-    for kind in ("K1", "K2", "K3", "K4", "K5b"):
+    for kind in ("K1", "K2", "K3", "K4", "K5a", "K5b"):
         out[kind]["device_ms"] = device_split(6, cases, kind)
     return out
 
@@ -1213,6 +1245,7 @@ def k8_phase(dev, seed) -> dict:
     cases = hold_records(10, records)
     del records
     time_cases(10, cases)
+    split_a = device_split(10, cases, "K8a")
     split = device_split(10, cases, "K8b")
     for dtype, shape in K8_EXTRA:
         recs, _ = _k8_run(dev, gen, dtype, shape)
@@ -1220,10 +1253,12 @@ def k8_phase(dev, seed) -> dict:
         extra = hold_records(10, recs)
         del recs
         time_cases(10, extra)
+        device_split(10, extra, "K8a")
         device_split(10, extra, "K8b")
     per = (f"sum over the launches of one conv3x3_bias_act forward + backward, "
            f"bf16 {cin} -> {cout} on ({b}, {h}, {w}): forward and dx for K8a")
     out = {k: kernel_entry(k, cases, launches[k], per) for k in ("K8a", "K8b")}
+    out["K8a"]["device_ms"] = split_a
     out["K8b"]["device_ms"] = split
     return out
 

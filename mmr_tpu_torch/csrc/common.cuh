@@ -1,37 +1,25 @@
 // Device code shared by the port's conv kernels: K1 (fused_conv.cu), its
-// backward K3 (fused_conv_bwd.cu), the head+loss pair K5a/K5b
-// (head_loss.cu), the stride-2 pair K2/K4 (through down_tile.cuh: the
-// prologue, cp.async, launch attributes) and the standalone conv K6/K8
-// (conv3x3.cu).
-//
-// Two generations of mainloop live here. The WMMA one (load_tile,
-// load_weights, mma_chunk): one block = kTH output rows x kTW pixels, an
-// input staged 16 channels at a time as a (kTH+2) x (kTW+2) halo tile by
-// synchronous register loads between two __syncthreads, products as WMMA
-// bf16 m16n16k16 (one warp per output row); only K5a still runs on it. The
-// Hopper one ("Hopper mainloops" below: cp.async ring, wgmma): K1, K3's dx
-// and dW, K5b, K6a and K8a; K6b/K8b's dW kernel (conv3x3.cu) is built from
-// its pieces.
+// backward K3 (fused_conv_bwd.cu), the head backward K5b (head_loss.cu),
+// the stride-2 pair K2/K4 (through down_tile.cuh: the prologue, cp.async,
+// launch attributes), the narrow tile of K5a and K8a (narrow_tile.cuh) and
+// the standalone conv K6/K8 (conv3x3.cu): the prologue and staging
+// helpers, and the Hopper mainloops ("Hopper mainloops" below: cp.async
+// ring, wgmma) of K1, K3's dx and dW, K5b and K6a (K8a's convs wider than
+// the narrow tile); K6b/K8b's dW kernel (conv3x3.cu) is built from their
+// pieces.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <mutex>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kTW = 16;                      // output pixels per warp (WMMA M)
-constexpr int kTH = 8;                       // output rows per block (= warps)
-constexpr int kKC = 16;                      // input channels per chunk (WMMA K)
+constexpr int kKC = 16;                      // input channels per chunk
 constexpr int kMaxIn = 8;
-constexpr int kThreads = kTH * 32;
-constexpr int kTilePix = (kTH + 2) * (kTW + 2);
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Act { kNone = 0, kRelu = 1, kHswish = 2, kLinear = 3 };
@@ -50,10 +38,6 @@ struct InputT {
 };
 using Input = InputT<__nv_bfloat16>;
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
   return v;
 }
@@ -112,92 +96,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// Stage the (kTH+2) x (kTW+2) pixel halo tile of 16 channels [c0, c0+16)
-// of one input, prologue applied and rounded to bf16, zeros outside the
-// image and beyond the input's channels.
-template <class T>
-__device__ void load_tile(const InputT<T>& in, int b, int height, int width,
-                          int ty0, int tx0, int c0, __nv_bfloat16* tile) {
-  const int hs = in.up2x ? height >> 1 : height;
-  const int ws = in.up2x ? width >> 1 : width;
-  const bool vec = (in.c % 8 == 0) &&
-                   (reinterpret_cast<uintptr_t>(in.x) % 16 == 0);
-  for (int i = threadIdx.x; i < kTilePix * 2; i += blockDim.x) {
-    const int pix = i >> 1;
-    const int cb = c0 + (i & 1) * 8;
-    const int yy = ty0 - 1 + pix / (kTW + 2);
-    const int xx = tx0 - 1 + pix % (kTW + 2);
-    float v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = 0.f;
-    if (yy >= 0 && yy < height && xx >= 0 && xx < width && cb < in.c) {
-      const int sy = in.up2x ? yy >> 1 : yy;
-      const int sx = in.up2x ? xx >> 1 : xx;
-      const T* src = in.x + ((size_t)(b * hs + sy) * ws + sx) * in.c + cb;
-      if (vec) {
-        load8(src, v);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (cb + k < in.c) v[k] = to_f32(src[k]);
-      }
-      if (in.act != kNone) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (cb + k < in.c)
-            v[k] = prologue(v[k], in.scale[cb + k], in.shift[cb + k], in.act);
-      }
-    }
-    __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
-    *reinterpret_cast<uint4*>(tile + pix * kKC + (i & 1) * 8) =
-        *reinterpret_cast<const uint4*>(o);
-  }
-}
-
-// Copy one chunk's (9, kKC, kN) weight slice [n0, n0+kN) into shared memory
-// with a padded row stride ns (avoids bank conflicts on the B loads).
-__device__ void load_weights(const __nv_bfloat16* wg, int np, int n0, int kn,
-                             __nv_bfloat16* wsm, int ns) {
-  const int vpr = kn / 8;
-  for (int i = threadIdx.x; i < 9 * kKC * vpr; i += blockDim.x) {
-    const int row = i / vpr;
-    const int col = (i % vpr) * 8;
-    *reinterpret_cast<uint4*>(wsm + row * ns + col) =
-        *reinterpret_cast<const uint4*>(wg + (size_t)row * np + n0 + col);
-  }
-}
-
-// The 9 taps of one staged chunk: warp w accumulates output row w,
-// 16 pixels x NF fragments of 16 output channels.
-template <int NF>
-__device__ __forceinline__ void mma_chunk(
-    const __nv_bfloat16* tile, const __nv_bfloat16* wsm, int ns, int warp,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc) {
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, tile + ((warp + dy) * (kTW + 2) + dx) * kKC,
-                           kKC);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bm;
-      wmma::load_matrix_sync(bm, wsm + tap * kKC * ns + f * 16, ns);
-      wmma::mma_sync(acc[f], a, bm, acc[f]);
-    }
-  }
-}
-
-template <class T>
-InputT<T> plain_input(const void* x, int c) {
-  return InputT<T>{static_cast<const T*>(x), nullptr, nullptr, c, kNone, 0,
-                   0};
 }
 
 // ======================================================== Hopper mainloops
@@ -879,6 +777,24 @@ int blocks_per_sm(K kernel, int threads, int smem) {
                                                     smem) != cudaSuccess)
     return -1;
   return n;
+}
+
+// *sms: the SM count of device dev, asked once a device in a process
+inline cudaError_t device_sms(int dev, int* sms) {
+  static std::mutex mu;
+  static int memo[64] = {};
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (memo[dev] == 0) {
+    const cudaError_t e =
+        cudaDeviceGetAttribute(&memo[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      memo[dev] = 0;
+      return e;
+    }
+  }
+  *sms = memo[dev];
+  return cudaSuccess;
 }
 
 // Resident blocks a SM of a kernel of `threads` threads at its launch

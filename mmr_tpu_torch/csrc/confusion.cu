@@ -26,16 +26,15 @@
 // Bound on an H100: bytes. Per pixel it reads 2..16 bytes (uint8 .. int64
 // ids) for a few integer operations, far under the 295 op/byte ridge: the
 // least time is the two maps' bytes over 3.35 TB/s. The design reads each
-// id once, with grid-stride loops over at most 8 blocks per SM.
+// id once, with grid-stride loops over at most 8 blocks per SM of the card
+// (its SM count asked once a device: common.cuh's device_sms).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxClasses = 128;
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Kind { kU8 = 0, kI32 = 1, kI64 = 2 };
 
@@ -90,8 +89,12 @@ __global__ void finalize_kernel(const unsigned long long* counts, int nc,
 template <class TP, class TG>
 cudaError_t launch(const void* pred, const void* gt, long long n, int nc,
                    unsigned long long* counts, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = device_sms(dev, &sms);
+  if (e != cudaSuccess) return e;
   long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132LL * 8) blocks = 132LL * 8;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
   if (blocks < 1) blocks = 1;
   confusion_kernel<TP, TG><<<(int)blocks, kThreads, 0, s>>>(
       static_cast<const TP*>(pred), static_cast<const TG*>(gt), n, nc, counts);

@@ -30,8 +30,10 @@
 // convs sit above the 295 op/byte ridge (tensor-core bound at best), the
 // narrow ones below it (memory-bound).
 //
-// K8a / K8b: the same two kernels at f32 storage as well. They replace the
-// round-1 shifted-GEMM conv of `mmr_tpu/ops/pallas/conv3x3.py`:
+// K8a / K8b: K8a on the narrow tile at cin, cout <= 32 (narrow_conv_kernel,
+// below), on K6a's kernel above; K8b on K6b's; both at f32 storage as well.
+// They replace the round-1 shifted-GEMM conv of
+// `mmr_tpu/ops/pallas/conv3x3.py`:
 // `_conv3x3_pallas` (the `pl.pallas_call` at :165) and `_conv3x3_dw_pallas`
 // (:208), reached through `conv3x3_bias_act` (:250) when `_FORCE_PALLAS` is
 // set; its VJP runs K8a again for dx and K8b for dW (:266-286). K8a takes
@@ -98,10 +100,7 @@
 //   dw_rows_reduce_kernel adds the rows in row order into HWIO dW. No
 //   atomics, no zero fill: a second launch gives the same bits.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "common.cuh"
+#include "narrow_tile.cuh"
 
 namespace {
 
@@ -136,9 +135,6 @@ bool bad_shape(int cin, int cout, int np, int ntile) {
 // ------------------------------------------------------------- K6b / K8b
 
 constexpr int kDwCols = 64;   // output pixels of a dW tile row
-
-// how an operand reaches shared memory where TMA cannot take it
-enum DwStage { kAsync4 = 0, kRegs8 = 1, kRegs = 2 };
 
 // kMode 0 (cin <= 16) and 1 (cin <= 32): mma.sync; 2: 64-channel chunks
 // on wgmma. N: output channels a block (16, 32 or 64).
@@ -209,95 +205,6 @@ struct DwParams {
   int xtma, gtma;      // x's / g's groups come by TMA (the maps)
   int xmode, gmode;    // else: DwStage of x and g
 };
-
-// mbarrier and TMA (one thread issues a whole box; the barrier counts its
-// bytes)
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// wait until the barrier's phase is no longer `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra LAB_WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// box (8 channels, cols, rows, 1 image) of an NHWC map at coordinates
-// (c, x, y, b) into shared memory at dst (zero outside the tensor)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
-                                         uint32_t bar, int c, int x, int y,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c), "r"(x),
-      "r"(y), "r"(b)
-      : "memory");
-}
-
-// 4-byte asynchronous copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// four 8 x 8 bf16 matrices, transposed: lane l gives row l % 8 of matrix
-// l / 8 (16 bytes at addr); r[j] holds matrix j
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-// Channels [c, c + 8) of the pixel at element offset `at` (its channel c)
-// of src into the 16-byte shared row dst, as bf16: zero where !inside or
-// beyond the `left` channels from c that exist.
-template <class T>
-__device__ __forceinline__ void dw_stage_row(unsigned char* dst, const T* src,
-                                             size_t at, int left, bool inside,
-                                             int mode) {
-  const bool valid = inside && left > 0;
-  if constexpr (sizeof(T) == 2) {
-    if (mode == kAsync4) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bool ok = valid && 2 * k < left;
-        cp_async4(smem_addr(dst) + 4 * k, src + (ok ? at + 2 * k : 0), ok);
-      }
-      return;
-    }
-  }
-  __align__(16) __nv_bfloat16 e[8];
-  if (valid && mode == kRegs8) {
-    load8_bf16(src + at, e);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      e[k] = valid && k < left ? to_bf16(src[at + k])
-                               : __float2bfloat16_rn(0.f);
-  }
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
-}
 
 // Issue the copies of pixel tile t (x's halo tile for channels c0 ..
 // c0 + kM, g's tile for output channels n0 .. n0 + N) into ring slot
@@ -669,55 +576,6 @@ cudaError_t dw_grid(DwParams<T>* p, DwKernel<T>* k, int* threads,
   return cudaSuccess;
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (null when the
-// CUDA installation lacks it)
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      cudaGetLastError();
-      f = nullptr;
-    }
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }();
-  return fn;
-}
-
-// *m: the TMA map of NHWC bf16 (n, h, w, c) at base, boxes of 8 channels x
-// cols x rows x 1 image, zero outside the tensor. False where TMA cannot
-// take it (c not a multiple of 8, base not 16-byte aligned, no encoder):
-// the operand is staged by cp.async instead.
-bool nhwc_map(CUtensorMap* m, const void* base, int n, int h, int w, int c,
-              int cols, int rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr || c % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(base) % 16 != 0)
-    return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
-                              (cuuint64_t)n};
-  const cuuint64_t strides[3] = {2ull * c, 2ull * c * w, 2ull * c * w * h};
-  const cuuint32_t box[4] = {8, (cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, one,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// how an operand at `ptr` with c channels a pixel reaches shared memory
-// where TMA cannot take it
-template <class T>
-int dw_stage_mode(const void* ptr, int c) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
-  if (sizeof(T) == 2) return c % 2 == 0 && a % 4 == 0 ? kAsync4 : kRegs;
-  return c % 8 == 0 && a % 16 == 0 ? kRegs8 : kRegs;
-}
-
 template <class T>
 cudaError_t conv_dw(const void* x, int cin, const void* g, int cout,
                     void* part, int part_rows, void* dw, int n, int height,
@@ -754,7 +612,230 @@ cudaError_t conv_dw(const void* x, int cin, const void* g, int cout,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ K8a narrow
+// K8a at cin <= 32 and cout <= 32 (its main shape, 16 -> 16, and its dx)
+// on narrow_tile.cuh's tile: y = conv(x, W) + bias (+ ReLU) from the
+// accumulator fragments, stored in x's type through the warp's slice of
+// shared memory by coalesced 16-byte stores. Its own C entry: K6a and the
+// wider K8a keep conv_wg_kernel. Bound on an H100: at 16 -> 16 on (32, 512,
+// 512) bf16 a pass reads and writes 268 MB each for 38.7 GFLOP, 36 op/byte,
+// far under the 295 op/byte ridge: bytes, 0.160 ms; the tile stages 1.20x
+// the input (its halo), reading each value once from device memory.
+
+template <class T>
+struct NarrowConvParams {
+  const T* x;                  // (n, height, width, cin)
+  const __nv_bfloat16* taps;   // (k16, 9, 32 lanes, NF, 4) B fragments
+  const float* bias;           // (cout,) or null
+  T* y;                        // (n, height, width, cout)
+  int cin, cout, n, height, width, relu;
+  int chunks, tiles_x, tiles_y, tiles;   // one chunk
+  int tma, mode;               // x by TMA, else its DwStage
+};
+
+// the kernel's shared memory: the ring, the taps (bytes), the bias and
+// each warp's run of outputs
+template <int G8, int NF, class T>
+struct NarrowConv {
+  using C = NarrowCfg<G8, NF>;
+  static constexpr int kTaps = 9 * 32 * NF * 8 * C::kK16;
+  static constexpr int kSmem =
+      C::kRing + kTaps + 8 * NF * 4 + 8 * 16 * 8 * NF * (int)sizeof(T);
+};
+
+template <int G8, int NF, class T>
+struct NarrowConvEpi {
+  static constexpr bool kPrologue = false;
+  const NarrowConvParams<T>& p;
+  unsigned char* taps;   // (k16, 9, 32, NF, 4) B fragments
+  float* bias;           // (8 NF,), zero beyond cout
+  T* run;                // this warp's 16 x cout outputs
+
+  __device__ __forceinline__ void setup() {
+    for (int i = threadIdx.x; i < NarrowConv<G8, NF, T>::kTaps / 16;
+         i += kNarrowThreads)
+      reinterpret_cast<uint4*>(taps)[i] =
+          reinterpret_cast<const uint4*>(p.taps)[i];
+    for (int i = threadIdx.x; i < 8 * NF; i += kNarrowThreads)
+      bias[i] = p.bias != nullptr && i < p.cout ? p.bias[i] : 0.f;
+  }
+  __device__ void prologue(unsigned char*, int, int, int) {}
+  __device__ void fetch(int, int, int) {}
+
+  template <int MT>
+  __device__ __forceinline__ void tile(float (&acc)[MT][NF][4], int b,
+                                       int ty0, int tx0) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int px0 = tx0 + 16 * (warp & 3);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int oy = ty0 + (warp >> 2) * MT + i;
+      int npix = p.width - px0 < 16 ? p.width - px0 : 16;
+      if (oy >= p.height) npix = 0;
+      if (npix <= 0) continue;   // the warp's run lies outside the image
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {   // channels co, co + 1 of a pixel
+          const int co = 8 * f + 2 * q, pix = g + 4 * k;
+          if (co >= p.cout) continue;
+          float v0 = acc[i][f][k] + bias[co];
+          float v1 = acc[i][f][k + 1] + bias[co + 1];
+          if (p.relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+          store2(run + pix * p.cout + co, v0, v1, co + 1 < p.cout,
+                 p.cout % 2 == 0);
+        }
+      __syncwarp();
+      warp_store_run(p.y + ((size_t)(b * p.height + oy) * p.width + px0) *
+                               p.cout,
+                     run, npix * p.cout, lane);
+      __syncwarp();
+    }
+  }
+};
+
+template <int G8, int NF, class T>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+    narrow_conv_kernel(const __grid_constant__ NarrowConvParams<T> p,
+                       const __grid_constant__ CUtensorMap tx) {
+  using K = NarrowConv<G8, NF, T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* taps = smem + K::C::kRing;
+  float* bias = reinterpret_cast<float*>(taps + K::kTaps);
+  T* run = reinterpret_cast<T*>(bias + 8 * NF) +
+           (threadIdx.x >> 5) * 16 * 8 * NF;
+  NarrowConvEpi<G8, NF, T> e{p, taps, bias, run};
+  narrow_walk<G8, NF, T>(p, tx, smem, taps, e);
+}
+
+template <class T>
+using NarrowConvKernel = void (*)(NarrowConvParams<T>, CUtensorMap);
+
+template <int G8, int NF, class T>
+NarrowConvKernel<T> narrow_pick(int* smem, int* rows) {
+  *smem = NarrowConv<G8, NF, T>::kSmem;
+  *rows = NarrowCfg<G8, NF>::kRows;
+  return narrow_conv_kernel<G8, NF, T>;
+}
+
+// the tile at cin <= 16 (2 channel groups) or <= 32 (4), cout <= 16 (NF 2)
+// or <= 32 (4)
+template <class T>
+NarrowConvKernel<T> narrow_kernel_for(int cin, int cout, int* smem,
+                                      int* rows) {
+  if (cin <= 16)
+    return cout <= 16 ? narrow_pick<2, 2, T>(smem, rows)
+                      : narrow_pick<2, 4, T>(smem, rows);
+  return cout <= 16 ? narrow_pick<4, 2, T>(smem, rows)
+                    : narrow_pick<4, 4, T>(smem, rows);
+}
+
+// Fill p's tiles, set the kernel's launch attributes and size its grid on
+// the current card; *k: the kernel.
+template <class T>
+cudaError_t narrow_conv_grid(NarrowConvParams<T>* p, NarrowConvKernel<T>* k,
+                             NarrowGrid* g) {
+  if (p->cin < 1 || p->cin > 32 || p->cout < 1 || p->cout > 32 || p->n < 1 ||
+      p->height < 1 || p->width < 1)
+    return cudaErrorInvalidValue;
+  int smem = 0, rows = 0;
+  *k = narrow_kernel_for<T>(p->cin, p->cout, &smem, &rows);
+  p->chunks = 1;
+  p->tiles_y = (p->height + rows - 1) / rows;
+  p->tiles_x = (p->width + kNarrowCols - 1) / kNarrowCols;
+  p->tiles = p->n * p->tiles_y * p->tiles_x;
+  return narrow_grid(*k, smem, p->tiles, rows, g);
+}
+
+template <class T>
+cudaError_t conv_narrow(const void* x, int cin, const void* taps,
+                        const void* bias, void* y, int n, int height,
+                        int width, int cout, int relu, cudaStream_t s) {
+  NarrowConvParams<T> p{};
+  p.x = static_cast<const T*>(x);
+  p.taps = static_cast<const __nv_bfloat16*>(taps);
+  p.bias = static_cast<const float*>(bias);
+  p.y = static_cast<T*>(y);
+  p.cin = cin;
+  p.cout = cout;
+  p.n = n;
+  p.height = height;
+  p.width = width;
+  p.relu = relu;
+  p.mode = dw_stage_mode<T>(x, cin);
+  NarrowConvKernel<T> k;
+  NarrowGrid g{};
+  cudaError_t e = narrow_conv_grid(&p, &k, &g);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx{};
+  if (sizeof(T) == 2)
+    p.tma = nhwc_map(&tx, x, n, height, width, cin, kNarrowCols + 2,
+                     g.rows + 2);
+  k<<<g.blocks, kNarrowThreads, g.smem, s>>>(p, tx);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K8a host entry on the narrow tile (cin <= 32, cout <= 32). x: (n, height,
+// width, cin), f32 when x_f32 else bf16; taps: (k16, 9, 32, NF, 4) bf16,
+// the mma.sync B fragments (ops/fused_conv.py::_narrow_frags) with k16 = 1
+// at cin <= 16 else 2 and NF = 2 at cout <= 16 else 4; bias: (cout,) f32
+// or null; y: (n, height, width, cout) in x's type. One launch of a
+// persistent grid. Returns a cudaError_t.
+extern "C" int mmr_conv3x3_narrow(const void* x, int x_f32, int cin,
+                                  const void* taps, const void* bias, void* y,
+                                  int n, int height, int width, int cout,
+                                  int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(x_f32 ? conv_narrow<float>(x, cin, taps, bias, y, n, height,
+                                          width, cout, relu, s)
+                     : conv_narrow<__nv_bfloat16>(x, cin, taps, bias, y, n,
+                                                  height, width, cout, relu,
+                                                  s));
+}
+
+// The grid mmr_conv3x3_narrow launches at these arguments: out[0..6) =
+// {blocks, blocks a SM, SMs, dynamic shared memory, pixel tiles, tile
+// rows}; it sets the kernel's launch attributes as the launch does.
+// Returns a cudaError_t.
+extern "C" int mmr_conv3x3_narrow_grid(int n, int height, int width, int cin,
+                                       int cout, int x_f32, void* out) {
+  NarrowGrid g{};
+  cudaError_t e;
+  if (x_f32) {
+    NarrowConvParams<float> p{};
+    p.cin = cin, p.cout = cout, p.n = n, p.height = height, p.width = width;
+    NarrowConvKernel<float> k;
+    e = narrow_conv_grid(&p, &k, &g);
+  } else {
+    NarrowConvParams<__nv_bfloat16> p{};
+    p.cin = cin, p.cout = cout, p.n = n, p.height = height, p.width = width;
+    NarrowConvKernel<__nv_bfloat16> k;
+    e = narrow_conv_grid(&p, &k, &g);
+  }
+  if (e != cudaSuccess) return (int)e;
+  put_grid(g, out);
+  return 0;
+}
+
+// Dynamic shared memory in bytes (what = 0) or resident blocks per SM at
+// the launch's attributes (what = 1) of narrow_conv_kernel at bf16
+// storage: kind 0 (cin <= 16) or 1 (cin <= 32), ntile 16 or 32 (cout).
+// Returns -1 otherwise.
+extern "C" int mmr_conv3x3_narrow_info(int what, int kind, int ntile) {
+  if (kind < 0 || kind > 1 || (ntile != 16 && ntile != 32)) return -1;
+  int smem = 0, rows = 0, dev = 0, per_sm = -1;
+  const NarrowConvKernel<__nv_bfloat16> k =
+      narrow_kernel_for<__nv_bfloat16>(kind ? 32 : 16, ntile, &smem, &rows);
+  if (!what) return smem;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      hopper_attrs(k, smem) != cudaSuccess ||
+      resident_per_sm(k, kNarrowThreads, smem, dev, &per_sm) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
 
 // K6a / K8a host entry (plain C interface, bound with ctypes). x: (n,
 // height, width, cin), f32 when x_f32 else bf16; wt: (cin chunks of 16, 9,

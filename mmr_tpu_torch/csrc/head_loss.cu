@@ -6,16 +6,28 @@
 // `_head_loss_bwd_kernel` (:2316, via `_head_loss_bwd_call` :2504,
 // `pl.pallas_call` at :2540).
 //
-// K5a: logits = conv3x3(relu(s*x + t), W) + bias over common.cuh's WMMA
-// tile (load_tile, mma_chunk: one 16-wide output fragment, nc <= 16);
-// then, per pixel in the epilogue, the exact per-pixel max (first index on
-// ties: torch's argmax), p = softmax, lse = log sum exp, and
+// K5a: logits = conv3x3(act(s*x + t), W) + bias on narrow_tile.cuh's tile
+// (narrow_head_kernel: nc <= 16 classes padded to 16, two mma.sync n
+// fragments; any cin, in 32-channel chunks above 16), then, per pixel from
+// the accumulator fragments, the exact per-pixel max (first index on ties:
+// torch's argmax), p = softmax, lse = log sum exp, and
 //   stats[b] += [sum p, sum onehot, sum p*onehot, sum onehot*(lse - logit)]
-//   conf[argmax][label] += 1          (labelled pixels; with conf != null)
+//   conf[argmax][label] += 1          (labelled pixels; with with_conf)
 //   logp = min(logit - lse, 0)        (bf16, the backward's residual)
 // The NHWC logits never reach device memory: only the bf16 log-prob
-// surface does, because K5b re-reads it. Per-block sums in shared memory,
-// f32 atomics into stats and conf.
+// surface does, because K5b re-reads it. The prologue act(s*x + t) runs
+// once on each staged tile, in place in shared memory, on the pixels
+// inside the image (the halo outside stays zero: the SAME padding of the
+// activated input). A pixel's classes lie across the four lanes of a quad:
+// its max, argmax and sum of exponentials come by quad shuffles; each lane
+// keeps its classes' sums over the tile, reduced over the pixel lanes by
+// shuffles and over the warps in order into the block's (n, 4, 16) row in
+// shared memory; the confusion counts are integers (shared atomics, one
+// per distinct key of a warp). Each block writes its row once and
+// head_rows_reduce_kernel adds the rows in a fixed order: no float atomics
+// and no zero fills, so a second launch gives the same bits. The labels
+// are read in the type they come in (uint8, int32, int64), each by one
+// lane of its quad, while the tile's products run.
 //
 // K5b: from logp, the labels and d(stats) (B, 4, nc), d(logits) is
 // synthesized (p = exp(logp), g = ds0 + ds2*onehot, dlogit = p*(g - sum
@@ -43,153 +55,475 @@
 // label's).
 //
 // Bound on an H100: the head moves 32 bytes of input, 2*nc bytes of log
-// probs and 4 bytes of label per pixel for 2*9*16*nc operations (K5b
+// probs and 1-8 bytes of label per pixel for 2*9*16*nc operations (K5b
 // twice that): far below the 295 op/byte ridge, so bytes bound both. The
-// design reads each input once per tile (halo from L2), keeps the logits
-// and their gradient in registers and shared memory, and writes only the
-// log-prob surface (K5a) and dx plus the per-block sums (K5b).
+// design reads each input once per tile (halo from L2; K5a's tiles are 12
+// rows tall, the next ones in flight by TMA while a tile's products and
+// epilogue run), keeps the logits and their gradient in registers and
+// shared memory, and writes only the log-prob surface (K5a, by 16-byte
+// stores) and dx plus the per-block sums (K5b).
 
-#include "common.cuh"
+#include "narrow_tile.cuh"
 
 namespace {
 
+template <class L>
 struct HeadFwdParams {
-  Input in;                 // x with its (relu) prologue
-  const __nv_bfloat16* wt;  // (chunks, 9, kKC, 16), zero-padded
-  const float* bias;        // (nc,)
-  const int* labels;        // (n, height, width)
-  __nv_bfloat16* logp;      // (n, height, width, nc)
-  float* stats;             // (n, 4, nc), zeroed
-  float* conf;              // (nc, nc), zeroed, or null
-  int n, height, width, nc;
+  const __nv_bfloat16* x;      // the raw input (n, height, width, cin)
+  const float* scale;          // its prologue (cin,)
+  const float* shift;
+  int act;
+  const __nv_bfloat16* taps;   // (k16, 9, 32 lanes, 2, 4) B fragments
+  const float* bias;           // (nc,)
+  const L* labels;             // (n, height, width)
+  __nv_bfloat16* logp;         // (n, height, width, nc)
+  float* part;                 // (gridDim.x, len): the blocks' rows
+  int with_conf, len;
+  int cin, nc, n, height, width;
+  int chunks, tiles_x, tiles_y, tiles;
+  int tma, mode;               // x by TMA, else its DwStage
 };
 
-constexpr int kHeadNS = 16 + 8;
-constexpr int kHeadSmem = kTilePix * kKC * 2 + 9 * kKC * kHeadNS * 2 +
-                          kTH * 256 * 4 + (4 * 16 + 16 * 16) * 4;
+// K5a's side of the narrow tile: the prologue on each staged tile, the
+// per-pixel statistics from the accumulator fragments
+template <int G8, class L>
+struct HeadEpi {
+  using C = NarrowCfg<G8, 2>;
+  static constexpr bool kPrologue = true;
+  const HeadFwdParams<L>& p;
+  unsigned char* taps;    // (k16, 9, 32, 2, 4) B fragments
+  float* sc;              // (cpad,) prologue scale, 1 beyond cin
+  float* sh;              // (cpad,) shift, 0 beyond cin
+  float* bias;            // (16,), -inf beyond nc
+  __nv_bfloat16* run;     // this warp's 16 x nc log-probs
+  float* red;             // (8 warps, 4, 16) a tile's sums
+  int* conf;              // (16, 16) the block's confusion
+  float* row;             // (n, 4, 16) the block's statistics
+  // the labels of the warp's 2 kMT pixels a lane: lane 4g + q loads those
+  // of pixels 4k + q (pixel 2i + h: m-tile i's g + 8h), -1 outside
+  static constexpr int kLab = (2 * C::kMT + 3) / 4;
+  long long lab_raw[kLab];
 
-__global__ void __launch_bounds__(kThreads) head_loss_fwd_kernel(
-    const HeadFwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = tile + kTilePix * kKC;
-  float* stage = reinterpret_cast<float*>(wsm + 9 * kKC * kHeadNS);
-  float* bst = stage + kTH * 256;  // (4, 16) block stats
-  float* bconf = bst + 4 * 16;     // (16, 16) block confusion
-
-  const int tiles_x = (p.width + kTW - 1) / kTW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < 4 * 16 + 16 * 16; i += blockDim.x)
-    bst[i] = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[1];
-  wmma::fill_fragment(acc[0], 0.f);
-  const int nch = (p.in.c + kKC - 1) / kKC;
-  for (int ch = 0; ch < nch; ++ch) {
-    __syncthreads();
-    load_tile(p.in, b, p.height, p.width, ty0, tx0, ch * kKC, tile);
-    load_weights(p.wt + (size_t)ch * 9 * kKC * 16, 16, 0, 16, wsm, kHeadNS);
-    __syncthreads();
-    mma_chunk<1>(tile, wsm, kHeadNS, warp, acc);
+  __device__ __forceinline__ void setup() {
+    const int tid = threadIdx.x, cpad = p.chunks * 8 * G8;
+    const int tbytes = p.chunks * C::kK16 * 9 * 32 * 16;
+    for (int i = tid; i < tbytes / 16; i += kNarrowThreads)
+      reinterpret_cast<uint4*>(taps)[i] =
+          reinterpret_cast<const uint4*>(p.taps)[i];
+    for (int i = tid; i < 16; i += kNarrowThreads)
+      bias[i] = i < p.nc ? p.bias[i] : -INFINITY;
+    for (int i = tid; i < cpad; i += kNarrowThreads) {
+      sc[i] = i < p.cin ? p.scale[i] : 1.f;
+      sh[i] = i < p.cin ? p.shift[i] : 0.f;
+    }
+    for (int i = tid; i < 256; i += kNarrowThreads) conf[i] = 0;
+    for (int i = tid; i < p.n * 64; i += kNarrowThreads) row[i] = 0.f;
   }
 
-  float* st = stage + warp * 256;
-  wmma::store_matrix_sync(st, acc[0], 16, wmma::mem_row_major);
-  __syncwarp();
-  const int oy = ty0 + warp;
-  const int ox = tx0 + lane;
-  if (lane < 16 && oy < p.height && ox < p.width) {
+  // act(s*x + t) in place on the staged pixels inside the image (channels
+  // c0 ..); the halo outside it stays zero, the padding of the activated
+  // input
+  __device__ __forceinline__ void prologue(unsigned char* slot, int c0,
+                                           int ty0, int tx0) {
+    for (int i = threadIdx.x; i < G8 * C::kHalo; i += kNarrowThreads) {
+      const int grp = i / C::kHalo, u = i - grp * C::kHalo;
+      const int yy = ty0 - 1 + u / C::kSlots, xx = tx0 - 1 + u % C::kSlots;
+      if (yy < 0 || yy >= p.height || xx < 0 || xx >= p.width) continue;
+      uint4* at = reinterpret_cast<uint4*>(slot + 16 * (grp * C::kGS + u));
+      uint4 v = *at;
+      float s8[8], t8[8];
+      const float4* s4 = reinterpret_cast<const float4*>(sc + c0 + 8 * grp);
+      const float4* t4 = reinterpret_cast<const float4*>(sh + c0 + 8 * grp);
+      *reinterpret_cast<float4*>(s8) = s4[0];
+      *reinterpret_cast<float4*>(s8 + 4) = s4[1];
+      *reinterpret_cast<float4*>(t8) = t4[0];
+      *reinterpret_cast<float4*>(t8 + 4) = t4[1];
+      prologue8(reinterpret_cast<__nv_bfloat16*>(&v), s8, t8, p.act);
+      *at = v;
+    }
+  }
+
+  // the tile's labels, loaded while its products run
+  __device__ __forceinline__ void fetch(int b, int ty0, int tx0) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int px = tx0 + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+    for (int k = 0; k < kLab; ++k) {
+      const int idx = 4 * k + (lane & 3), i = idx >> 1;
+      const int oy = ty0 + (warp >> 2) * C::kMT + i, ox = px + 8 * (idx & 1);
+      lab_raw[k] = i < C::kMT && oy < p.height && ox < p.width
+                   ? (long long)p.labels[(size_t)(b * p.height + oy) *
+                                             p.width + ox]
+                   : -1;
+    }
+  }
+
+  // Lane 4g + q holds classes 2q, 2q + 1, 8 + 2q, 9 + 2q (j = 0..3) of
+  // pixels g and g + 8 of each m-tile: a pixel's max, first argmax and sum
+  // of exponentials come from the quad by shuffles; each lane keeps its
+  // classes' sums over the tile, added over the pixel lanes by shuffles,
+  // then over the warps in order into the block's row of the sample.
+  template <int MT>
+  __device__ __forceinline__ void tile(float (&acc)[MT][2][4], int b, int ty0,
+                                       int tx0) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int px0 = tx0 + 16 * (warp & 3);
     const int nc = p.nc;
-    float v[16];
-    float m = -INFINITY;
-    int am = 0;
+    int cls[4], lk[kLab];
+    bool on[4];
+    float bj[4], s[4][4];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if (k < nc) {
-        v[k] = st[lane * 16 + k] + p.bias[k];
-        if (v[k] > m) {  // strict: the first maximal class wins a tie
-          m = v[k];
-          am = k;
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      cls[j] = 8 * (j >> 1) + 2 * q + (j & 1);
+      on[j] = cls[j] < nc;
+      bj[j] = bias[cls[j]];   // -inf past nc: no max, no exponent
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[t][j] = 0.f;
     }
-    float z[16];
-    float sum = 0.f;
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      if (k < nc) {
-        z[k] = expf(v[k] - m);
-        sum += z[k];
-      }
-    const float lse = logf(sum) + m;
-    const size_t pix = ((size_t)b * p.height + oy) * p.width + ox;
-    const int lab = p.labels[pix];
+    for (int k = 0; k < kLab; ++k)
+      lk[k] = lab_raw[k] >= 0 && lab_raw[k] < nc ? (int)lab_raw[k] : -1;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      if (k < nc) {
-        const float pr = z[k] / sum;
-        atomicAdd(&bst[k], pr);
-        if (k == lab) {
-          atomicAdd(&bst[16 + k], 1.f);
-          atomicAdd(&bst[32 + k], pr);
-          atomicAdd(&bst[48 + k], lse - v[k]);
+    for (int i = 0; i < MT; ++i) {
+      const int oy = ty0 + (warp >> 2) * MT + i;
+      int npix = p.width - px0 < 16 ? p.width - px0 : 16;
+      if (oy >= p.height) npix = 0;
+      if (npix <= 0) continue;   // the warp's run lies outside the image
+      const size_t pix0 = (size_t)(b * p.height + oy) * p.width + px0;
+      int key = -1;   // lane q < 2 of the quad: pixel g + 8q's confusion entry
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pix = g + 8 * h;
+        const bool valid = pix < npix;
+        const int idx = 2 * i + h;   // its label: lane 4g + idx % 4's
+        const int lab =
+            __shfl_sync(kFull, lk[idx >> 2], (lane & ~3) | (idx & 3));
+        float v[4], m = -INFINITY;
+        int am = 16;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = acc[i][j >> 1][2 * h + (j & 1)] + bj[j];
+          if (v[j] > m) {   // classes ascend with j: first max
+            m = v[j];
+            am = cls[j];
+          }
         }
-        p.logp[pix * nc + k] = __float2bfloat16_rn(fminf(v[k] - lse, 0.f));
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float om = __shfl_xor_sync(kFull, m, off);
+          const int oa = __shfl_xor_sync(kFull, am, off);
+          if (om > m || (om == m && oa < am)) {
+            m = om;
+            am = oa;
+          }
+        }
+        // fast exponent, logarithm and reciprocal (a few ulp; the
+        // statistics' bound is 2e-2)
+        float z[4], sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          z[j] = __expf(v[j] - m);
+          sum += z[j];
+        }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        const float lse = __logf(sum) + m, inv = __fdividef(1.f, sum);
+        // classes (2q, 2q + 1) and (8 + 2q, 9 + 2q): one bf16 pair each
+#pragma unroll
+        for (int j = 0; j < 4; j += 2)
+          if (on[j])
+            store2(run + pix * nc + cls[j], fminf(v[j] - lse, 0.f),
+                   fminf(v[j + 1] - lse, 0.f), on[j + 1], nc % 2 == 0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!on[j] || !valid) continue;
+          const float pr = z[j] * inv;
+          s[0][j] += pr;
+          if (cls[j] == lab) {
+            s[1][j] += 1.f;
+            s[2][j] += pr;
+            s[3][j] += lse - v[j];
+          }
+        }
+        if (q == h && lab >= 0) key = am * 16 + lab;
       }
+      if (p.with_conf) {   // one count a distinct key of the warp
+        const unsigned peers = __match_any_sync(kFull, key);
+        if (key >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&conf[key], __popc(peers));
+      }
+      __syncwarp();
+      warp_store_run(p.logp + pix0 * nc, run, npix * nc, lane);
+      __syncwarp();
     }
-    if (p.conf != nullptr && lab >= 0 && lab < nc)
-      atomicAdd(&bconf[am * 16 + lab], 1.f);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = s[t][j];
+        v += __shfl_xor_sync(kFull, v, 4);
+        v += __shfl_xor_sync(kFull, v, 8);
+        v += __shfl_xor_sync(kFull, v, 16);
+        if (lane < 4) red[(warp * 4 + t) * 16 + cls[j]] = v;
+      }
+    __syncthreads();
+    if (threadIdx.x < 64) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) t += red[w * 64 + threadIdx.x];
+      row[b * 64 + threadIdx.x] += t;
+    }
   }
+};
+
+// shared memory of the head kernel at `chunks` chunks and batch n
+template <int G8>
+int head_smem(int chunks, int n) {
+  using C = NarrowCfg<G8, 2>;
+  return C::kRing + chunks * C::kK16 * 9 * 32 * 16 + 16 * 4 +
+         2 * chunks * 8 * G8 * 4 + 8 * 256 * 2 + 8 * 64 * 4 + 256 * 4 +
+         n * 64 * 4;
+}
+
+template <int G8, class L>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+    narrow_head_kernel(const __grid_constant__ HeadFwdParams<L> p,
+                       const __grid_constant__ CUtensorMap tx) {
+  using C = NarrowCfg<G8, 2>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int tbytes = p.chunks * C::kK16 * 9 * 32 * 16;
+  const int cpad = p.chunks * 8 * G8;
+  unsigned char* taps = smem + C::kRing;
+  float* bias = reinterpret_cast<float*>(taps + tbytes);
+  float* sc = bias + 16;
+  float* sh = sc + cpad;
+  __nv_bfloat16* run = reinterpret_cast<__nv_bfloat16*>(sh + cpad);
+  float* red = reinterpret_cast<float*>(run + 8 * 256);
+  int* conf = reinterpret_cast<int*>(red + 8 * 64);
+  float* row = reinterpret_cast<float*>(conf + 256);
+  HeadEpi<G8, L> e{p, taps, sc, sh, bias, run + (tid >> 5) * 256, red, conf,
+                   row, {}};
+  narrow_walk<G8, 2, __nv_bfloat16>(p, tx, smem, taps, e);
+  __syncthreads();   // the last tile's sums are in the row
+  float* out = p.part + (size_t)blockIdx.x * p.len;
+  for (int i = tid; i < p.n * 64; i += kNarrowThreads) out[i] = row[i];
+  int* oc = reinterpret_cast<int*>(out + p.n * 64);
+  for (int i = tid; i < 256; i += kNarrowThreads) oc[i] = conf[i];
+}
+
+// stats (n, 4, nc) and conf (nc, nc) from the blocks' rows (len = n * 64 +
+// 256: the (n, 4, 16) f32 sums, then the (16, 16) int32 counts): column j
+// of each row added over the rows in a fixed order (P = blockDim.x / 32
+// row phases, each in row order, then the phases in order); the counts
+// are integers, exact in any order. conf is zero without with_conf.
+__global__ void __launch_bounds__(1024) head_rows_reduce_kernel(
+    const float* __restrict__ part, int rows, int n, int nc, int with_conf,
+    float* __restrict__ stats, float* __restrict__ conf) {
+  __shared__ float fs[32][33];
+  __shared__ int is[32][33];
+  const int lane = threadIdx.x & 31, ph = threadIdx.x >> 5;
+  const int phases = blockDim.x >> 5;
+  const int len = n * 64 + 256;
+  const int j = blockIdx.x * 32 + lane;
+  const bool counts = j >= n * 64;
+  float f = 0.f;
+  int c = 0;
+  if (j < len) {
+    for (int i = ph; i < rows; i += phases) {
+      if (counts) c += reinterpret_cast<const int*>(part)[(size_t)i * len + j];
+      else f += part[(size_t)i * len + j];
+    }
+  }
+  fs[ph][lane] = f;
+  is[ph][lane] = c;
   __syncthreads();
-  const int nc = p.nc;
-  for (int i = threadIdx.x; i < 4 * nc; i += blockDim.x)
-    atomicAdd(&p.stats[((size_t)b * 4 + i / nc) * nc + i % nc],
-              bst[(i / nc) * 16 + i % nc]);
-  if (p.conf != nullptr)
-    for (int i = threadIdx.x; i < nc * nc; i += blockDim.x)
-      atomicAdd(&p.conf[i], bconf[(i / nc) * 16 + i % nc]);
+  if (ph != 0 || j >= len) return;
+  for (int k = 1; k < phases; ++k) {
+    f += fs[k][lane];
+    c += is[k][lane];
+  }
+  if (!counts) {
+    if (j % 16 < nc) stats[(j / 16) * nc + j % 16] = f;
+  } else {
+    const int a = (j - n * 64) / 16, l = (j - n * 64) % 16;
+    if (a < nc && l < nc) conf[a * nc + l] = with_conf ? (float)c : 0.f;
+  }
+}
+
+template <class L>
+using HeadKernel = void (*)(HeadFwdParams<L>, CUtensorMap);
+
+// the head kernel at cin (16-channel stages up to 16, else 32-channel
+// chunks); fills the chunks and tiles of p, *smem and *rows
+template <class L>
+HeadKernel<L> head_kernel_for(HeadFwdParams<L>* p, int* smem, int* rows) {
+  const bool narrow = p->cin <= 16;
+  p->chunks = narrow ? 1 : (p->cin + 31) / 32;
+  *rows = narrow ? NarrowCfg<2, 2>::kRows : NarrowCfg<4, 2>::kRows;
+  *smem = narrow ? head_smem<2>(p->chunks, p->n) : head_smem<4>(p->chunks, p->n);
+  p->tiles_y = (p->height + *rows - 1) / *rows;
+  p->tiles_x = (p->width + kNarrowCols - 1) / kNarrowCols;
+  p->tiles = p->n * p->tiles_y * p->tiles_x;
+  p->len = p->n * 64 + 256;
+  return narrow ? narrow_head_kernel<2, L> : narrow_head_kernel<4, L>;
+}
+
+template <class L>
+cudaError_t head_grid(HeadFwdParams<L>* p, HeadKernel<L>* k, NarrowGrid* g) {
+  if (p->cin < 1 || p->nc < 1 || p->nc > 16 || p->n < 1 || p->height < 1 ||
+      p->width < 1)
+    return cudaErrorInvalidValue;
+  int smem = 0, rows = 0;
+  *k = head_kernel_for(p, &smem, &rows);
+  return narrow_grid(*k, smem, p->tiles, rows, g);
+}
+
+// the rows' reduction: about 16 rows a thread, 1 to 32 phases
+inline int head_reduce_phases(int rows) {
+  int ph = 1;
+  while (ph < 32 && rows > 16 * ph) ph *= 2;
+  return ph;
+}
+
+template <class L>
+cudaError_t head_fwd(HeadFwdParams<L>& p, int part_rows, float* stats,
+                     float* conf, cudaStream_t s) {
+  HeadKernel<L> k;
+  NarrowGrid g{};
+  cudaError_t e = head_grid(&p, &k, &g);
+  if (e != cudaSuccess) return e;
+  if (part_rows < g.blocks) return cudaErrorInvalidValue;
+  p.mode = dw_stage_mode<__nv_bfloat16>(p.x, p.cin);
+  CUtensorMap tx{};
+  p.tma = nhwc_map(&tx, p.x, p.n, p.height, p.width, p.cin, kNarrowCols + 2,
+                   g.rows + 2);
+  k<<<g.blocks, kNarrowThreads, g.smem, s>>>(p, tx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  head_rows_reduce_kernel<<<(p.len + 31) / 32,
+                            32 * head_reduce_phases(g.blocks), 0, s>>>(
+      p.part, g.blocks, p.n, p.nc, p.with_conf, stats, conf);
+  return cudaGetLastError();
+}
+
+template <class L>
+cudaError_t head_grid_at(int n, int height, int width, int cin, int nc,
+                         NarrowGrid* g) {
+  HeadFwdParams<L> p{};
+  p.cin = cin, p.nc = nc, p.n = n, p.height = height, p.width = width;
+  HeadKernel<L> k;
+  return head_grid(&p, &k, g);
+}
+
+enum LabelKind { kU8 = 0, kI32 = 1, kI64 = 2 };
+
+template <class L>
+HeadFwdParams<L> head_params(const void* x, const void* scale,
+                             const void* shift, int act, int cin,
+                             const void* taps, const void* bias,
+                             const void* labels, void* logp, void* part,
+                             int with_conf, int n, int height, int width,
+                             int nc) {
+  HeadFwdParams<L> p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.act = act;
+  p.taps = static_cast<const __nv_bfloat16*>(taps);
+  p.bias = static_cast<const float*>(bias);
+  p.labels = static_cast<const L*>(labels);
+  p.logp = static_cast<__nv_bfloat16*>(logp);
+  p.part = static_cast<float*>(part);
+  p.with_conf = with_conf;
+  p.cin = cin;
+  p.nc = nc;
+  p.n = n;
+  p.height = height;
+  p.width = width;
+  return p;
 }
 
 }  // namespace
 
 // K5a host entry (plain C interface, bound with ctypes). x: (n, h, w, cin)
-// bf16 with its prologue (scale, shift, act); wt: (cin chunks, 9, 16, 16)
-// bf16; bias: (nc,) f32; labels: (n, h, w) int32; outputs logp (n, h, w,
-// nc) bf16, zeroed stats (n, 4, nc) and conf (nc, nc) f32 (conf may be
-// null). nc <= 16. Returns a cudaError_t.
+// bf16 with its prologue (scale, shift (cin,) f32, act); taps: (k16, 9, 32,
+// 2, 4) bf16, the mma.sync B fragments over the classes padded to 16
+// (ops/fused_conv.py::_narrow_frags) with k16 = 1 at cin <= 16, else 2 a
+// 32-channel chunk; bias: (nc,) f32; labels: (n, h, w) of kind 0 = uint8,
+// 1 = int32, 2 = int64 (ids outside [0, nc) count in no onehot and no
+// confusion entry); part: f32 scratch of part_rows rows of n * 64 + 256
+// (at least the blocks mmr_head_loss_fwd_grid reports); outputs logp (n,
+// h, w, nc) bf16, stats (n, 4, nc) and conf (nc, nc) f32, written whole
+// (conf zero without with_conf). nc <= 16. Two launches: the persistent
+// grid, then the rows' reduction. Returns a cudaError_t.
 extern "C" int mmr_head_loss_fwd(const void* x, const void* scale,
                                  const void* shift, int act, int cin,
-                                 const void* wt, const void* bias,
-                                 const void* labels, void* logp, void* stats,
-                                 void* conf, int n, int height, int width,
-                                 int nc, void* stream) {
-  if (nc < 1 || nc > 16) return (int)cudaErrorInvalidValue;
-  HeadFwdParams p{};
-  p.in = Input{static_cast<const __nv_bfloat16*>(x),
-               static_cast<const float*>(scale),
-               static_cast<const float*>(shift), cin, act, 0, 0};
-  p.wt = static_cast<const __nv_bfloat16*>(wt);
-  p.bias = static_cast<const float*>(bias);
-  p.labels = static_cast<const int*>(labels);
-  p.logp = static_cast<__nv_bfloat16*>(logp);
-  p.stats = static_cast<float*>(stats);
-  p.conf = static_cast<float*>(conf);
-  p.n = n;
-  p.height = height;
-  p.width = width;
-  p.nc = nc;
-  cudaError_t e = cudaFuncSetAttribute(
-      head_loss_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kHeadSmem);
+                                 const void* taps, const void* bias,
+                                 const void* labels, int label_kind,
+                                 void* logp, void* part, int part_rows,
+                                 void* stats, void* conf, int with_conf,
+                                 int n, int height, int width, int nc,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
+  float* cf = static_cast<float*>(conf);
+#define MMR_HEAD_ARGS                                                     \
+  x, scale, shift, act, cin, taps, bias, labels, logp, part, with_conf, n, \
+      height, width, nc
+  switch (label_kind) {
+    case kU8: {
+      auto p = head_params<uint8_t>(MMR_HEAD_ARGS);
+      return (int)head_fwd(p, part_rows, st, cf, s);
+    }
+    case kI32: {
+      auto p = head_params<int32_t>(MMR_HEAD_ARGS);
+      return (int)head_fwd(p, part_rows, st, cf, s);
+    }
+    case kI64: {
+      auto p = head_params<int64_t>(MMR_HEAD_ARGS);
+      return (int)head_fwd(p, part_rows, st, cf, s);
+    }
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MMR_HEAD_ARGS
+}
+
+// The grid mmr_head_loss_fwd launches at these arguments (label_kind as
+// there): out[0..6) = {blocks (the scratch rows it needs), blocks a SM,
+// SMs, dynamic shared memory, pixel tiles, tile rows}; it sets the
+// kernel's launch attributes as the launch does. Returns a cudaError_t.
+extern "C" int mmr_head_loss_fwd_grid(int n, int height, int width, int cin,
+                                      int nc, int label_kind, void* out) {
+  NarrowGrid g{};
+  cudaError_t e;
+  switch (label_kind) {
+    case kU8: e = head_grid_at<uint8_t>(n, height, width, cin, nc, &g); break;
+    case kI32: e = head_grid_at<int32_t>(n, height, width, cin, nc, &g); break;
+    case kI64: e = head_grid_at<int64_t>(n, height, width, cin, nc, &g); break;
+    default: e = cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((width + kTW - 1) / kTW) * ((height + kTH - 1) / kTH);
-  head_loss_fwd_kernel<<<dim3(tiles, n), kThreads, kHeadSmem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  put_grid(g, out);
+  return 0;
+}
+
+// Dynamic shared memory in bytes at batch 8 (what = 0) or resident blocks
+// per SM at the launch's attributes (what = 1) of narrow_head_kernel with
+// int64 labels at cin 16 (kind 0) or 32 (kind 1; ntile is ignored).
+// Returns -1 otherwise.
+extern "C" int mmr_head_loss_fwd_info(int what, int kind, int /*ntile*/) {
+  if (kind < 0 || kind > 1) return -1;
+  HeadFwdParams<int64_t> p{};
+  p.cin = kind ? 32 : 16, p.n = 8, p.height = 64, p.width = 64;
+  int smem = 0, rows = 0, dev = 0, per_sm = -1;
+  const HeadKernel<int64_t> k = head_kernel_for(&p, &smem, &rows);
+  if (!what) return smem;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      hopper_attrs(k, smem) != cudaSuccess ||
+      resident_per_sm(k, kNarrowThreads, smem, dev, &per_sm) != cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 // ------------------------------------------------------------------ K5b

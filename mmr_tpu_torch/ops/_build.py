@@ -47,7 +47,13 @@ SIGNATURES = {
     "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "mmr_fused_conv_down_bwd": ([_P] * 3 + [_I] + [_P] * 6 + [_I] + [_P]
                                 + [_I] * 6 + [_P]),
-    "mmr_head_loss_fwd": [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P],
+    "mmr_conv3x3_narrow": [_P, _I, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    "mmr_conv3x3_narrow_grid": [_I] * 6 + [_P],
+    "mmr_conv3x3_narrow_info": [_I, _I, _I],
+    "mmr_head_loss_fwd": ([_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 2
+                          + [_I] + [_P] * 2 + [_I] * 5 + [_P]),
+    "mmr_head_loss_fwd_grid": [_I] * 6 + [_P],
+    "mmr_head_loss_fwd_info": [_I, _I, _I],
     "mmr_head_loss_bwd": ([_P] * 3 + [_I] * 2 + [_P] + [_I] + [_P] * 5
                           + [_I] + [_P] * 4 + [_I] * 4 + [_P]),
     "mmr_hopper_kernel_info": [_I, _I, _I],
@@ -61,14 +67,16 @@ SIGNATURES = {
 # the Hopper kernels by mangled name: the entry that reports their shared
 # memory and blocks per SM, their kind there (``mmr_hopper_kernel_info``: 0
 # conv, 1 source-resolution dx, 2 K3's dW; ``mmr_conv3x3_dw_info``: the
-# modes 0 (cin <= 16), 1 (cin <= 32), 2 (64-channel chunks), each a kind)
-# and their output-channel tiles (the stride-2 pair's: the flagship's input
-# channels)
+# modes 0 (cin <= 16), 1 (cin <= 32), 2 (64-channel chunks), each a kind;
+# the narrow tile's entries: cin <= 16 (0) or <= 32 (1)) and their
+# output-channel tiles (the stride-2 pair's: the flagship's input channels)
 HOPPER_KERNELS = {
     "conv_wg_kernel": ("mmr_hopper_kernel_info", 0, (16, 32, 64)),
     "conv_up2_dx_kernel": ("mmr_hopper_kernel_info", 1, (16, 32, 64)),
     "conv_dw_wg_kernel": ("mmr_hopper_kernel_info", 2, (16, 32)),
     "conv3x3_dw_kernel": ("mmr_conv3x3_dw_info", (0, 1, 2), (16, 32, 64)),
+    "narrow_conv_kernel": ("mmr_conv3x3_narrow_info", (0, 1), (16, 32)),
+    "narrow_head_kernel": ("mmr_head_loss_fwd_info", (0, 1), (16,)),
     "pending_conv_kernel": ("mmr_fused_conv_info", 0, (16, 32, 64)),
     "head_bwd_kernel": ("mmr_head_loss_bwd_info", 0, (16, 32)),
     "down_stem_kernel": ("mmr_fused_conv_down_info", 0, (3,)),

@@ -6,10 +6,13 @@ differentiable entry point :func:`conv3x3_bias_act`.
 Counterpart of ``mmr_tpu/ops/pallas/conv3x3.py`` (``_conv3x3_pallas``,
 ``_conv3x3_dw_pallas``, ``_lax_conv``, ``conv3x3_bias_act`` and its custom
 VJP). The TPU's channel-major lane-rolled canvas is not ported: tensors are
-plain NHWC, and the kernels (K6's, ``mmr_tpu_torch/csrc/conv3x3.cu``,
-instantiated for f32 storage as well as bf16) read x once and write y once. No model calls this op, in
-JAX or here: it is an entry point of its own, on the kernels only under
-``_FORCE`` (``_FORCE_PALLAS``).
+plain NHWC, and the kernels (``mmr_tpu_torch/csrc/conv3x3.cu``, f32 storage
+as well as bf16) read x once and write y once: K8a on the narrow tile
+(``csrc/narrow_tile.cuh``) at Cin ≤ 32 and Cout ≤ 32, its main shape 16 →
+16 and that shape's dx, on K6a's kernel above; K8b on K6b's. Their weight
+packs are cached per weight version, the dx taps against the forward's
+weights too. No model calls this op, in JAX or here: it is an entry point
+of its own, on the kernels only under ``_FORCE`` (``_FORCE_PALLAS``).
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; any other device raises. ``<wrapper>.launches``
@@ -18,13 +21,16 @@ counts kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
 
 from mmr_tpu_torch.ops import _build
 from mmr_tpu_torch.ops.conv3x3_packed import launch_dw
-from mmr_tpu_torch.ops.fused_conv import (BF16, _check_bias, _launch_device,
+from mmr_tpu_torch.ops.fused_conv import (BF16, _cached_pack, _check_bias,
+                                          _launch_device, _narrow_frags,
                                           _pack_taps, _ptr, _raise_on, _stream,
                                           _wg_tile)
 
@@ -55,6 +61,30 @@ def _oihw(w: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K8a
+
+NARROW_MAX = 32   # channels in and out the narrow tile takes
+
+
+def uses_narrow(cin: int, cout: int) -> bool:
+    """Whether K8a runs on the narrow tile (``mmr_conv3x3_narrow``) at these
+    channels, rather than on K6a's kernel."""
+    return cin <= NARROW_MAX and cout <= NARROW_MAX
+
+
+@functools.lru_cache(maxsize=256)
+def narrow_grid(n: int, h: int, w: int, cin: int, cout: int, f32: bool,
+                device: int) -> dict:
+    """The persistent grid of K8a's narrow tile at these shapes on the
+    current card (``device``, its index, keys the cache), as its C entry
+    sizes it from the SM count and the occupancy: blocks, blocks a SM, SMs,
+    dynamic shared memory (bytes), pixel tiles and rows a tile."""
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().mmr_conv3x3_narrow_grid(n, h, w, cin, cout,
+                                                   int(f32), out.data_ptr())
+    _raise_on(err, "conv3x3_shift grid")
+    return dict(zip(("blocks", "per_sm", "sms", "smem", "tiles", "rows"),
+                    out.tolist()))
+
 
 def conv3x3_shift_ref(x: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor | None = None,
@@ -89,14 +119,23 @@ def conv3x3_shift(x: torch.Tensor, w: torch.Tensor,
     if not _launch_device(device):
         return conv3x3_shift_ref(x, w, bias, relu)
 
-    ntile, np_ = _wg_tile(cout)
-    wt = _pack_taps(w.reshape(9, cin, cout), np_)
+    f32 = int(x.dtype == torch.float32)
     bias_f = None if bias is None else bias.float().contiguous()
     y = torch.empty((batch, h, wd, cout), dtype=x.dtype, device=device)
-    err = _build.library().mmr_conv3x3(
-        x.data_ptr(), int(x.dtype == torch.float32), cin, wt.data_ptr(),
-        _ptr(bias_f), y.data_ptr(), batch, h, wd, cout, np_, ntile, int(relu),
-        _stream())
+    if uses_narrow(cin, cout):
+        k16, nf = (1 if cin <= 16 else 2), (2 if cout <= 16 else 4)
+        taps = _cached_pack(("K8a", k16, nf), [w], lambda: _narrow_frags(
+            w.reshape(9, cin, cout), k16, nf))
+        err = _build.library().mmr_conv3x3_narrow(
+            x.data_ptr(), f32, cin, taps.data_ptr(), _ptr(bias_f),
+            y.data_ptr(), batch, h, wd, cout, int(relu), _stream())
+    else:
+        ntile, np_ = _wg_tile(cout)
+        wt = _cached_pack(("K8a wide", np_), [w], lambda: _pack_taps(
+            w.reshape(9, cin, cout), np_))
+        err = _build.library().mmr_conv3x3(
+            x.data_ptr(), f32, cin, wt.data_ptr(), _ptr(bias_f), y.data_ptr(),
+            batch, h, wd, cout, np_, ntile, int(relu), _stream())
     _raise_on(err, "conv3x3_shift")
     conv3x3_shift.launches += 1
     return y
@@ -165,9 +204,11 @@ def _lax_conv_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 class Conv3x3BiasActFn(torch.autograd.Function):
     """``conv3x3.py::conv3x3_bias_act`` with its custom VJP (``_bwd``,
     :266-286): the ReLU mask from y, ``gin = g.to(x.dtype)``, dx = K8a on
-    gin over flipped, transposed taps with zero bias, dW = K8b cast to w's
-    dtype, dbias = Σg in f32. Each direction takes the kernels when
-    ``_FORCE`` is set, the library conv otherwise."""
+    gin over flipped, transposed taps with no bias (JAX's zero bias), dW =
+    K8b cast to w's dtype, dbias = Σg in f32. Each direction takes the
+    kernels when ``_FORCE`` is set, the library conv otherwise. The
+    flipped, transposed weights are cached per version of ``w`` (so is
+    K8a's pack of them): a backward makes neither anew."""
 
     @staticmethod
     def forward(ctx, x, w, bias, relu):
@@ -183,12 +224,15 @@ class Conv3x3BiasActFn(torch.autograd.Function):
         if ctx.relu:
             g = torch.where(y > 0, g, 0.0)
         gin = g.to(x.dtype).contiguous()
-        w_t = w.flip(0, 1).transpose(2, 3)
-        zero_bias = torch.zeros(w.shape[2], dtype=torch.float32, device=w.device)
         if _FORCE:
-            dx = conv3x3_shift(gin, w_t, zero_bias, False)
+            w_t = _cached_pack(("K8a dx",), [w],
+                               lambda: w.flip(0, 1).transpose(2, 3))
+            dx = conv3x3_shift(gin, w_t, None, False)
             dw = conv3x3_shift_dw(x, gin)
         else:
+            w_t = w.flip(0, 1).transpose(2, 3)
+            zero_bias = torch.zeros(w.shape[2], dtype=torch.float32,
+                                    device=w.device)
             dx = _lax_conv(gin, w_t, zero_bias, False)
             dw = _lax_conv_dw(x, gin)
         return dx.to(x.dtype), dw.to(w.dtype), g.sum((0, 1, 2)), None

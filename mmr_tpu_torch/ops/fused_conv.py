@@ -222,7 +222,8 @@ def _cached_pack(tag, weights: list[torch.Tensor], make):
 
 
 # The Hopper kernels (``common.cuh``'s cp.async + wgmma mainloops: K3's dx
-# and dW, K6, K8) take their taps in one pack layout and write dW in another.
+# and dW, K6, K8a wider than the narrow tile) take their taps in one pack
+# layout and write dW in another.
 
 def _wg_tile(n: int, cap: int = 64) -> tuple[int, int]:
     """(N, np): the Hopper kernels' output-channel tile for ``n`` channels
@@ -632,6 +633,18 @@ def _stem_frags(w: torch.Tensor) -> torch.Tensor:
     wk = F.pad(w.reshape(k, cout).to(BF16), (0, 8 * nt - cout, 0, 16 * ks - k))
     return wk.reshape(ks, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3).reshape(
         ks, nt, 32, 4)
+
+
+def _narrow_frags(taps: torch.Tensor, k16: int, nf: int) -> torch.Tensor:
+    """(9, K, N) tap matrices -> the narrow tile's mma.sync B fragments
+    (k16, 9, 32, nf, 4) bf16 (``csrc/narrow_tile.cuh``), K padded to 16·k16
+    channels and N to 8·nf: lane 4g + q of (ks, tap) holds, for each n
+    fragment f, ``taps[tap, 16·ks + 2q + (0, 1, 8, 9), 8·f + g]`` — its
+    fragments of every f in 8·nf contiguous bytes."""
+    t, k, n = taps.shape
+    wk = F.pad(taps.to(BF16), (0, 8 * nf - n, 0, 16 * k16 - k))
+    return wk.reshape(t, k16, 2, 4, 2, nf, 8).permute(1, 0, 6, 3, 5, 2, 4) \
+        .reshape(k16, t, 32, nf, 4).contiguous()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

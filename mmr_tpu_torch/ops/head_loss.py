@@ -6,7 +6,9 @@ versions, the autograd function that joins them
 Counterparts of ``mmr_tpu/ops/pallas/packed_chain.py::fused_head_loss``
 (its custom VJP) and ``::assemble_dice_ce``. The head conv (3×3 + bias over
 the BN + relu pending top feature) and the loss statistics run in one
-kernel (``mmr_tpu_torch/csrc/head_loss.cu``): the NHWC logits and
+kernel (``mmr_tpu_torch/csrc/head_loss.cu``; K5a on the narrow tile of
+``csrc/narrow_tile.cuh``, its per-block rows added in a fixed order, so
+the statistics are the same bits on every launch): the NHWC logits and
 d(logits) never reach device memory, only the bf16 log-prob surface the
 backward re-reads. Per sample and class the forward sums
 ``[Σp, Σonehot, Σp·onehot, Σce]`` (p the per-pixel-stabilized softmax, ce
@@ -21,6 +23,8 @@ and count ``.launches``; the plain versions take ``dtype`` as in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -29,9 +33,9 @@ from mmr_tpu_torch.ops import _build
 from mmr_tpu_torch.ops.fused_conv import (ACTS, BF16, Pending, _cached_pack,
                                           _check_bias, _check_grad,
                                           _check_pending, _dx_taps,
-                                          _launch_device, _pack_taps,
-                                          _raise_on, _round, _stream,
-                                          _wg_tile, activated,
+                                          _launch_device, _narrow_frags,
+                                          _pack_taps, _raise_on, _round,
+                                          _stream, _wg_tile, activated,
                                           fused_conv_bwd_ref)
 
 
@@ -42,13 +46,30 @@ def _onehot(labels: torch.Tensor, nc: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------ K5a
 
-def _pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, c, nc) -> K5a's bf16 WMMA pack (chunks, 9, 16, 16): the
-    channels padded to 16-channel chunks, the classes to 16."""
-    c, nc = w.shape[2], w.shape[3]
-    nch = -(-c // 16)
-    wp = F.pad(w.to(BF16), (0, 16 - nc, 0, nch * 16 - c))
-    return wp.reshape(9, nch, 16, 16).permute(1, 0, 2, 3).contiguous()
+# the label types K5a reads as they come (the C entry's label kinds)
+LABEL_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
+
+
+def head_k16(c: int) -> int:
+    """K5a's 16-channel K steps at ``c`` input channels: one stage of 16
+    channels, or 32-channel chunks (two steps each) above 16."""
+    return 1 if c <= 16 else 2 * -(-c // 32)
+
+
+@functools.lru_cache(maxsize=64)
+def head_grid(n: int, h: int, w: int, cin: int, nc: int, label_kind: int,
+              device: int) -> dict:
+    """The persistent grid of K5a at these shapes on the current card
+    (``device``, its index, keys the cache), as its C entry sizes it from
+    the SM count and the occupancy: blocks (the rows of block sums it
+    writes), blocks a SM, SMs, dynamic shared memory (bytes), pixel tiles
+    and rows a tile."""
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().mmr_head_loss_fwd_grid(n, h, w, cin, nc,
+                                                  label_kind, out.data_ptr())
+    _raise_on(err, "head_loss_fwd grid")
+    return dict(zip(("blocks", "per_sm", "sms", "smem", "tiles", "rows"),
+                    out.tolist()))
 
 
 def head_loss_fwd_ref(x: Pending, w: torch.Tensor, bias: torch.Tensor,
@@ -108,16 +129,25 @@ def head_loss_fwd(x: Pending, w: torch.Tensor, bias: torch.Tensor,
 
     h, wd = x.raw.shape[1], x.raw.shape[2]
     f32 = dict(dtype=torch.float32, device=device)
-    wt = _cached_pack("K5a", [w], lambda: _pack_weights(w))
-    lab = labels.to(torch.int32).contiguous()
+    k16 = head_k16(x.c)
+    taps = _cached_pack(("K5a", k16), [w], lambda: _narrow_frags(
+        w.reshape(9, x.c, nc), k16, 2))
+    # uint8, int32 and int64 labels are read as they come; rarer integer
+    # types take one conversion
+    lab = labels if labels.dtype in LABEL_KINDS else labels.to(torch.int32)
+    lab = lab.contiguous()
+    kind = LABEL_KINDS[lab.dtype]
+    grid = head_grid(batch, h, wd, x.c, nc, kind, device.index)
+    part = torch.empty((grid["blocks"], batch * 64 + 256), **f32)
     logp = torch.empty((batch, h, wd, nc), dtype=BF16, device=device)
-    stats = torch.zeros((batch, 4, nc), **f32)
-    conf = torch.zeros((nc, nc), **f32)
+    stats = torch.empty((batch, 4, nc), **f32)
+    conf = torch.empty((nc, nc), **f32)
     err = _build.library().mmr_head_loss_fwd(
         x.raw.data_ptr(), x.scale.data_ptr(), x.shift.data_ptr(), ACTS[x.act],
-        x.c, wt.data_ptr(), bias.float().contiguous().data_ptr(),
-        lab.data_ptr(), logp.data_ptr(), stats.data_ptr(),
-        conf.data_ptr() if with_conf else None, batch, h, wd, nc, _stream())
+        x.c, taps.data_ptr(), bias.float().contiguous().data_ptr(),
+        lab.data_ptr(), kind, logp.data_ptr(), part.data_ptr(),
+        grid["blocks"], stats.data_ptr(), conf.data_ptr(), int(with_conf),
+        batch, h, wd, nc, _stream())
     _raise_on(err, "head_loss_fwd")
     head_loss_fwd.launches += 1
     return logp, stats, conf

@@ -16,7 +16,8 @@ max|ref| and ‖Δ‖ / ‖ref‖ both < 1e-2 — both sides read the same bf16
 inputs and round at the same places; summation order (K3 adds block
 partials by atomics, K4 and K5b in a fixed order) and one bf16 rounding
 of dx remain, so a dropped tap or a lost correction term fails. K2, K4,
-K5b, K6b and K8b give bit-equal results on a second launch. The confusion
+K5a's statistics, K5b, K6b and K8b give bit-equal results on a second
+launch. The confusion
 kernel counts in integers: exact.
 """
 
@@ -379,22 +380,58 @@ def test_k2_k4_launch_in_any_order(dev):
                 _grad_close("dx", got[0], want[0])
 
 
-@pytest.mark.parametrize("hw,batch,nc", [((20, 40), 2, 3), ((512, 640), 8, 10)])
-def test_k5_head_loss(dev, hw, batch, nc):
+# (H, W), batch, classes, input channels, with_conf, label type: the
+# flagship's shape, then ragged H and W (tiles cut by the image's edge), n
+# = 3, nc 1 .. 16, cin 8, 24 and 48 (two 32-channel chunks), labels in
+# every type the kernel reads, with ids outside [0, nc) among them
+K5_CASES = [((20, 40), 2, 3, 16, True, torch.int64),
+            ((512, 640), 8, 10, 16, True, torch.int64),
+            ((9, 70), 3, 10, 16, True, torch.uint8),
+            ((20, 136), 3, 16, 16, False, torch.int32),
+            ((20, 136), 2, 1, 16, True, torch.int64),
+            ((9, 70), 3, 3, 16, False, torch.int64),
+            ((9, 70), 2, 10, 8, True, torch.int32),
+            ((20, 136), 3, 10, 24, True, torch.uint8),
+            ((20, 136), 2, 16, 48, True, torch.int64),
+            ((13, 80), 3, 1, 24, False, torch.int32),
+            ((13, 80), 2, 3, 48, False, torch.uint8),
+            ((9, 70), 3, 16, 8, True, torch.int64)]
+
+
+@pytest.mark.parametrize("hw,batch,nc,cin,with_conf,ldt", K5_CASES)
+def test_k5_head_loss(dev, hw, batch, nc, cin, with_conf, ldt):
+    """K5a against its plain version (logp 2e-2, stats rtol 2e-2 / atol 1e-3
+    of the largest, conf within 1e-3 of its total: a near tie may flip an
+    argmax), conf zero without with_conf, the labelled pixels counted
+    exactly, stats and conf bit-equal on a second launch; then K5b on its
+    log-probs where it takes the input (cin <= 32)."""
     g = torch.Generator(device=dev).manual_seed(5)
-    c = 16
-    x = Pending(_rand(g, dev, batch, *hw, c, dtype=torch.bfloat16),
-                torch.rand(c, device=dev, generator=g) + 0.5,
-                _rand(g, dev, c, scale=0.3), "relu")
-    w = _rand(g, dev, 3, 3, c, nc, scale=0.3)
+    x = Pending(_rand(g, dev, batch, *hw, cin, dtype=torch.bfloat16),
+                torch.rand(cin, device=dev, generator=g) + 0.5,
+                _rand(g, dev, cin, scale=0.3), "relu")
+    w = _rand(g, dev, 3, 3, cin, nc, scale=0.3 * (16 / cin) ** 0.5)
     bias = _rand(g, dev, nc, scale=0.1)
-    labels = torch.randint(0, nc, (batch, *hw), device=dev, generator=g)
-    logp, stats, conf = head_loss_fwd(x, w, bias, labels)
-    logp_r, stats_r, conf_r = head_loss_fwd_ref(x, w, bias, labels)
+    labels = torch.randint(-1, nc, (batch, *hw), device=dev, generator=g)
+    if ldt == torch.uint8:
+        labels = torch.where(labels < 0, 255, labels)
+    labels = labels.to(ldt)
+    before = head_loss_fwd.launches
+    logp, stats, conf = head_loss_fwd(x, w, bias, labels, with_conf)
+    assert head_loss_fwd.launches == before + 1
+    logp_r, stats_r, conf_r = head_loss_fwd_ref(x, w, bias, labels, with_conf)
     _close(logp, logp_r)
     torch.testing.assert_close(stats, stats_r, rtol=2e-2, atol=1e-3 * stats_r.abs().max().item())
-    assert (conf - conf_r).abs().sum().item() <= 1e-3 * conf_r.sum().item()
-    assert conf.sum().item() == batch * hw[0] * hw[1]
+    labelled = ((labels.long() >= 0) & (labels.long() < nc)).sum().item()
+    if with_conf:
+        assert (conf - conf_r).abs().sum().item() <= 1e-3 * conf_r.sum().item()
+        assert conf.sum().item() == labelled
+    else:
+        assert not conf.any()
+    again = head_loss_fwd(x, w, bias, labels, with_conf)
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], stats) and torch.equal(again[2], conf)
+    if cin > 32:
+        return
     dstats = _rand(g, dev, batch, 4, nc, scale=1e-4)
     dstats[:, 3] = 1.0 / labels.numel()
     before = head_loss_bwd.launches
@@ -597,9 +634,12 @@ def test_path_a_train_and_eval_on_card(dev):
 # of the 8-row block), cout 1 .. 2 fragments, the 16 -> 16 shape the TPU
 # kernel was written for (conv3x3.py:4-7) at a smaller batch and at its
 # own (more pixel tiles than the dW grid has blocks), and dW's wide modes
+# (K8a's convs above 32 channels on K6a's kernel); last, a narrow-tile
+# case at a ragged width with 4-byte staging (cin 12) and 20 outputs
 K8_CONVS = [(2, 21, 30, 3, 16), (2, 16, 32, 8, 8), (1, 40, 24, 16, 24),
             (2, 34, 50, 24, 16), (4, 512, 512, 16, 16), (2, 17, 136, 10, 5),
-            (32, 512, 512, 16, 16), (2, 19, 80, 72, 64), (2, 9, 136, 40, 24)]
+            (32, 512, 512, 16, 16), (2, 19, 80, 72, 64), (2, 9, 136, 40, 24),
+            (3, 21, 70, 12, 20)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", K8_CONVS)
@@ -662,6 +702,24 @@ def test_k8_bias_act_force_dispatch(dev, dtype, monkeypatch):
             gin, w.flip(0, 1).transpose(2, 3), torch.zeros(16, device=dev)))
         _grad_close("dw", w.grad, k8.conv3x3_shift_dw_ref(x, gin))
         _grad_close("dbias", bias.grad, gm.sum((0, 1, 2)))
+
+
+def test_k8a_launch_in_any_order(dev):
+    """A K8a launch does not depend on the launches before it: narrow-tile
+    launches (each kernel's shared memory and attributes set on its own
+    launch), launches on K6a's kernel, bf16 and f32 storage, mixed."""
+    from mmr_tpu_torch.ops.conv3x3 import conv3x3_shift, conv3x3_shift_ref
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    for cin, cout, dtype in [(16, 16, torch.bfloat16), (72, 64, torch.bfloat16),
+                             (3, 16, torch.float32), (24, 16, torch.bfloat16),
+                             (16, 24, torch.float32), (40, 24, torch.bfloat16),
+                             (5, 5, torch.bfloat16), (32, 32, torch.bfloat16),
+                             (16, 16, torch.float32), (16, 16, torch.bfloat16)]:
+        x = _rand(g, dev, 2, 18, 70, cin, dtype=dtype)
+        w = _rand(g, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        bias = _rand(g, dev, cout, scale=0.5)
+        _close(conv3x3_shift(x, w, bias, True), conv3x3_shift_ref(x, w, bias, True))
 
 
 # K6b's and K8b's narrow inputs (mma.sync: cin <= 32) against every output

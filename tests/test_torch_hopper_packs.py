@@ -6,7 +6,8 @@ chunks, ``_concat_taps``), the 16 combined taps of a lazily ×2-upsampled
 input's source-resolution dx as bf16 pairs hi + lo (``_up2_taps``), the dW
 layout of K3 (``_unpack_dw_wg``), K6b's and K8b's own dW partition
 (``conv3x3.cu``'s ``conv3x3_dw_kernel``), K5b's per-block sums and their
-reduction, the
+reduction, the narrow tile's mma.sync B fragments (``_narrow_frags``) and
+K5a's per-block statistics and their reduction, the
 stride-2 pair's tiles (``_down_tiles``), dense K2's mma.sync B fragments
 (``_stem_frags``) and patch matrix, and K2's and K4's per-block sums and
 their reduction, and the packs' cache per weight version
@@ -38,15 +39,17 @@ from mmr_tpu_torch.ops.conv3x3_packed import conv3x3_dw_ref, conv3x3_ref
 from mmr_tpu_torch.ops.fused_conv import (BF16, DOWN_TILE, Pending,
                                           _cached_pack, _concat_taps,
                                           _corrected_dy, _down_tiles,
-                                          _dx_packs, _dx_taps, _pack_taps,
-                                          _prologue_bwd, _stem_frags,
+                                          _dx_packs, _dx_taps, _narrow_frags,
+                                          _pack_taps, _prologue_bwd,
+                                          _stem_frags,
                                           _unpack_dw_wg, _up2_taps, _wg_tile,
                                           act_grad, activated,
                                           fused_conv_bwd_ref,
                                           fused_conv_down_bwd_ref,
                                           fused_conv_down_ref, fused_conv_ref,
                                           moments)
-from mmr_tpu_torch.ops.head_loss import dlogits_ref, head_loss_bwd_ref
+from mmr_tpu_torch.ops.head_loss import (dlogits_ref, head_loss_bwd_ref,
+                                         head_loss_fwd_ref)
 from mmr_tpu_torch.ops.resize import upsample2x
 from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
@@ -436,6 +439,123 @@ def test_k5b_block_sums_reduce_to_plain(rng):
     for g, want in zip(got, [dw_r, db_r, ds_r, dt_r]):
         assert _rel(g, want)[0] < 1e-5
     assert _within_bf16(dx, dx_r)
+
+
+def _seq_sum(t, dim):
+    """Sum over ``dim`` in index order, one f32 addition at a time."""
+    acc = torch.zeros_like(t.select(dim, 0))
+    for i in range(t.shape[dim]):
+        acc = acc + t.select(dim, i)
+    return acc
+
+
+def _tree_sum(t):
+    """The xor-shuffle butterfly over the last dim (8 lanes): pairwise."""
+    while t.shape[-1] > 1:
+        t = t[..., 0::2] + t[..., 1::2]
+    return t[..., 0]
+
+
+def _k5a_rows(logits, labels, blocks, rows=12):
+    """K5a's block rows (``narrow_head_kernel`` at cin <= 16): tiles of 12
+    rows x 64 pixels, in (sample, row, column) order, block i taking tiles
+    i, i + blocks, ...; warp w the 16-pixel column segment w % 4 of tile
+    rows 6 (w // 4) .. 6 (w // 4) + 5; lane 4g + q classes 2q, 2q + 1, 8 +
+    2q, 9 + 2q of pixels g, g + 8 of each m-tile. Per pixel the quad's sum of
+    exponentials (each lane's 4 in order, then the quad pairwise); per lane
+    its classes' sums over the tile (m-tiles, then the two pixels, in
+    order), pairwise over the 8 pixel lanes, the 8 warps in order, into the
+    sample's row: (blocks, n, 4, 16) f32. Also the block's confusion counts
+    (blocks, 16, 16)."""
+    n, h, wd, nc = logits.shape
+    v = F.pad(logits, (0, 16 - nc))
+    on = torch.arange(16) < nc
+    m = v.masked_fill(~on, -torch.inf).amax(-1, keepdim=True)
+    z = torch.where(on, torch.exp(v - m), 0.0)
+    lanes = torch.stack([_seq_sum(z[..., [2 * q, 2 * q + 1, 8 + 2 * q, 9 + 2 * q]], -1)
+                         for q in range(4)], -1)
+    tot = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+    lse = torch.log(tot) + m
+    pr = torch.where(on, z / tot, 0.0)
+    oh = labels.long()[..., None] == torch.arange(16)
+    vals = torch.stack([pr, oh.float(), pr * oh, torch.where(oh, lse - v, 0.0)], -2)
+    ty, tx = -(-h // rows), -(-wd // 64)
+    vals = F.pad(vals, (0, 0, 0, 0, 0, 64 * tx - wd, 0, rows * ty - h))
+    # (n, ty, wr, i, tx, seg, h, g, 4, 16): tile row (rows / 2) wr + i,
+    # column 16 seg + 8 h + g
+    vals = vals.reshape(n, ty, 2, rows // 2, tx, 4, 2, 8, 4, 16)
+    # each lane: its m-tiles in order, the two pixels of each in order
+    lane = _seq_sum(vals.permute(0, 1, 2, 4, 5, 7, 8, 9, 3, 6).reshape(
+        n, ty, 2, tx, 4, 8, 4, 16, rows), -1)
+    lane = lane.permute(0, 1, 3, 2, 4, 6, 7, 5)       # (n, ty, tx, wr, seg, 4, 16, g)
+    warp = _tree_sum(lane).reshape(n, ty, tx, 8, 4, 16)
+    tile = _seq_sum(warp, 3)                          # the warps in order
+    pred = v.masked_fill(~on, -torch.inf).argmax(-1)
+    ok = (labels >= 0) & (labels < nc)
+    out = torch.zeros(blocks, n, 4, 16)
+    conf = torch.zeros(blocks, 16, 16, dtype=torch.int64)
+    t = 0
+    for b in range(n):
+        for y in range(ty):
+            for x in range(tx):
+                out[t % blocks, b] = out[t % blocks, b] + tile[b, y, x]
+                sl = (b, slice(rows * y, rows * y + rows), slice(64 * x, 64 * x + 64))
+                conf[t % blocks].index_put_((pred[sl][ok[sl]], labels[sl][ok[sl]].long()),
+                                            torch.tensor(1), accumulate=True)
+                t += 1
+    return out, conf
+
+
+def test_k5a_block_rows_reduce_to_plain(rng):
+    """K5a's per-block rows on a ragged image (H = 29, W = 150: tiles cut by
+    both edges), from the plain version's logits, added over the rows in
+    ``head_rows_reduce_kernel``'s order (row phases, each in row order,
+    then the phases in order), give ``head_loss_fwd_ref``'s statistics
+    within 1e-5 of the largest and its confusion exactly."""
+    n, h, wd, c, nc, blocks = 2, 29, 150, 16, 10, 5
+    x = Pending(torch.from_numpy(rng.randn(n, h, wd, c)).to(BF16),
+                torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5),
+                torch.from_numpy(rng.randn(c).astype(np.float32) * 0.3), "relu")
+    w = torch.from_numpy(rng.randn(3, 3, c, nc).astype(np.float32) * 0.3)
+    bias = torch.from_numpy(rng.randn(nc).astype(np.float32) * 0.1)
+    labels = torch.from_numpy(rng.randint(-1, nc + 1, (n, h, wd)))
+    logits = F.conv2d(activated(x).permute(0, 3, 1, 2),
+                      w.to(BF16).float().permute(3, 2, 0, 1), bias,
+                      padding=1).permute(0, 2, 3, 1)
+    rows, conf = _k5a_rows(logits, labels, blocks)
+    phases = 1
+    while phases < 32 and blocks > 16 * phases:
+        phases *= 2
+    stats = _seq_sum(torch.stack([_seq_sum(rows[k::phases], 0)
+                                  for k in range(phases)]), 0)[:, :, :nc]
+    _, stats_r, conf_r = head_loss_fwd_ref(x, w, bias, labels)
+    assert (stats - stats_r).abs().max() <= 1e-5 * stats_r.abs().max()
+    assert torch.equal(conf.sum(0)[:nc, :nc].float(), conf_r)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 10), (24, 32), (48, 16)])
+def test_narrow_frags_layout(rng, cin, cout):
+    """The narrow tile's B fragments (``_narrow_frags``) read back lane by
+    lane give the tap matrices, zero padded; their conv (9 shifted
+    products) is ``conv3x3_ref``'s."""
+    k16 = 1 if cin <= 16 else 2 * -(-cin // 32)
+    nf = 2 if cout <= 16 else 4
+    w = _bf16_valued(rng.randn(3, 3, cin, cout))
+    frags = _narrow_frags(w.reshape(9, cin, cout), k16, nf)
+    assert frags.shape == (k16, 9, 32, nf, 4) and frags.dtype == BF16
+    taps = torch.zeros(9, 16 * k16, 8 * nf)
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for f in range(nf):
+            for j, dk in enumerate((0, 1, 8, 9)):
+                taps[:, torch.arange(k16) * 16 + 2 * q + dk, 8 * f + g] = \
+                    frags[:, :, lane, f, j].T.float()
+    assert torch.equal(taps[:, :cin, :cout], w.reshape(9, cin, cout))
+    assert not taps[:, cin:].any() and not taps[:, :, cout:].any()
+    x = _bf16_valued(rng.randn(2, 9, 13, cin))
+    got = _conv_taps(x, taps[:, :cin, :cout])
+    assert (got - conv3x3_ref(x.to(BF16), w, dtype=F32)).abs().max() <= \
+        1e-5 * got.abs().max()
 
 
 def test_pack_cache_follows_weight_versions(rng):
