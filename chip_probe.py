@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K5a and K8a of the port found under a tree, on one NVIDIA card.
+"""Time K5a, K7 and K8a of the port found under a tree, on one NVIDIA card.
 
-    python3 chip_probe.py TREE [--k5-only] [--no-hold]
+    python3 chip_probe.py TREE [--only K5a|K7|K8a|eval ...] [--no-hold]
 
 TREE holds an ``mmr_tpu_torch`` package: this checkout (``.``) or another
 version of it unpacked beside (``git archive <commit> mmr_tpu_torch``), so
@@ -16,9 +16,20 @@ directory. Measured:
   (unless ``--no-hold``: builds cut down to find what bounds a kernel
   compute wrong values), timed with its wrapper (CUDA events), from a CUDA
   graph's replays, and split by device kernel;
+- K7 (``confusion_stats``) at phase 8's launch (4×256×256 int64 argmax
+  ids against uint8 masks, 10 classes) and on a 1080×1920 pair of uint8
+  ids against int64 masks: held exactly, timed with its wrapper, from a
+  CUDA graph's replays, and split by device event (the counting kernel,
+  and where a version has them its memset and its finalize kernel);
 - K8a (``conv3x3_shift``, forward and dx under ``conv3x3_bias_act``) at
   ``chip_smoke.py``'s phase-10 shapes, held, timed, split and replayed
-  from a CUDA graph (not with ``--k5-only``).
+  from a CUDA graph;
+- the Path-A eval batch (``eval``): ``evaluate_checkpoint`` of an
+  ``smp_UNet++`` (random weights, BN perturbed) over one 4×256×256 batch
+  with the blended loss: median, host issue, device busy and idle share
+  (``chip_smoke.py``'s ``_timed_steps``).
+
+``--only`` picks what is timed (all four by default).
 
 A package older than the narrow tile (``head_loss.head_grid`` missing) has
 its kernels named by their own device names (``head_loss_fwd_kernel``,
@@ -34,10 +45,79 @@ import sys
 import time
 
 
+def k7_probe(cs, tree, dev, no_hold):
+    """K7 at phase 8's launch and on a full-HD pair: the masks rendered as
+    ``chip_smoke.py`` renders them, the ids the masks with a tenth of the
+    pixels redrawn in [0, nc]."""
+    import numpy as np
+    import torch
+
+    from mmr_tpu_torch.data.synthetic import render_frame
+    from mmr_tpu_torch.ops import confusion
+
+    rng = np.random.RandomState(11)
+    nc = cs.N_CLASSES
+
+    def maps(n, h, w, pred_dt, gt_dt):
+        gt = np.stack([render_frame(rng, h, w, nc - 1)[1] for _ in range(n)])
+        pred = np.where(rng.rand(*gt.shape) < 0.1,
+                        rng.randint(0, nc + 1, gt.shape), gt)
+        return (torch.from_numpy(pred).to(dev, pred_dt),
+                torch.from_numpy(gt).to(dev, gt_dt))
+
+    for label, (pred, gt) in (
+            ("phase 8", maps(cs.EVAL_BATCH, *cs.PATH_A_HW, torch.int64, torch.uint8)),
+            ("1080x1920", maps(1, *cs.FRAME, torch.uint8, torch.int64))):
+        kw = dict(pred_ids=pred, gt_ids=gt, num_classes=nc)
+        out = confusion.confusion_stats(**kw)
+        if not no_hold:
+            cs._hold("K7", out, confusion.confusion_stats_ref(**kw))
+        ops, nbytes, peak = cs._work("K7", kw, out)
+        case = {"kind": "K7", "label": label, "args": kw, "max_abs": 0.0,
+                "ops_ms": ops / peak * 1e3, "bytes_ms": nbytes / cs.PEAK_BYTES * 1e3}
+        cs.time_cases("K7", [case])
+        gms = cs.graph_ms(lambda: confusion.confusion_stats(**kw))
+        print(f"[{tree}] K7 {label} {tuple(pred.shape)} {str(pred.dtype)[6:]} / "
+              f"{str(gt.dtype)[6:]}: {case['ms']:.4f} ms with the wrapper, "
+              f"{gms:.4f} ms a call from a CUDA graph", flush=True)
+        cs.device_split("K7", [case], "K7")
+
+
+def eval_probe(cs, tree, dev):
+    """The Path-A eval batch, phase 8's timing of it."""
+    import contextlib
+    import functools
+    import io
+
+    import numpy as np
+    import torch
+
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.losses import blended_ce_dice_loss
+    from mmr_tpu_torch.models import create_model
+
+    gen = torch.Generator().manual_seed(1)
+    model = create_model("smp_UNet++", classes=cs.N_CLASSES, device=dev, generator=gen)
+    cs.perturb(model, gen)
+    batch = cs._path_a_batch(np.random.RandomState(2), cs.EVAL_BATCH)
+    loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate_checkpoint(model, [batch], cs.N_CLASSES, loss_fn=loss_fn,
+                                device=dev)
+
+    run()
+    med = cs._timed_steps(f"{tree} eval", run, 10)
+    print(f"[{tree}] Path-A eval batch {cs.EVAL_BATCH}x{cs.PATH_A_HW[0]}x"
+          f"{cs.PATH_A_HW[1]}: median {med:.3f} ms", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="directory holding the mmr_tpu_torch package")
-    ap.add_argument("--k5-only", action="store_true", help="K5a only")
+    ap.add_argument("--only", nargs="+", choices=("K5a", "K7", "K8a", "eval"),
+                    default=("K5a", "K7", "K8a", "eval"), help="what to time")
     ap.add_argument("--no-hold", action="store_true",
                     help="time without holding against the plain version")
     args = ap.parse_args()
@@ -80,7 +160,7 @@ def main() -> int:
     wt = 0.3 * torch.randn(3, 3, c, nc, device=dev, generator=g)
     bias = 0.1 * torch.randn(nc, device=dev, generator=g)
     labels = torch.randint(0, nc, (b, h, w), device=dev, generator=g)
-    for conf in (True, False):
+    for conf in (True, False) if "K5a" in args.only else ():
         kw = dict(x=x, w=wt, bias=bias, labels=labels, with_conf=conf)
         if not args.no_hold:
             with torch.no_grad():
@@ -91,10 +171,13 @@ def main() -> int:
               f"{gms:.4f} ms a call from a CUDA graph", flush=True)
         cs.device_split("K5a", [{"kind": "K5a", "label": f"conf={conf}",
                                  "args": kw, "ms": ms}], "K5a")
-    if args.k5_only:
-        return 0
+    if "K7" in args.only:
+        k7_probe(cs, tree, dev, args.no_hold)
+    if "eval" in args.only:
+        eval_probe(cs, tree, dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for dtype, shape in [(torch.bfloat16, cs.K8_SHAPE)] + cs.K8_EXTRA:
+    k8 = [(torch.bfloat16, cs.K8_SHAPE)] + cs.K8_EXTRA if "K8a" in args.only else []
+    for dtype, shape in k8:
         recs, _ = cs._k8_run(dev, gen, dtype, shape)
         if args.no_hold:
             cases = []

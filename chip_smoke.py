@@ -70,9 +70,13 @@ front-end and head + loss).
    loss falls); step median, host issue, device busy, top device events.
 8. Path-A evaluation: ``evaluate_checkpoint`` of that model over three
    synthetic 4×256×256 batches (uint8 masks): every K7 launch
-   (``confusion_stats``) equals its plain version exactly, every K6a
-   launch within 2e-2 (17 per forward); the returned mean IoU equals the
-   one from the plain K7 on the same id maps.
+   (``confusion_stats``, adding into ``Evaluate``'s running total) equals
+   its plain version exactly, every K6a launch within 2e-2 (17 per
+   forward); the returned mean IoU equals the one from the plain K7 on the
+   same id maps. 8b. K7 alone at a full-HD uint8 / int64 pair, int32
+   maps, 128 classes with ids outside [0, nc) and views one byte into
+   their storage: exact, f32 stats and running totals, bit-equal on a
+   second launch.
 
 9. The rest of the Path-A zoo at full width, 10 classes, random weights
    from ``--seed``, BN perturbed: ``smp_unet18``, ``smp_DeepLabV3+``,
@@ -91,6 +95,14 @@ front-end and head + loss).
     beside their bound, plain and library calls; then an f32-storage case
     and one with H not a multiple of 16, held and timed; each K8a launch
     (forward, dx) split by device kernel with its persistent grid.
+11. Path A through its two CLIs: 16 train and 8 val 256×256 synthetic
+    frames written as PNGs by ``data/png.py``; ``cli.train_path_a.main``
+    for 2 epochs (``smp_UNet++``, batches 8 / 4), ``cli.eval_path_a.main``
+    on its ``best_f1`` checkpoint: exit codes, the log, checkpoint, curves
+    and triptychs, launch counts (the trainer's K6a / K6b, one K7 a val
+    batch), the mean IoU against the plain K7's, the evaluator's model
+    against its checkpoint; the evaluation's images/s, host issue and
+    device busy.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -98,13 +110,15 @@ K6b and K8b, ``torch.bincount`` on ``gt·C + pred`` for K7; never used by
 the port). Those times are of each launch repeated alone, wrapper (weight
 packs, cached per weight version for K1, K2, K4, K5 and K8a) included; phases
 5–10 also print the device time of K1 and K2 (serve, train), K3, K4, K5a,
-K5b, K6a, K6b (phases 7 and 9), K8a and K8b (phase 10) by part
+K5b, K6a, K6b (phases 7 and 9), K7 (phase 8), K8a and K8b (phase 10) by part
 (``device_split``: ``torch.profiler`` time of the kernels alone — K2's
 dense and depthwise kernels and their moments' reduction; K3's dy prep,
 dW, dx and the source-resolution dx of lazily ×2 inputs; K4's dense and
 depthwise kernels and their reduction; K5a's head kernel and its rows'
 reduction; K5b's dx + dW kernel and its reduction; K6a's and K8a's
-forward and dx; K6b's and K8b's dW kernel and its reduction), per launch
+forward and dx; K6b's and K8b's dW kernel and its reduction; K7's one
+kernel, with a memset and a finalize kernel where a version has them),
+per launch
 and summed,
 beside the share of the wrapper-included time that is host work; phases 5
 and 6 also time every K1 launch at each output-channel tile it can take
@@ -313,8 +327,9 @@ def _in_backward() -> bool:
 def recording():
     """Stand a recorder in for every kernel wrapper, wherever the port binds
     it. Each call is kept as (kind, its arguments by name, its outputs,
-    whether a backward made it), cloned: the optimizer updates the weights
-    in place. A wrapper counts its launches under its module-level name, so
+    whether a backward made it), cloned (the arguments as the call found
+    them): the optimizer updates the weights in place, and K7 adds into a
+    running total. A wrapper counts its launches under its module-level name, so
     while the recorder stands there they land on the recorder's
     ``launches``, which starts at 0. Yields (records, {kind: recorder})."""
     records, recorders, saved = [], {}, []
@@ -323,12 +338,13 @@ def recording():
         sig = inspect.signature(fn)
 
         def wrapped(*a, _fn=fn, _kind=kind, _sig=sig, **kw):
-            out = _fn(*a, **kw)
             args = _sig.bind(*a, **kw)
             args.apply_defaults()
             with torch.inference_mode(False):   # clones that keep versions
-                records.append((_kind, _clone(args.arguments), _clone(out),
-                                _in_backward()))
+                before = _clone(args.arguments)  # K7 adds into its total
+            out = _fn(*a, **kw)
+            with torch.inference_mode(False):
+                records.append((_kind, before, _clone(out), _in_backward()))
             return out
         wrapped.launches = 0
         recorders[kind] = wrapped
@@ -562,20 +578,23 @@ PARTS = {
     "K8a": {"narrow_conv_kernel": None},
     "K6b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
     "K8b": {"conv3x3_dw_kernel": "dW", "dw_rows_reduce_kernel": "reduce"},
+    "K7": {"confusion_kernel": "count", "finalize_kernel": "finalize",
+           "Memset": "memset"},
 }
 
 
 def graph_ms(fn, reps: int = 20) -> float:
     """Device ms a call of ``fn`` without the profiler: CUDA events around
     ``reps`` back-to-back replays of one CUDA graph of it (no host work
-    between the launches)."""
+    between the launches), warmed up and captured on one side stream (a
+    wrapper's per-stream scratch is then made before the capture)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
         fn()
     graph.replay()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1059,7 +1078,6 @@ def path_a_eval_phase(model, dev, seed) -> dict:
     """Phase 8; returns {K6a, K7: kernel entry}."""
     from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
     from mmr_tpu_torch.losses import blended_ce_dice_loss
-    from mmr_tpu_torch.ops.confusion import confusion_stats_ref
 
     rng = np.random.RandomState(seed + 2)
     batches = [_path_a_batch(rng, EVAL_BATCH) for _ in range(EVAL_BATCHES)]
@@ -1075,13 +1093,7 @@ def path_a_eval_phase(model, dev, seed) -> dict:
           "unexpected launch counts")
     cases = hold_records(8, records)
 
-    counts = np.zeros((3, N_CLASSES), np.float64)
-    for k, args, *_ in records:
-        if k == "K7":
-            counts += np.stack([t.cpu().double().numpy()
-                                for t in confusion_stats_ref(**args)])
-    per_class = counts[0] / (counts.sum(0) + 1e-15)
-    miou = float(per_class.mean())
+    miou = plain_k7_miou(records)
     print(f"[8] mean IoU {report['mean_iou']:.6f} (plain K7: {miou:.6f}), "
           f"mean F1 {report['mean_f1']:.6f}, loss {report['loss']:.5f}", flush=True)
     check(report["mean_iou"] == miou, "mean IoU differs from the plain K7's")
@@ -1097,12 +1109,66 @@ def path_a_eval_phase(model, dev, seed) -> dict:
           f"({EVAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
     first = cases[:K6_PER_FORWARD] + [c for c in cases if c["kind"] == "K7"][:1]
     time_cases(8, first)
-    split = device_split(8, first, "K6a")
     per = (f"sum over the launches of one eval batch ({EVAL_BATCH}x{PATH_A_HW[0]}x"
            f"{PATH_A_HW[1]}); launches over {EVAL_BATCHES} batches")
     out = {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
-    out["K6a"]["device_ms"] = split
+    for k in ("K6a", "K7"):
+        out[k]["device_ms"] = device_split(8, first, k)
     return out
+
+
+def plain_k7_miou(records) -> float:
+    """Mean IoU of the recorded K7 launches' maps, counted by the plain K7
+    as ``Evaluate`` adds them (f64 sums, its epsilon)."""
+    from mmr_tpu_torch.ops.confusion import confusion_stats_ref
+
+    counts = np.zeros((3, N_CLASSES), np.float64)
+    for k, args, *_ in records:
+        if k == "K7":
+            counts += np.stack([t.cpu().double().numpy() for t in confusion_stats_ref(
+                args["pred_ids"], args["gt_ids"], args["num_classes"])])
+    return float((counts[0] / (counts.sum(0) + 1e-15)).mean())
+
+
+# K7 at other shapes and kinds: (shape, pred kind, gt kind, classes, the
+# elements of storage before both maps: views not 16-byte aligned if not 0)
+K7_HOLDS = [((1, 1080, 1920), torch.uint8, torch.int64, 10, 0),
+            ((4, 256, 256), torch.int32, torch.int32, 10, 0),
+            ((2, 300, 200), torch.int64, torch.uint8, 128, 0),
+            ((262139,), torch.uint8, torch.uint8, 10, 1)]
+
+
+def k7_hold_phase(dev, seed):
+    """Phase 8b: K7 held exactly against its plain version at a full-HD
+    uint8 / int64 pair, int32 maps, 128 classes with ids outside [0, nc),
+    and views that start one byte into their storage with n no multiple of
+    16; f32 stats and a running total, each bit-equal on a second launch."""
+    from mmr_tpu_torch.ops.confusion import confusion_stats, confusion_stats_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def ids(shape, dt, nc, off):
+        n = math.prod(shape)
+        a = torch.randint(0 if dt == torch.uint8 else -2, nc + 3, (off + n,),
+                          device=dev, generator=g)
+        return a.to(dt)[off:].view(shape)
+
+    for shape, pdt, gdt, nc, off in K7_HOLDS:
+        pred, gt = ids(shape, pdt, nc, off), ids(shape, gdt, nc, off)
+        half = pred.numel() // 2
+        gt.view(-1)[:half] = pred.reshape(-1)[:half].to(gdt)   # agreements
+        want = torch.stack(confusion_stats_ref(pred, gt, nc))
+        got = [torch.stack(confusion_stats(pred, gt, nc)) for _ in range(2)]
+        totals = [confusion_stats(pred, gt, nc,
+                                  total=torch.zeros((3, nc), dtype=torch.int64, device=dev))
+                  for _ in range(2)]
+        check(all(torch.equal(t, want) for t in got)
+              and all(torch.equal(t, want.long()) for t in totals),
+              f"K7 {tuple(pred.shape)} {pdt} / {gdt}, nc {nc}: differs from its "
+              "plain version or between launches")
+        print(f"[8b] K7 {tuple(pred.shape)} {str(pdt)[6:]} / {str(gdt)[6:]}, nc {nc}, "
+              f"{off} element(s) into storage: exact, bit-equal on a second "
+              f"launch ({int(want[0].sum())} tp)", flush=True)
 
 
 # ------------------------------------------------------------- the zoo
@@ -1261,6 +1327,136 @@ def k8_phase(dev, seed) -> dict:
     out["K8a"]["device_ms"] = split_a
     out["K8b"]["device_ms"] = split
     return out
+
+
+# ------------------------------------------------- Path A through its CLIs
+
+CLI_TRAIN, CLI_VAL, CLI_EPOCHS, CLI_BATCH, CLI_VAL_BATCH = 16, 8, 2, 8, 4
+
+
+def path_a_cli_phase(dev, seed) -> None:
+    """Phase 11: Path A end to end through its two CLIs. 16 train and 8 val
+    256×256 frames rendered by ``data/synthetic.py`` and written as PNGs
+    by ``data/png.py``; ``cli.train_path_a.main`` for 2 epochs
+    (``smp_UNet++``, batches 8 / 4), then ``cli.eval_path_a.main`` on its
+    ``best_f1`` checkpoint with ``--save_dir``. Checks: both exit 0; the
+    log, the checkpoint, the curves and the triptychs exist and decode;
+    the trainer's K6a / K6b launches are the code's (34 K6a + 17 K6b a
+    step, 17 K6a a validation, heavy-metric and sample forward), the
+    evaluator's one K7 a val batch; the evaluator's mean IoU equals the
+    plain K7's on the recorded maps; its model gives the logits of the
+    checkpoint loaded into a fresh bf16 model (phase 8's 2e-2). Prints the
+    evaluation's images/s, host issue and device busy."""
+    import tempfile
+
+    from mmr_tpu_torch.cli import eval_path_a, train_path_a
+    from mmr_tpu_torch.data import png
+    from mmr_tpu_torch.data.png_dataset import PngFolderDataset
+    from mmr_tpu_torch.data.synthetic import render_frame
+    from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
+    from mmr_tpu_torch.models import create_model
+
+    rng = np.random.RandomState(seed + 6)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, run, out = (f"{tmp}/{d}" for d in ("data", "run", "eval"))
+        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+            for i in range(n):
+                img, mask = render_frame(rng, *PATH_A_HW, N_CLASSES - 1)
+                png.write(f"{root}/{split}/images/f{i:03d}.png",
+                          (img * 255.0 + 0.5).astype(np.uint8))
+                png.write(f"{root}/{split}/groundtruth/f{i:03d}.png", mask)
+        hw = ["--resizedHeight", str(PATH_A_HW[0]), "--resizedWidth", str(PATH_A_HW[1]),
+              "--device", str(dev)]
+        for kind in KERNELS:
+            wrapper(kind).launches = 0
+        t0 = time.perf_counter()
+        rc = train_path_a.main([
+            "--data_dir", root, "--model", "smp_UNet++", "--epochs", str(CLI_EPOCHS),
+            "--trainBatchSize", str(CLI_BATCH), "--valBatchSize", str(CLI_VAL_BATCH),
+            "--save_dir", run, "--seed", str(seed), *hw])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: wrapper(k).launches for k in KERNELS}
+        steps = CLI_EPOCHS * (CLI_TRAIN // CLI_BATCH)
+        forwards = CLI_EPOCHS * (CLI_VAL // CLI_VAL_BATCH) + CLI_VAL // CLI_VAL_BATCH + 1
+        print(f"[11] train_path_a: exit {rc} in {dt:.1f} s ({steps} steps, "
+              f"{forwards} eval forwards); launches {launches}", flush=True)
+        check(rc == 0, "train_path_a did not exit 0")
+        check(launches == _counts(K6a=K6_PER_FORWARD * (2 * steps + forwards),
+                                  K6b=K6_PER_FORWARD * steps),
+              "train_path_a's launch counts are not the code's")
+        log = open(f"{run}/train.log").read()
+        check(f"epoch {CLI_EPOCHS}/{CLI_EPOCHS}" in log and "heavy metrics" in log,
+              "train.log lacks the epochs' lines")
+        for f in ("loss.png", "accuracy.png"):
+            series = json.loads(png.read_text(f"{run}/{f}")["plot"])["series"]
+            check(all(len(v) == CLI_EPOCHS and np.all(np.isfinite(v))
+                      for v in series.values()), f"{f} does not hold the epochs")
+        sample = png.read(f"{run}/epoch_{CLI_EPOCHS}_samples.png")
+        state = torch.load(f"{run}/checkpoints/best_f1", map_location=dev,
+                           weights_only=True)["model"]
+
+        spied = {}
+
+        def spy(model, *a, **kw):
+            spied["model"] = model
+            return evaluate_checkpoint(model, *a, **kw)
+
+        eval_path_a.evaluate_checkpoint = spy
+        try:
+            with recording() as (records, recorders):
+                t0 = time.perf_counter()
+                rc = eval_path_a.main([
+                    "--data_dir", root, "--split", "val", "--model", "smp_UNet++",
+                    "--checkpoint_dir", f"{run}/checkpoints",
+                    "--valBatchSize", str(CLI_VAL_BATCH), "--save_dir", out, *hw])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            eval_path_a.evaluate_checkpoint = evaluate_checkpoint
+        launches = {k: r.launches for k, r in recorders.items()}
+        val_batches = CLI_VAL // CLI_VAL_BATCH
+        print(f"[11] eval_path_a: exit {rc} in {dt:.1f} s; launches {launches}",
+              flush=True)
+        check(rc == 0, "eval_path_a did not exit 0")
+        check(launches == _counts(K6a=K6_PER_FORWARD * (val_batches + 1), K7=val_batches),
+              "eval_path_a's launch counts: not one K7 a val batch")
+        hold_records(11, records)
+        report = json.loads(open(f"{out}/eval_report.json").read())
+        miou = plain_k7_miou(records)
+        print(f"[11] eval_path_a mean IoU {report['mean_iou']:.6f} (plain K7: "
+              f"{miou:.6f}), mean F1 {report['mean_f1']:.6f}, loss "
+              f"{report['loss']:.5f}", flush=True)
+        check(report["mean_iou"] == miou, "the CLI's mean IoU differs from the plain K7's")
+        triptych = png.read(f"{out}/eval_samples.png")
+        rows = min(4, CLI_VAL_BATCH)   # save_triptychs' max_samples, its gap 4
+        check(sample.shape == triptych.shape == (
+            rows * PATH_A_HW[0] + (rows - 1) * 4, 3 * PATH_A_HW[1] + 2 * 4, 3),
+            "a triptych has another size")
+
+        # the CLI's model against the checkpoint loaded into a fresh model
+        batches = [next(PngFolderDataset(root, "val", PATH_A_HW, -1, N_CLASSES)
+                        .epoch(CLI_VAL_BATCH, shuffle=False))]
+        model = spied["model"]
+        fresh = create_model("smp_UNet++", classes=N_CLASSES, device=dev)
+        fresh.load_state_dict(state)
+        fresh.eval()
+        with torch.no_grad():
+            x = torch.from_numpy(batches[0][0]).to(dev)
+            a, b = model(x), fresh(x)
+        check(bool(torch.isfinite(a).all()) and torch.allclose(a, b, atol=2e-2, rtol=2e-2),
+              "the CLI's model differs from its checkpoint")
+        print(f"[11] eval CLI's model vs its checkpoint in a fresh model: max |dlogit| "
+              f"{(a - b).abs().max().item():.3e}", flush=True)
+
+        def run_eval():
+            with contextlib.redirect_stdout(io.StringIO()):
+                evaluate_checkpoint(model, batches, N_CLASSES, device=dev)
+
+        med = _timed_steps(11, run_eval, 5)
+        print(f"[11] eval_path_a's evaluation of one {CLI_VAL_BATCH}x{PATH_A_HW[0]}x"
+              f"{PATH_A_HW[1]} batch: median {med:.3f} ms "
+              f"({CLI_VAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
 
 
 def main() -> int:
@@ -1430,6 +1626,7 @@ def main() -> int:
     # ---- 7. Path-A training, 8. Path-A evaluation ------------------------
     path_a, entries = path_a_train_phase(dev, args.seed)
     evals = path_a_eval_phase(path_a, dev, args.seed)
+    k7_hold_phase(dev, args.seed)
     entries["K6a"].update({f"eval_{k}": evals["K6a"][k] for k in
                            ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "per", "device_ms")})
@@ -1442,6 +1639,8 @@ def main() -> int:
     entries["K6a"]["zoo_eval_launches"] = {m: c["eval_K6a"] for m, c in zoo.items()}
     k8 = k8_phase(dev, args.seed)
     kernels += [k8["K8a"], k8["K8b"]]
+    # ---- 11. Path A through its CLIs ----------------------------------------
+    path_a_cli_phase(dev, args.seed)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,102 +13,224 @@
 // (uint8, int32 or int64: argmax ids are int64, masks uint8 or int64), so
 // no cast pass precedes the kernel.
 //
-// The TPU kernel carries three (C,) f32 accumulators across its sequential
-// grid. Here blocks run in no order: each block counts its share of the
-// pixels in shared memory (32-bit), a warp first merging the lanes that
-// hold the same key (__match_any_sync: one shared atomic per distinct key
-// per warp, not one per lane, so a map of mostly one class does not
-// serialize), then adds its counts into (3, nc) 64-bit device counters with
-// one atomic per nonzero entry. A second one-block launch converts the
-// counters to f32 tp, fp, fn. Integer sums make the result exact and the
-// same from run to run.
+// Bound on an H100: bytes, and at an eval batch's size (4 x 256 x 256,
+// 2.4 MB) the launch and a few trips to L2. Per pixel it reads 2..16 bytes
+// for a few integer operations, far under the 295 op/byte ridge. So the
+// design is one launch a call, with nothing else on the stream:
 //
-// Bound on an H100: bytes. Per pixel it reads 2..16 bytes (uint8 .. int64
-// ids) for a few integer operations, far under the 295 op/byte ridge: the
-// least time is the two maps' bytes over 3.35 TB/s. The design reads each
-// id once, with grid-stride loops over at most 8 blocks per SM of the card
-// (its SM count asked once a device: common.cuh's device_sms).
+// - A persistent grid of at most four blocks an SM (the card's SM count,
+//   common.cuh's device_sms), 256 threads each. A thread takes 8 pixels a
+//   step and reads each map's 8 ids by vector loads: one 8-byte load of
+//   uint8 ids, two 16-byte loads of int32, four of int64. The vectors
+//   start where both maps are 16-byte aligned: the few pixels before and
+//   after (a view with a storage offset, an n that is no multiple of 8)
+//   are read one by one; where no pixel index aligns both maps (offsets of
+//   another phase), every pixel is read one by one.
+// - A thread walks its pixels keeping the current run of each of its three
+//   keys (tp class, pred class, gt class) and adds a run to its warp's
+//   shared-memory histogram only when the key changes: a mask of blobs
+//   costs a few shared atomics a thread, not three a pixel, and warps do
+//   not contend with each other.
+// - Each block adds its warps' histograms in warp order and each nonzero
+//   count into a 3 * nc u32 accumulator in device memory (atomics: integer
+//   sums, the same in any order); then takes a ticket (__threadfence,
+//   atomicAdd). The last block to arrive reads the accumulator, sets it
+//   and the ticket back to 0 for the next launch, and writes f32 tp, fp,
+//   fn and/or adds them into the caller's int64 (3, nc) running total.
+//   No memset and no second kernel; the result is exact and the same from
+//   run to run.
+//
+// Measured on an H100 against rows of block counts summed by the last
+// block in block order (the layout of K5a's and K6b's reductions): the
+// atomics took 0.0048 against 0.0053 ms at 4 x 256 x 256 and 0.0090
+// against 0.0113 ms at 1080 x 1920 (PERF.md §6); 8 pixels a thread
+// step beat 16 at both.
+
+#include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxClasses = 128;
+constexpr int kVec = 8;          // pixels a thread takes a step
+constexpr int kBlocksPerSm = 4;  // the persistent grid: at most this many a SM
 
 enum Kind { kU8 = 0, kI32 = 1, kI64 = 2 };
 
-// one count for each distinct key >= 0 held by the warp's lanes
-__device__ __forceinline__ void count(unsigned* cnt, int key, int lane) {
-  const unsigned peers = __match_any_sync(kFull, key);
-  if (key >= 0 && lane == __ffs(peers) - 1)
-    atomicAdd(&cnt[key], (unsigned)__popc(peers));
-}
+// kVec ids of one map, loaded as 16-byte vectors (one 8-byte vector where
+// the ids fill less)
+template <class T>
+struct Ids {
+  using V = typename std::conditional<kVec * sizeof(T) >= 16, uint4, uint2>::type;
+  static constexpr int kLoads = kVec * sizeof(T) / sizeof(V);
+  union {
+    V v[kLoads];
+    T x[kVec];
+  };
+  __device__ __forceinline__ void load(const T* p) {
+    const V* q = reinterpret_cast<const V*>(p);
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) v[k] = __ldg(q + k);
+  }
+};
 
+// A run of equal keys; added to the histogram when the key changes.
+struct Run {
+  int key = -1;
+  unsigned len = 0;
+  __device__ __forceinline__ void see(int k, unsigned* hist) {
+    if (k != key) {
+      if (key >= 0) atomicAdd(&hist[key], len);
+      key = k;
+      len = 0;
+    }
+    ++len;
+  }
+  __device__ __forceinline__ void flush(unsigned* hist) {
+    if (key >= 0) atomicAdd(&hist[key], len);
+  }
+};
+
+struct Runs {
+  Run tp, pred, gt;
+  template <class TP, class TG>
+  __device__ __forceinline__ void see(TP pv, TG gv, int nc, unsigned* h) {
+    const long long a = (long long)pv, b = (long long)gv;
+    const int p = (a >= 0 && a < nc) ? (int)a : -1;
+    const int g = (b >= 0 && b < nc) ? (int)b : -1;
+    tp.see(p >= 0 && p == g ? p : -1, h);
+    pred.see(p, h + nc);
+    gt.see(g, h + 2 * nc);
+  }
+  __device__ __forceinline__ void flush(int nc, unsigned* h) {
+    tp.flush(h);
+    pred.flush(h + nc);
+    gt.flush(h + 2 * nc);
+  }
+};
+
+// head: the first pixel where both maps are 16-byte aligned (< 16), or -1
+// when there is none: then every pixel is read one by one. acc: 3 * nc
+// u32 counts, then the ticket; all 0 between launches.
 template <class TP, class TG>
 __global__ void __launch_bounds__(kThreads)
-    confusion_kernel(const TP* pred, const TG* gt, long long n, int nc,
-                     unsigned long long* counts) {
-  __shared__ unsigned cnt[3 * kMaxClasses];  // tp, |pred = c|, |gt = c|
-  for (int i = threadIdx.x; i < 3 * nc; i += blockDim.x) cnt[i] = 0u;
+    confusion_kernel(const TP* __restrict__ pred, const TG* __restrict__ gt,
+                     long long n, int nc, long long head, unsigned* acc,
+                     float* out, long long* total) {
+  __shared__ unsigned hist[kWarps][3 * kMaxClasses];
+  __shared__ bool last;
+  const int c3 = 3 * nc;
+  for (int i = threadIdx.x; i < kWarps * c3; i += kThreads)
+    hist[i / c3][i % c3] = 0u;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // w0 is the same for every lane of a warp: all 32 lanes take each
-  // iteration together, as __match_any_sync needs
-  for (long long w0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-       w0 < n; w0 += stride) {
-    const long long i = w0 + lane;
-    int p = -1, g = -1;
-    if (i < n) {
-      const long long pv = (long long)pred[i];
-      const long long gv = (long long)gt[i];
-      p = (pv >= 0 && pv < nc) ? (int)pv : -1;
-      g = (gv >= 0 && gv < nc) ? (int)gv : -1;
+  unsigned* h = hist[threadIdx.x / 32];
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  Runs runs;
+  if (head >= 0) {
+    const long long nvec = (n - head) / kVec;
+    const TP* p0 = pred + head;
+    const TG* g0 = gt + head;
+    for (long long v = tid; v < nvec; v += stride) {
+      Ids<TP> ip;
+      Ids<TG> ig;
+      ip.load(p0 + v * kVec);
+      ig.load(g0 + v * kVec);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) runs.see(ip.x[j], ig.x[j], nc, h);
     }
-    count(cnt, (p >= 0 && p == g) ? p : -1, lane);
-    count(cnt + nc, p, lane);
-    count(cnt + 2 * nc, g, lane);
+    // the pixels before the first vector and after the last one (< 16 + kVec)
+    const long long tail0 = head + nvec * kVec;
+    const long long rest = head + (n - tail0);
+    if (tid < rest) {
+      const long long i = tid < head ? tid : tail0 + (tid - head);
+      runs.see(pred[i], gt[i], nc, h);
+    }
+  } else {
+    for (long long i = tid; i < n; i += stride) runs.see(pred[i], gt[i], nc, h);
+  }
+  runs.flush(nc, h);
+  __syncthreads();
+
+  // this block's counts, its warps' histograms added in warp order, into
+  // the accumulator; each adder fences before the ticket is taken
+  for (int j = threadIdx.x; j < c3; j += kThreads) {
+    unsigned s = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += hist[w][j];
+    if (s != 0u) atomicAdd(&acc[j], s);
+    __threadfence();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 3 * nc; i += blockDim.x)
-    if (cnt[i] != 0u) atomicAdd(&counts[i], (unsigned long long)cnt[i]);
+  if (threadIdx.x == 0) last = atomicAdd(&acc[c3], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: the sums (read from L2, past this SM's L1), the
+  // accumulator and ticket left at 0, the outputs
+  unsigned* sum = &hist[0][0];
+  for (int j = threadIdx.x; j < c3; j += kThreads) {
+    sum[j] = __ldcg(&acc[j]);
+    acc[j] = 0u;
+  }
+  if (threadIdx.x == 0) acc[c3] = 0u;
+  __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += kThreads) {
+    const unsigned tp = sum[c], fp = sum[nc + c] - tp, fn = sum[2 * nc + c] - tp;
+    if (out != nullptr) {
+      out[c] = (float)tp;
+      out[nc + c] = (float)fp;
+      out[2 * nc + c] = (float)fn;
+    }
+    if (total != nullptr) {
+      total[c] += tp;
+      total[nc + c] += fp;
+      total[2 * nc + c] += fn;
+    }
+  }
 }
 
-__global__ void finalize_kernel(const unsigned long long* counts, int nc,
-                                float* out) {
-  const int c = threadIdx.x;
-  if (c < nc) {
-    const unsigned long long tp = counts[c];
-    out[c] = (float)tp;
-    out[nc + c] = (float)(counts[nc + c] - tp);
-    out[2 * nc + c] = (float)(counts[2 * nc + c] - tp);
-  }
+// The first pixel index where both maps are 16-byte aligned, or -1.
+long long common_head(const void* pred, int ps, const void* gt, int gs,
+                      long long n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(pred);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(gt);
+  for (long long i = 0; i < 16 && i <= n; ++i)
+    if ((a + i * ps) % 16 == 0 && (b + i * gs) % 16 == 0) return i;
+  return -1;
 }
+
+struct Launch {
+  const void *pred, *gt;
+  long long n;
+  int nc;
+  unsigned* acc;
+  float* out;
+  long long* total;
+  int blocks;
+  cudaStream_t s;
+};
 
 template <class TP, class TG>
-cudaError_t launch(const void* pred, const void* gt, long long n, int nc,
-                   unsigned long long* counts, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = device_sms(dev, &sms);
-  if (e != cudaSuccess) return e;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 8LL * sms) blocks = 8LL * sms;
-  if (blocks < 1) blocks = 1;
-  confusion_kernel<TP, TG><<<(int)blocks, kThreads, 0, s>>>(
-      static_cast<const TP*>(pred), static_cast<const TG*>(gt), n, nc, counts);
+cudaError_t launch(const Launch& L) {
+  const long long head = common_head(L.pred, sizeof(TP), L.gt, sizeof(TG), L.n);
+  confusion_kernel<TP, TG><<<L.blocks, kThreads, 0, L.s>>>(
+      static_cast<const TP*>(L.pred), static_cast<const TG*>(L.gt), L.n, L.nc,
+      head, L.acc, L.out, L.total);
   return cudaGetLastError();
 }
 
 template <class TP>
-cudaError_t launch_gt(int gt_kind, const void* pred, const void* gt,
-                      long long n, int nc, unsigned long long* counts,
-                      cudaStream_t s) {
+cudaError_t launch_gt(int gt_kind, const Launch& L) {
   switch (gt_kind) {
-    case kU8: return launch<TP, uint8_t>(pred, gt, n, nc, counts, s);
-    case kI32: return launch<TP, int32_t>(pred, gt, n, nc, counts, s);
-    case kI64: return launch<TP, int64_t>(pred, gt, n, nc, counts, s);
+    case kU8: return launch<TP, uint8_t>(L);
+    case kI32: return launch<TP, int32_t>(L);
+    case kI64: return launch<TP, int64_t>(L);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -116,24 +238,29 @@ cudaError_t launch_gt(int gt_kind, const void* pred, const void* gt,
 }  // namespace
 
 // Host entry (plain C interface, bound with ctypes). pred, gt: n ids each,
-// of kinds 0 = uint8, 1 = int32, 2 = int64; counts: a (3, nc) 64-bit
-// scratch buffer (zeroed here); out: (3, nc) f32 [tp; fp; fn]. Two launches
-// and a memset on the caller's stream. Returns a cudaError_t.
+// of kinds 0 = uint8, 1 = int32, 2 = int64, n < 2^32 (the accumulator is
+// u32); scratch: 3 * nc + 1 u32, 0 before the first launch (the kernel
+// leaves it so), used by one launch at a time; out: (3, nc) f32 [tp; fp;
+// fn] or null; total: (3, nc) int64 [tp; fp; fn] added to, or null. One
+// launch on the caller's stream. Returns a cudaError_t.
 extern "C" int mmr_confusion(const void* pred, int pred_kind, const void* gt,
-                             int gt_kind, long long n, int nc, void* counts,
-                             void* out, void* stream) {
-  if (nc < 1 || nc > kMaxClasses || n < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* c = static_cast<unsigned long long*>(counts);
-  cudaError_t e = cudaMemsetAsync(c, 0, sizeof(unsigned long long) * 3 * nc, s);
+                             int gt_kind, long long n, int nc, void* scratch,
+                             void* out, void* total, void* stream) {
+  if (nc < 1 || nc > kMaxClasses || n < 0 || n >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = device_sms(dev, &sms);
   if (e != cudaSuccess) return (int)e;
+  long long blocks = (n / kVec + kThreads - 1) / kThreads;
+  blocks = std::max<long long>(1, std::min<long long>(blocks, (long long)kBlocksPerSm * sms));
+  const Launch L{pred, gt, n, nc, static_cast<unsigned*>(scratch),
+                 static_cast<float*>(out), static_cast<long long*>(total),
+                 (int)blocks, static_cast<cudaStream_t>(stream)};
   switch (pred_kind) {
-    case kU8: e = launch_gt<uint8_t>(gt_kind, pred, gt, n, nc, c, s); break;
-    case kI32: e = launch_gt<int32_t>(gt_kind, pred, gt, n, nc, c, s); break;
-    case kI64: e = launch_gt<int64_t>(gt_kind, pred, gt, n, nc, c, s); break;
-    default: e = cudaErrorInvalidValue;
+    case kU8: return (int)launch_gt<uint8_t>(gt_kind, L);
+    case kI32: return (int)launch_gt<int32_t>(gt_kind, L);
+    case kI64: return (int)launch_gt<int64_t>(gt_kind, L);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return (int)e;
-  finalize_kernel<<<1, kMaxClasses, 0, s>>>(c, nc, static_cast<float*>(out));
-  return (int)cudaGetLastError();
 }

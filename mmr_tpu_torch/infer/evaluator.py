@@ -46,8 +46,9 @@ def run_inference(model, dataset, config: dict, preprocess=None,
     """
     if save_plots:
         raise NotImplementedError(
-            "save_plots needs monitor/plots.py, which is not ported yet "
-            "(ROADMAP); pass save_plots=False")
+            "save_plots writes its run's config (config/config.py's "
+            "create_config), which is not ported yet (ROADMAP); pass "
+            "save_plots=False")
     dev = resolve_device(device)
     n_classes = int(config["n_classes"])
     sw = make_sliding_window_fn(
@@ -115,10 +116,12 @@ def evaluate_checkpoint(model, batches, num_classes: int, loss_fn=None,
     the checkpoint): whole-image eval-mode forwards and streaming metrics.
 
     ``batches``: iterable of (images NHWC f32, masks NHW int), tensors or
-    numpy arrays, moved to ``device`` (``None``: CUDA). Prints the
-    class-wise IoU, precision, recall and F1 and returns ``{"loss" (mean
-    of ``loss_fn`` over the batches, or None), "iou_per_class", "mean_iou",
-    "precision", "recall", "f1", "mean_f1"}``."""
+    numpy arrays, moved to ``device`` (``None``: CUDA). The losses and the
+    confusion counts stay on the device until the last batch and are read
+    back once. Prints the class-wise IoU, precision, recall and F1 and
+    returns ``{"loss" (mean of ``loss_fn`` over the batches, in f64 of
+    their f32 values, or None), "iou_per_class", "mean_iou", "precision",
+    "recall", "f1", "mean_f1"}``."""
     dev = resolve_device(device)
     ev = Evaluate(num_classes)
     losses = []
@@ -131,8 +134,9 @@ def evaluate_checkpoint(model, batches, num_classes: int, loss_fn=None,
                 imgs = preprocess(imgs)
             logits = model(imgs)
             if loss_fn is not None:
-                losses.append(float(loss_fn(logits, msk)))
+                losses.append(loss_fn(logits, msk))
             ev.add_batch(logits, msk)
+    losses = torch.stack(losses).double().cpu().numpy() if losses else []
     per_class_iou, miou = ev.iou()
     p, r, f1 = ev.precision_recall_f1()
     print("Class-wise metrics:")
@@ -141,7 +145,7 @@ def evaluate_checkpoint(model, batches, num_classes: int, loss_fn=None,
               f"R {r[c]:.4f} F1 {f1[c]:.4f}")
     print(f"Mean IoU: {miou:.4f}  Mean F1: {float(f1.mean()):.4f}")
     return {
-        "loss": float(np.mean(losses)) if losses else None,
+        "loss": float(np.mean(losses)) if len(losses) else None,
         "iou_per_class": per_class_iou.tolist(),
         "mean_iou": miou,
         "precision": p.tolist(),

@@ -1,10 +1,14 @@
 """Streaming segmentation evaluator — the Path-A ``utils.Evaluate``,
 counterpart of ``mmr_tpu/metrics/evaluate.py``.
 
-Each ``add_batch`` takes argmax ids (or logits, argmaxed here), runs the
+Each ``add_batch`` takes argmax ids (or logits, argmaxed here) and runs the
 confusion kernel K7 (:func:`mmr_tpu_torch.ops.confusion.confusion_stats`)
-on the device the tensors live on, and adds its three (C,) counts to f64
-host counters. ``iou`` is ``tp / (tp + fp + fn + 1e-15)`` and
+on the device the tensors live on, adding its counts into an int64
+``(3, C)`` tensor there: no copy to the host and no wait for the device.
+``tp``, ``fp`` and ``fn`` are f64 numpy arrays, as in JAX: reading them
+copies the device counts to the host once (after the last ``add_batch``),
+and they can be assigned and added to in place (``ev.tp += ...``, as the
+JAX trainer does). ``iou`` is ``tp / (tp + fp + fn + 1e-15)`` and
 ``precision_recall_f1`` uses the same epsilon, as the reference
 (``utils.py:140-181``).
 """
@@ -23,9 +27,9 @@ class Evaluate:
         self.reset()
 
     def reset(self) -> None:
-        self.tp = np.zeros(self.num_classes, np.float64)
-        self.fp = np.zeros(self.num_classes, np.float64)
-        self.fn = np.zeros(self.num_classes, np.float64)
+        self._host = np.zeros((3, self.num_classes), np.float64)
+        self._device: torch.Tensor | None = None   # int64 (3, C) counts
+        self._pending = False                      # counts not yet on the host
 
     def add_batch(self, logits_or_ids: torch.Tensor, gt_ids: torch.Tensor) -> None:
         """``logits_or_ids``: (B, H, W, C) logits or probabilities, or (B, H,
@@ -33,10 +37,29 @@ class Evaluate:
         pred = logits_or_ids
         if pred.dim() == gt_ids.dim() + 1:
             pred = pred.argmax(-1)
-        tp, fp, fn = confusion.confusion_stats(pred, gt_ids, self.num_classes)
-        self.tp += tp.cpu().double().numpy()
-        self.fp += fp.cpu().double().numpy()
-        self.fn += fn.cpu().double().numpy()
+        if self._device is None or self._device.device != gt_ids.device:
+            self._fold()
+            with torch.inference_mode(False):   # updated in and out of it
+                self._device = torch.zeros((3, self.num_classes),
+                                           dtype=torch.int64, device=gt_ids.device)
+        confusion.confusion_stats(pred, gt_ids, self.num_classes, total=self._device)
+        self._pending = True
+
+    def _fold(self) -> np.ndarray:
+        """The (3, C) host counts, the device's added once since the last
+        ``add_batch``."""
+        if self._pending:
+            self._host += self._device.cpu().numpy()
+            self._device.zero_()
+            self._pending = False
+        return self._host
+
+    tp = property(lambda self: self._fold()[0],
+                  lambda self, v: self._fold().__setitem__(0, v))
+    fp = property(lambda self: self._fold()[1],
+                  lambda self, v: self._fold().__setitem__(1, v))
+    fn = property(lambda self: self._fold()[2],
+                  lambda self, v: self._fold().__setitem__(2, v))
 
     def iou(self) -> tuple[np.ndarray, float]:
         per_class = self.tp / (self.tp + self.fp + self.fn + 1e-15)
@@ -47,3 +70,7 @@ class Evaluate:
         r = self.tp / (self.tp + self.fn + 1e-15)
         f1 = 2.0 * p * r / (p + r + 1e-15)
         return p, r, f1
+
+    def mean_f1(self) -> float:
+        _, _, f1 = self.precision_recall_f1()
+        return float(f1.mean())

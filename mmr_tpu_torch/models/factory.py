@@ -14,7 +14,7 @@ Weights are initialised from an explicit ``torch.Generator`` (lecun-normal
 convs and transposed convs, as flax initialises them; conv biases 0; BN at
 identity) and the model is returned in eval mode on ``device`` (default
 CUDA; never the CPU unless asked). Pretrained encoder weights and other
-input channel counts wait for the CLI slice (ROADMAP).
+input channel counts wait (ROADMAP).
 """
 
 from __future__ import annotations

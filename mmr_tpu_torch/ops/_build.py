@@ -41,7 +41,7 @@ SIGNATURES = {
     "mmr_conv3x3_dw": [_P, _I, _I, _P, _I, _P, _I, _P] + [_I] * 3 + [_P],
     "mmr_conv3x3_dw_grid": [_I] * 6 + [_P],
     "mmr_conv3x3_dw_info": [_I, _I, _I],
-    "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P],
+    "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P],
     "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],
     "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7 + [_P],

@@ -565,12 +565,35 @@ def test_k6_autograd_op(dev):
     ((4, 256, 256), torch.int64, torch.uint8, 10),     # Path A's eval batch
     ((3, 37, 53), torch.int64, torch.int64, 10),
     ((2, 100, 100), torch.int32, torch.int64, 128),
-    ((1, 7, 9), torch.uint8, torch.uint8, 3)])
+    ((1, 7, 9), torch.uint8, torch.uint8, 3),
+    ((1, 1080, 1920), torch.uint8, torch.int64, 10),   # a full-HD pair
+    ((2, 301, 203), torch.int32, torch.int32, 10),
+    ((3, 97, 131), torch.int64, torch.int32, 128)])
 def test_k7_confusion(dev, shape, pdt, gdt, nc):
     """Exact, and the same from run to run; ids outside [0, nc) (negative
-    sentinels, ids >= nc, uint8 255) count nowhere."""
+    sentinels, ids >= nc, uint8 255) count nowhere. One launch a call, f32
+    stats or counts added into an int64 (3, nc) total."""
     g = torch.Generator(device=dev).manual_seed(9)
+    pred, gt = _k7_ids(g, dev, shape, pdt, gdt, nc)
+    before = confusion_stats.launches
+    got = confusion_stats(pred, gt, nc)
+    again = confusion_stats(pred, gt, nc)
+    total = torch.full((3, nc), 5, dtype=torch.int64, device=dev)
+    assert confusion_stats(pred, gt, nc, total=total) is total
+    confusion_stats(pred, gt, nc, total=total)
+    assert confusion_stats.launches == before + 4
+    torch.cuda.synchronize()
+    want = confusion_stats_ref(pred, gt, nc)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == torch.float32 and a.shape == (nc,)
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(total, 5 + 2 * torch.stack(want).long())
+    ref_total = torch.full((3, nc), 5, dtype=torch.int64, device=dev)
+    assert confusion_stats_ref(pred, gt, nc, total=ref_total) is ref_total
+    assert torch.equal(ref_total, 5 + torch.stack(want).long())
 
+
+def _k7_ids(g, dev, shape, pdt, gdt, nc):
     def ids(dt):
         lo = 0 if dt == torch.uint8 else -2
         a = torch.randint(lo, nc + 3, shape, device=dev, generator=g)
@@ -580,14 +603,75 @@ def test_k7_confusion(dev, shape, pdt, gdt, nc):
 
     pred, gt = ids(pdt), ids(gdt)
     gt[0, :4] = pred[0, :4].to(gdt)                # agreements
-    before = confusion_stats.launches
-    got = confusion_stats(pred, gt, nc)
-    again = confusion_stats(pred, gt, nc)
-    assert confusion_stats.launches == before + 2
+    return pred, gt
+
+
+@pytest.mark.parametrize("pdt,gdt,poff,goff,n", [
+    (torch.uint8, torch.uint8, 1, 0, 1000),    # no pixel aligns both maps
+    (torch.uint8, torch.uint8, 1, 1, 4099),    # both a byte in: a scalar head
+    (torch.uint8, torch.int64, 3, 1, 7777),
+    (torch.int32, torch.int32, 2, 2, 33),
+    (torch.int64, torch.uint8, 0, 0, 5),       # fewer pixels than a vector
+    (torch.int64, torch.int64, 1, 0, 100003)])
+def test_k7_views_at_offsets(dev, pdt, gdt, poff, goff, n):
+    """Maps that are views starting ``off`` elements into their storage
+    (not 16-byte aligned), with n no multiple of 16: the scalar head and
+    tail around the vectors, or scalar reads throughout."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    pred = torch.randint(0, 12, (n + poff,), device=dev, generator=g).to(pdt)[poff:]
+    gt = torch.randint(0, 12, (n + goff,), device=dev, generator=g).to(gdt)[goff:]
+    gt[: n // 3] = pred[: n // 3].to(gdt)
+    got = confusion_stats(pred, gt, 10)
+    again = confusion_stats(pred, gt, 10)
     torch.cuda.synchronize()
-    for a, b, c in zip(got, confusion_stats_ref(pred, gt, nc), again):
-        assert a.dtype == torch.float32 and a.shape == (nc,)
+    for a, b, c in zip(got, confusion_stats_ref(pred, gt, 10), again):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_k7_streams_and_graphs(dev):
+    """Each stream has its own scratch: launches on two streams and the
+    replays of a captured launch all give the exact counts."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    pred, gt = _k7_ids(g, dev, (2, 130, 70), torch.int64, torch.uint8, 10)
+    want = torch.stack(confusion_stats_ref(pred, gt, 10)).long()
+    total = torch.zeros((3, 10), dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    confusion_stats(pred, gt, 10, total=total)
+    with torch.cuda.stream(side):
+        got = torch.stack(confusion_stats(pred, gt, 10))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            confusion_stats(pred, gt, 10, total=total)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.float()) and torch.equal(total, 4 * want)
+
+
+def test_evaluate_add_batch_makes_no_sync(dev):
+    """``Evaluate.add_batch`` leaves its counts on the card: no host sync
+    (sync debug mode "error"); the counts read afterwards equal the plain
+    version's."""
+    from mmr_tpu_torch.metrics.evaluate import Evaluate
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    logits = torch.randn(2, 64, 96, 10, device=dev, generator=g)
+    masks = torch.randint(0, 10, (2, 64, 96), device=dev, generator=g).to(torch.uint8)
+    ev = Evaluate(10)
+    ev.add_batch(logits, masks)                 # allocations and scratch
+    torch.cuda.synchronize()
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev.add_batch(logits, masks)
+        ev.add_batch(logits.argmax(-1), masks)
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    want = torch.stack(confusion_stats_ref(logits.argmax(-1), masks, 10))
+    np.testing.assert_array_equal(np.stack([ev.tp, ev.fp, ev.fn]),
+                                  3 * want.double().cpu().numpy())
 
 
 def test_path_a_train_and_eval_on_card(dev):

@@ -2,7 +2,7 @@
 kernels, run in interpret mode as ``tests/test_conv3x3_kernel.py`` runs
 them: K6a (``conv3x3_packed.py::_conv_packed``), K6b (``_conv_packed_dw``),
 the port's autograd op against the VJP of JAX's ``conv3x3p_bias_act``, and
-K7 (``confusion.py::confusion_stats``); then the dispatch predicate over
+K7 (``confusion.py::confusion_stats``), its running total included; then the dispatch predicate over
 the 256×256 Path-A plan. Inputs are bf16 values made with seeded numpy.
 """
 
@@ -134,6 +134,31 @@ def test_k7_plain_matches_pallas(rng, gt_dtype):
         assert a.dtype == torch.float32 and a.shape == (nc,)
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert float(got[0].sum() + got[2].sum()) < pred.size   # some ids counted nowhere
+
+
+def test_k7_running_total_matches_pallas(rng):
+    """K7's accumulating entry (CPU: its plain version) adds ``[tp; fp; fn]``
+    of each batch into an int64 (3, C) total, exactly the sum of the
+    Pallas kernel's counts over the batches (``Evaluate.add_batch``'s
+    path); the total is returned and updated in place."""
+    from mmr_tpu.ops.pallas.confusion import confusion_stats as confusion_j
+
+    nc = 10
+    total = torch.full((3, nc), 7, dtype=torch.int64)
+    want = np.full((3, nc), 7, np.int64)
+    for _ in range(2):
+        pred = rng.randint(-2, nc + 3, (2, 24, 40)).astype(np.int64)
+        gt = rng.randint(0, nc + 3, (2, 24, 40)).astype(np.uint8)
+        gt[:, :3] = pred[:, :3].clip(0, 255)
+        assert confusion_stats(torch.from_numpy(pred), torch.from_numpy(gt), nc,
+                               total=total) is total
+        want += np.stack([np.asarray(a, np.int64) for a in confusion_j(
+            jnp.asarray(pred.astype(np.int32)), jnp.asarray(gt.astype(np.int32)),
+            nc, interpret=True)])
+    np.testing.assert_array_equal(total.numpy(), want)
+    with pytest.raises(ValueError, match="int64"):
+        confusion_stats(torch.from_numpy(pred), torch.from_numpy(gt), nc,
+                        total=total.float())
 
 
 def test_dispatch_over_the_path_a_plan(monkeypatch):

@@ -108,9 +108,16 @@ def test_fused_adamw_matches_jax(rng, clip, differential):
 
 
 def test_other_optimizers_raise():
+    """The four names of the JAX surface build (SGD and RMSprop are held
+    against JAX in ``test_torch_path_a_cli.py``); any other raises as
+    JAX's ``build_optimizer`` does."""
+    from mmr_tpu_torch.train.optim import FlatRMSprop, FlatSGD
+
     assert isinstance(build_optimizer("AdamW", clip_grad_norm=12.0), FusedAdamW)
-    for name in ("sgd", "rmsprop"):
-        with pytest.raises(NotImplementedError):
+    assert isinstance(build_optimizer("SGD", momentum=0.9), FlatSGD)
+    assert isinstance(build_optimizer("rmsprop"), FlatRMSprop)
+    for name in ("adagrad", "lamb"):
+        with pytest.raises(ValueError, match="unknown optimizer"):
             build_optimizer(name)
 
 
