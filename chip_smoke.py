@@ -1459,6 +1459,225 @@ def path_a_cli_phase(dev, seed) -> None:
               f"({CLI_VAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
 
 
+# ------------------------------------------------------------- Path B's Trainer
+
+TRAINER_TRAIN, TRAINER_VAL, TRAINER_POOL = 6, 2, 16   # batches an epoch, frames
+TRAINER_EPOCHS, VIDEO_FRAMES = 2, 6
+EVAL_COUNTS = {"K1": 21, "K2": 2}   # one eval forward (phase 3)
+
+
+def trainer_counts(steps: int, forwards: int) -> dict:
+    """Launches of ``steps`` flagship train steps and ``forwards`` eval
+    forwards."""
+    return {k: steps * TRAIN_COUNTS[k] + forwards * EVAL_COUNTS.get(k, 0)
+            for k in KERNELS}
+
+
+class PoolSampler:
+    """JAX's ``PatchSampler`` interface (``epoch(epoch_seed)``, ``len()``)
+    over a pool of uint8 frames and masks: each batch draws
+    ``TRAIN_BATCH`` of them by the epoch's seed."""
+
+    def __init__(self, images, masks, n):
+        self.images, self.masks, self.n = images, masks, n
+
+    def __len__(self):
+        return self.n
+
+    def epoch(self, epoch_seed):
+        rng = np.random.RandomState(epoch_seed)
+        for _ in range(self.n):
+            idx = rng.randint(0, len(self.images), TRAIN_BATCH)
+            yield self.images[idx], self.masks[idx]
+
+
+def trainer_phase(dev, seed, smi) -> dict:
+    """Phase 12: Path B's ``Trainer`` at full width —
+    ``get_default_config(9, (512, 640))`` (UNet++ over mbv3, 10 classes,
+    AdamW 1e-4, clip 12, PolynomialLR, bf16, the default augmentation
+    through the uint8 path), 2 epochs of 6 train batches of 8 and 2 val
+    batches drawn from 16 rendered frames, triptychs every epoch. Holds
+    every launch of the first train step at phase 6's bounds and its
+    counts (20 K1 + 20 K3, 2 K2 + 2 K4, K5a, K5b), the run's counts
+    (train steps and eval forwards, 21 K1 + 2 K2 each), the falling train
+    loss, every artifact (decoded), a resume to epoch 3 in a fresh
+    ``Trainer``, and ``run_inference(save_plots=True)`` over one full-HD
+    video of 6 frames (its ``test_plots_0/config.yaml`` read back). Prints
+    the epochs' times and samples/s, the train step's median, host issue,
+    device busy and idle share, and the augmentation alone (device and
+    host-issue ms). Returns {kind: launches of the two-epoch run}."""
+    import pickle
+    import tempfile
+
+    from mmr_tpu_torch.config import get_default_config, read_config
+    from mmr_tpu_torch.data import png
+    from mmr_tpu_torch.data.augment import (AugmentConfig, apply_augment_u8,
+                                            augment_draws, augment_train_batch_u8)
+    from mmr_tpu_torch.data.synthetic import render_frame
+    from mmr_tpu_torch.infer.evaluator import run_inference
+    from mmr_tpu_torch.train.engine import Trainer
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed + 12)
+    frames = [render_frame(rng, *ROI, N_CLASSES - 1) for _ in range(TRAINER_POOL)]
+    images = np.stack([(f[0] * 255.0 + 0.5).astype(np.uint8) for f in frames])
+    masks = np.stack([f[1] for f in frames])
+    train_s = PoolSampler(images, masks, TRAINER_TRAIN)
+    val_s = PoolSampler(images, masks, TRAINER_VAL)
+    print(f"[12] {smi}: rendered {TRAINER_POOL} frames {ROI} in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = get_default_config(N_CLASSES - 1, ROI)
+        cfg.update(results_path=tmp, patch_size=list(ROI), n_epochs=TRAINER_EPOCHS,
+                   val_plot_interval=1, seed=seed)
+        tr = Trainer(cfg, device=dev)
+        check(tr.model.fused and tr.model.encoder.fused_frontend,
+              "the Trainer did not turn the fused decoder and front end on")
+        check(tr.augment == AugmentConfig(patch_size=ROI, low_resolution=False),
+              "the Trainer's augmentation is not the default one")
+
+        step, first = tr._train_step, {}
+
+        def recorded_first(*a):
+            if first:
+                return step(*a)
+            with recording() as (records, recorders):
+                out = step(*a)
+                torch.cuda.synchronize()
+            first.update(records=records,
+                         launches={k: r.launches for k, r in recorders.items()})
+            return out
+
+        tr._train_step = recorded_first
+        for kind in KERNELS:
+            wrapper(kind).launches = 0
+        t0 = time.perf_counter()
+        hist = tr.train(train_s, val_s)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: wrapper(k).launches for k in KERNELS}
+        tr._train_step = step
+        steps, forwards = TRAINER_EPOCHS * TRAINER_TRAIN, TRAINER_EPOCHS * (TRAINER_VAL + 1)
+        print(f"[12] {TRAINER_EPOCHS} epochs in {dt:.1f} s; first step's launches "
+              f"{first['launches']}; the rest of the run's {launches}", flush=True)
+        check(first["launches"] == TRAIN_COUNTS, f"expected {TRAIN_COUNTS} launches "
+              "in the Trainer's first train step")
+        check(launches == trainer_counts(steps - 1, forwards),
+              "the run's launches are not its train steps' and eval forwards'")
+        hold_records(12, first.pop("records"))
+        for e in range(TRAINER_EPOCHS):
+            print(f"[12] {smi}: epoch {hist['epoch'][e]}: {hist['epoch_time_s'][e]:.3f} s, "
+                  f"{hist['samples_per_sec'][e]:.2f} samples/s, train loss "
+                  f"{hist['train_loss'][e]:.5f}, val loss {hist['val_loss'][e]:.5f}, "
+                  f"IoU train {hist['train_iou'][e]:.4f} val {hist['val_iou'][e]:.4f}, "
+                  f"device memory {hist['device_mem_mb'][e]:.0f} MB", flush=True)
+        check(all(np.isfinite(hist["train_loss"] + hist["val_loss"])), "non-finite loss")
+        check(hist["train_loss"][-1] < hist["train_loss"][0],
+              "the train loss did not fall over the two epochs")
+
+        res = tr.results_path
+        metrics = json.loads((res / "training_metrics.json").read_text())
+        check(metrics["epoch"] == [1, 2], "training_metrics.json lacks the epochs")
+        log = next(res.glob("training_log_*.log")).read_text()
+        check("Training complete" in log and "New best model" in log
+              and "Model Architecture Summary" in log, "the log lacks its lines")
+        loss_dict = pickle.loads((res / "loss_dict.pkl").read_bytes())
+        check(loss_dict["train"] == hist["train_loss"], "loss_dict.pkl differs")
+        for f in ("plots/loss.png", "training_dashboard.png", "plots/epoch_1.png",
+                  "plots/epoch_2.png"):
+            check(png.read(res / f).ndim == 3, f"{f} does not decode")
+        for name in ("last_model", "best_model"):
+            ck = torch.load(res / "checkpoints" / name, map_location="cpu",
+                            weights_only=True)
+            meta = json.loads((res / "checkpoints" / f"{name}.json").read_text())
+            check(set(ck) == {"model", "opt_state", "step"} and set(meta) == {
+                "epoch", "validation_loss"}, f"checkpoint {name} is malformed")
+        print(f"[12] artifacts written and decoded: {sorted(p.name for p in res.iterdir())}",
+              flush=True)
+
+        # ---- resume in a fresh Trainer -----------------------------------
+        again = Trainer(dict(cfg, n_epochs=TRAINER_EPOCHS + 1), device=dev)
+        for kind in KERNELS:
+            wrapper(kind).launches = 0
+        check(again.maybe_resume() and again.start_epoch == TRAINER_EPOCHS + 1,
+              "the resume did not start at epoch 3")
+        hist3 = again.train(train_s, val_s)
+        torch.cuda.synchronize()
+        resumed = {k: wrapper(k).launches for k in KERNELS}
+        check(resumed == trainer_counts(TRAINER_TRAIN, TRAINER_VAL + 1),
+              "the resumed epoch's launches are not the code's")
+        loss3 = pickle.loads((res / "loss_dict.pkl").read_bytes())
+        check(hist3["epoch"] == [3] and loss3["train"][:2] == loss_dict["train"]
+              and len(loss3["train"]) == 3, "the resumed loss_dict lost epochs 1-2")
+        print(f"[12] resumed at epoch {again.start_epoch}: {hist3['epoch_time_s'][0]:.3f} s, "
+              f"train loss {hist3['train_loss'][0]:.5f}, val loss "
+              f"{hist3['val_loss'][0]:.5f}; launches {resumed}", flush=True)
+
+        # ---- run_inference(save_plots=True) on one full-HD video ---------
+        vr = np.random.RandomState(seed + 13)
+        fr = [render_frame(vr, *FRAME, N_CLASSES - 1) for _ in range(VIDEO_FRAMES)]
+        video = [{"id": "video_000", "t0": 0, "t1": VIDEO_FRAMES,
+                  "image": np.stack([(f[0] * 255.0 + 0.5).astype(np.uint8) for f in fr]),
+                  "mask": np.stack([f[1] for f in fr])}]
+        for kind in KERNELS:
+            wrapper(kind).launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = run_inference(again.model, video, again.config,
+                                   preprocess=again.preprocess, device=dev)
+        torch.cuda.synchronize()
+        served = {k: wrapper(k).launches for k in KERNELS}
+        check(served == _counts(K1=21 * VIDEO_FRAMES, K2=2 * VIDEO_FRAMES),
+              "run_inference's launches are not 21 K1 + 2 K2 a frame")
+        out = res / "test_plots_0"
+        check(read_config(out / "config.yaml") == again.config,
+              "test_plots_0/config.yaml does not read back to the config")
+        check(png.read(out / f"video_000_0-{VIDEO_FRAMES}.png").ndim == 3,
+              "run_inference wrote no triptych")
+        check(np.isfinite(report["overall_mean_iou"]), "non-finite IoU")
+        print(f"[12] run_inference(save_plots=True): {VIDEO_FRAMES} full-HD frames, "
+              f"{report['videos']['video_000']['fps']:.2f} fps, mean IoU "
+              f"{report['overall_mean_iou']:.4f}; launches {served}; wrote "
+              f"{sorted(p.name for p in out.iterdir())}", flush=True)
+
+        # ---- times ------------------------------------------------------------
+        img_d = torch.from_numpy(images[:TRAIN_BATCH]).to(dev)[None]
+        msk_d = torch.from_numpy(masks[:TRAIN_BATCH]).to(dev)[None]
+        gen = torch.Generator().manual_seed(seed)
+        lr = again.lr_schedule(0)
+        run = lambda: again._train_step(again.state, img_d, msk_d, lr, gen)
+        med = _timed_steps(12, run, TRAIN_STEPS)
+        print(f"[12] {smi}: Trainer train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]}, "
+              f"default augmentation, uint8 path): median {med:.3f} ms "
+              f"({TRAIN_BATCH * 1e3 / med:.2f} samples/s)", flush=True)
+        pre = again.preprocess
+        for name, acfg in (("defaults", again.augment),
+                           ("every transform on", AugmentConfig(patch_size=ROI,
+                                                                low_resolution=True))):
+            g = torch.Generator().manual_seed(seed)
+            fn = lambda: augment_train_batch_u8(g, img_d[0], msk_d[0], acfg,
+                                                pre.mean, pre.std)
+            busy, _ = device_profile(fn, REPS)
+            print(f"[12] {smi}: augment_train_batch_u8, {name}, B={TRAIN_BATCH} "
+                  f"{ROI[0]}x{ROI[1]} (draws as training makes them, {REPS} calls): "
+                  f"device {busy:.3f} ms, host issue {host_issue_ms(fn, REPS):.3f} ms, "
+                  f"wall {cuda_ms(fn, REPS):.3f} ms a call", flush=True)
+        acfg = AugmentConfig(patch_size=ROI, low_resolution=True)
+        d = next(d for s in range(100) for d in [augment_draws(
+            acfg, torch.Generator().manual_seed(s), img_d[0].shape, dev)] if d.warp)
+        fn = lambda: apply_augment_u8(img_d[0], msk_d[0], d, acfg, pre.mean, pre.std)
+        busy, top = device_profile(fn, REPS)
+        print(f"[12] {smi}: apply_augment_u8, every transform on, the warp branch, "
+              f"fixed draws: device {busy:.3f} ms, host issue "
+              f"{host_issue_ms(fn, REPS):.3f} ms a call", flush=True)
+        for key, t, cnt in top:
+            print(f"[12]     {t:8.3f} ms  x{cnt:5.1f}  {key}", flush=True)
+        del tr, again, first
+    torch.cuda.empty_cache()
+    print(f"[12] {smi}: phase 12 wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1641,6 +1860,12 @@ def main() -> int:
     kernels += [k8["K8a"], k8["K8b"]]
     # ---- 11. Path A through its CLIs ----------------------------------------
     path_a_cli_phase(dev, args.seed)
+    # ---- 12. Path B's Trainer ------------------------------------------------
+    trained = trainer_phase(dev, args.seed, smi)
+    for e in kernels:
+        kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
+        if kind is not None:
+            e["trainer_launches"] = trained[kind]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

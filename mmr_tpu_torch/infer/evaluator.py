@@ -1,9 +1,12 @@
 """Evaluation entry points, counterparts of ``mmr_tpu/infer/evaluator.py``:
 
-- :func:`run_inference` (the reference's ``SegModel.run_inference``):
-  sliding-window prediction over whole-video frame batches, per-video FPS,
-  and per-frame per-class IoU with the background dropped by the
-  ``preds-1 / masks-1 / ignore_index=-1`` shift;
+- :func:`run_inference` (the reference's ``SegModel.run_inference``,
+  ``Main_MMR_SegModel.py:1205-1367``): sliding-window prediction over
+  whole-video frame batches, per-video FPS, and per-frame per-class IoU
+  with the background dropped by the ``preds-1 / masks-1 /
+  ignore_index=-1`` shift; with ``save_plots`` a numbered
+  ``test_plots_<i>`` directory holding the run's ``config.yaml``
+  (``:1249-1256``) and one triptych per video;
 - :func:`evaluate_checkpoint` (Path A's standalone evaluation): whole-image
   eval forwards and the streaming :class:`~mmr_tpu_torch.metrics.Evaluate`
   metrics.
@@ -12,15 +15,27 @@
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from mmr_tpu_torch.config.config import create_config
 from mmr_tpu_torch.core.device import resolve_device
 from mmr_tpu_torch.infer.sliding_window import make_sliding_window_fn
 from mmr_tpu_torch.metrics.confusion import segmentation_stats
 from mmr_tpu_torch.metrics.evaluate import Evaluate
 from mmr_tpu_torch.metrics.iou import iou_score
+from mmr_tpu_torch.monitor.plots import save_triptychs
+
+
+def _next_test_plots_dir(results_path: Path) -> Path:
+    i = 0
+    while (results_path / f"test_plots_{i}").exists():
+        i += 1
+    out = results_path / f"test_plots_{i}"
+    out.mkdir(parents=True)
+    return out
 
 
 def _report(per_frame_iou: np.ndarray, indent: str) -> float:
@@ -41,16 +56,21 @@ def run_inference(model, dataset, config: dict, preprocess=None,
     ``config``: ``n_classes`` (without background), ``patch_size`` (the
     roi), optional ``sw_batch_size``, ``sw_overlap``, ``sw_chunked`` (chunked
     window stream instead of the per-frame fused blend), ``sw_fp32_blend``
-    (f32 window logits instead of bf16). Returns ``{"overall_mean_iou",
+    (f32 window logits instead of bf16); with ``save_plots``,
+    ``results_path``: the run writes ``config`` as
+    ``<results_path>/test_plots_<i>/config.yaml`` (the first free ``i``)
+    and, per video, the triptych of its first frame chunk as
+    ``<id>_<t0>-<t1>.png`` there. Returns ``{"overall_mean_iou",
     "per_class_iou", "videos": {id: {"fps", "mean_iou"}}, "total_time_s"}``.
     """
-    if save_plots:
-        raise NotImplementedError(
-            "save_plots writes its run's config (config/config.py's "
-            "create_config), which is not ported yet (ROADMAP); pass "
-            "save_plots=False")
+    if save_plots and "results_path" not in config:
+        raise KeyError("save_plots writes under config['results_path'], "
+                       "which the config lacks; add it or pass save_plots=False")
     dev = resolve_device(device)
     n_classes = int(config["n_classes"])
+    plot_dir = _next_test_plots_dir(Path(config["results_path"])) if save_plots else None
+    if plot_dir is not None:
+        create_config(config, plot_dir)
     sw = make_sliding_window_fn(
         model, config["patch_size"], n_classes + 1,
         sw_batch_size=int(config.get("sw_batch_size", 24)),
@@ -65,9 +85,10 @@ def run_inference(model, dataset, config: dict, preprocess=None,
     seen: list[str] = []
     video_start = start = time.time()
     n_frames = 0
+    plot_item = None
 
     def flush_video(name: str):
-        nonlocal current, video_start, n_frames
+        nonlocal current, video_start, n_frames, plot_item
         dt = time.time() - video_start
         fps = n_frames / dt if dt > 0 else 0.0
         print(f"    Inference time: {time.strftime('%H:%M:%S', time.gmtime(dt))}"
@@ -75,7 +96,9 @@ def run_inference(model, dataset, config: dict, preprocess=None,
         vid_iou = np.concatenate(current, axis=0)
         all_iou.append(vid_iou)
         video_stats[name] = {"fps": fps, "mean_iou": _report(vid_iou, "        ")}
-        current, n_frames = [], 0
+        if plot_item is not None:
+            save_triptychs(*plot_item[:3], plot_dir / f"{plot_item[3]}.png")
+        current, n_frames, plot_item = [], 0, None
         video_start = time.time()
 
     with torch.inference_mode():
@@ -93,6 +116,12 @@ def run_inference(model, dataset, config: dict, preprocess=None,
                                                 ignore_index=-1)
             current.append(iou_score(tp, fp, fn, tn).cpu().numpy())
             n_frames += preds.shape[0]
+            if plot_dir is not None and plot_item is None:
+                img = np.asarray(item["image"])
+                plot_item = (img.astype(np.float32) / (255.0 if img.dtype == np.uint8
+                                                       else 1.0),
+                             np.asarray(item["mask"]).astype(np.int32),
+                             preds.cpu().numpy(), f"{name}_{item['t0']}-{item['t1']}")
         if seen:
             flush_video(seen[-1])
 

@@ -20,6 +20,7 @@ input channel counts wait (ROADMAP).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -66,6 +67,14 @@ _PATH_A_ZOO = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_consts(mean: tuple, std: tuple, device: str):
+    """``mean`` and ``std`` as f32 tensors on ``device``, made once: a fresh
+    host-to-card copy on every call would wait for the card's queue."""
+    return (torch.tensor(mean, dtype=torch.float32).to(device),
+            torch.tensor(std, dtype=torch.float32).to(device))
+
+
 @dataclasses.dataclass(frozen=True)
 class Preprocessing:
     """ImageNet-style normalization of [0, 1] RGB (NHWC, last axis)."""
@@ -74,8 +83,7 @@ class Preprocessing:
     std: tuple[float, float, float]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
+        mean, std = _channel_consts(tuple(self.mean), tuple(self.std), str(x.device))
         return (x - mean) / std
 
 

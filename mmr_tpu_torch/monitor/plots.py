@@ -1,6 +1,7 @@
-"""Plot files of a Path-A run, counterpart of ``mmr_tpu/monitor/plots.py``
-(``save_losses``, ``save_accuracy_curves``, ``save_triptychs``), drawn
-with numpy into RGB arrays and written by :mod:`mmr_tpu_torch.data.png`.
+"""Plot files of a training run, counterpart of ``mmr_tpu/monitor/plots.py``
+(``save_losses``, ``save_accuracy_curves``, ``save_dashboard``,
+``save_triptychs``), drawn with numpy into RGB arrays and written by
+:mod:`mmr_tpu_torch.data.png`.
 
 Pixel equality with matplotlib is not a goal. A curve plot is a raster
 line plot: white ground, the plot box, each series a line with a 5×5
@@ -49,8 +50,9 @@ def _line(img, p0, p1, colour):
     img[rows, cols] = colour
 
 
-def _curves(out: Path, xs, series: dict[str, list[float]], ylabel: str,
-            log: bool = False) -> Path:
+def _panel(xs, series: dict[str, list[float]], ylabel: str,
+           log: bool = False) -> tuple[np.ndarray, dict]:
+    """One curve plot: its RGB image and its ``plot`` metadata."""
     xs = [float(x) for x in xs]
     series = {k: [float(v) for v in vals] for k, vals in series.items() if vals}
     ys = [np.log10(v) if log else v for vals in series.values() for v in vals]
@@ -70,6 +72,12 @@ def _curves(out: Path, xs, series: dict[str, list[float]], ylabel: str,
             img[r - 2:r + 3, c - 2:c + 3] = colour
     meta = {"x": xs, "series": series, "ylabel": ylabel, "box": list(BOX),
             "x_range": list(xr), "y_range": list(yr), "log": log}
+    return img, meta
+
+
+def _curves(out: Path, xs, series: dict[str, list[float]], ylabel: str,
+            log: bool = False) -> Path:
+    img, meta = _panel(xs, series, ylabel, log)
     return png.write(out, img, {"plot": json.dumps(meta)})
 
 
@@ -90,6 +98,40 @@ def save_accuracy_curves(history: dict, out_dir: str | Path) -> Path:
               (("train_iou", "Train IoU"), ("val_iou", "Val IoU"))}
     return _curves(Path(out_dir) / "accuracy.png", history.get("epoch", []),
                    series, "IoU")
+
+
+DASHBOARD = [  # title, [(history key, label)], log y
+    ("Loss", [("train_loss", "train"), ("val_loss", "val")], False),
+    ("IoU", [("train_iou", "train"), ("val_iou", "val")], False),
+    ("Learning rate", [("lr", "lr")], True),
+    ("Epoch time (s)", [("epoch_time_s", "time")], False),
+    ("Device memory (MB)", [("device_mem_mb", "HBM")], False),
+    ("Throughput (samples/s)", [("samples_per_sec", "samples/s")], False),
+]
+
+
+def save_dashboard(history: dict, out_dir: str | Path) -> Path:
+    """``<out_dir>/training_dashboard.png`` (``Main_MMR_SegModel.py:
+    379-480``): six curve plots by epoch in two rows of three, ``GAP``
+    white pixels apart — loss, IoU, learning rate (log y), epoch time,
+    device memory, samples/s. Its ``tEXt`` chunk ``dashboard`` holds each
+    panel's title and ``plot`` metadata in that order; panel ``i`` starts at
+    row ``(i // 3)·(H + GAP)``, column ``(i % 3)·(W + GAP)`` of the
+    ``CANVAS`` size (H, W)."""
+    ep = history.get("epoch", [])
+    h, w = CANVAS
+    img = np.full((2 * h + GAP, 3 * w + 2 * GAP, 3), 255, np.uint8)
+    panels = []
+    for i, (title, keys, log) in enumerate(DASHBOARD):
+        series = {label: history.get(key, []) for key, label in keys}
+        if log:
+            series = {k: v for k, v in series.items() if all(x > 0 for x in v)}
+        tile, meta = _panel(ep, series, title, log)
+        r, c = (i // 3) * (h + GAP), (i % 3) * (w + GAP)
+        img[r:r + h, c:c + w] = tile
+        panels.append({"title": title, **meta})
+    return png.write(Path(out_dir) / "training_dashboard.png", img,
+                     {"dashboard": json.dumps({"panels": panels, "gap": GAP})})
 
 
 def save_triptychs(images, masks, preds, out_path: str | Path,

@@ -1,11 +1,17 @@
-"""Checkpoints of Path A, counterpart of ``mmr_tpu/train/checkpoint.py``
-(its best-by-F1 scheme, ``ModelTraining.py:477-489``, and the ``.pth``
-import and export; Path B's last / best-by-loss scheme waits, ROADMAP).
+"""Checkpoints, counterpart of ``mmr_tpu/train/checkpoint.py``: both
+reference schemes, and the ``.pth`` import and export.
 
-:class:`CheckpointManager` stores each checkpoint as one ``torch.save``
-file named as JAX names its orbax directory (``best_f1``), holding the
-model's ``state_dict``, the optimizer state and the step, with the same
-``<name>.json`` meta beside it (``{"epoch", "mean_f1"}``).
+- Path B (``Main_MMR_SegModel.py:892-1001``): :meth:`CheckpointManager.save`
+  writes ``last_model`` every epoch and promotes it to ``best_model`` when
+  the validation loss improves on the stored best's; each meta is
+  ``{"epoch", "validation_loss"}``. ``load(which="last_model")`` resumes.
+- Path A (``ModelTraining.py:477-489``):
+  :meth:`CheckpointManager.save_best_by_f1` writes ``best_f1`` only when
+  the mean F1 improves; its meta is ``{"epoch", "mean_f1"}``.
+
+Each checkpoint is one ``torch.save`` file named as JAX names its orbax
+directory, holding the model's ``state_dict``, the optimizer state and the
+step, with its ``<name>.json`` meta beside it.
 
 :func:`export_torch_checkpoint` and :func:`import_torch_checkpoint` read
 and write the reference's ``.pth`` layout (``checkpoint.py:158-255``):
@@ -45,7 +51,7 @@ def _load_tolerant(model: torch.nn.Module, sd: Mapping) -> list[str]:
 
 
 class CheckpointManager:
-    """Best-by-F1 checkpoints under ``directory``."""
+    """Last / best-by-loss and best-by-F1 checkpoints under ``directory``."""
 
     def __init__(self, directory: str | Path):
         self.dir = Path(directory)
@@ -58,6 +64,19 @@ class CheckpointManager:
         os.replace(tmp, self.dir / name)
         (self.dir / f"{name}.json").write_text(json.dumps(meta))
 
+    def save(self, state: TrainState, epoch: int, validation_loss: float) -> bool:
+        """Write ``last_model``; promote it to ``best_model`` when the
+        validation loss is below the stored best's (``:945-952``). True when
+        a new best was written."""
+        meta = {"epoch": int(epoch), "validation_loss": float(validation_loss)}
+        self._write("last_model", state, meta)
+        best = self.dir / "best_model.json"
+        prev = json.loads(best.read_text()) if best.exists() else None
+        if prev is None or validation_loss < prev["validation_loss"]:
+            self._write("best_model", state, meta)
+            return True
+        return False
+
     def save_best_by_f1(self, state: TrainState, epoch: int, mean_f1: float) -> bool:
         """Checkpoint only when mean F1 improves (``ModelTraining.py:477-489``);
         True when a new best was written."""
@@ -68,7 +87,7 @@ class CheckpointManager:
             return True
         return False
 
-    def load(self, template: TrainState, which: str = "best_f1",
+    def load(self, template: TrainState, which: str = "last_model",
              weights_only: bool = False) -> tuple[TrainState, dict]:
         """Load ``which`` into ``template`` (its model in place) and return
         it with the meta. ``weights_only=True`` restores the model's
@@ -97,7 +116,7 @@ class CheckpointManager:
             template.step = int(raw["step"])
         return template, meta
 
-    def exists(self, which: str = "best_f1") -> bool:
+    def exists(self, which: str = "last_model") -> bool:
         return (self.dir / which).exists()
 
 
@@ -108,16 +127,19 @@ def load_checkpoint_path(path: str | Path,
     run or another head). ``path`` is a ``.pth`` in the reference's layout
     (or a raw dict of flax names), a checkpoint file of
     :class:`CheckpointManager` (its ``<name>.json`` meta read when present),
-    or a run directory holding ``checkpoints/best_f1``. Entries missing
+    or a run directory holding ``checkpoints/`` (``best_f1``, else
+    ``best_model``, else ``last_model``). Entries missing
     from the file or of another shape keep the template's values and are
     listed in ``meta["skipped"]``. Returns ``(template, meta)``."""
     p = Path(path)
     if not p.exists():
         raise FileNotFoundError(f"no checkpoint found at '{p}'")
     if p.is_dir():
-        if not (p / "checkpoints" / "best_f1").is_file():
-            raise FileNotFoundError(f"{p}/checkpoints holds no best_f1 checkpoint")
-        p = p / "checkpoints" / "best_f1"
+        found = [p / "checkpoints" / n for n in ("best_f1", "best_model", "last_model")
+                 if (p / "checkpoints" / n).is_file()]
+        if not found:
+            raise FileNotFoundError(f"{p}/checkpoints holds no known checkpoint")
+        p = found[0]
     raw = torch.load(p, map_location="cpu", weights_only=True)
     if not (isinstance(raw, dict) and "model" in raw and "opt_state" in raw):
         return import_torch_checkpoint(p, template, strict=False)

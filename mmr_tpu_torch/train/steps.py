@@ -1,22 +1,31 @@
 """Train and eval steps (counterpart of ``mmr_tpu/train/steps.py``), on
 one device.
 
-One train step: per microbatch uint8 → /255 → ``preprocess`` →
-``augment`` → forward in train mode → loss → backward (gradients summed
-over the ``n_accum`` microbatches as the mean, BN running statistics
-updated microbatch by microbatch, as the JAX scan carries them) → clip +
-optimizer update. With the default DiceCE loss a fused model runs the head
-as the fused head + loss kernel (``steps.py:85-87``): loss and the
-per-batch macro IoU come from its statistics and confusion, and the NHWC
-logits never exist. The step updates the model's parameters and BN
-statistics and the optimizer state in place. ``augment`` is a callable
-``augment(generator, images, masks) -> (images, masks)``, as the JAX step
-takes a custom callable (the Path-A hook, ``cli/train_path_a.py:239-251``;
-:func:`mmr_tpu_torch.data.augment.augment_path_a_batch`); Path B's
-``AugmentConfig`` pipeline is not ported yet. A model with dropout (SegNet,
-DeepLabV3+) draws its masks in train mode from the step's ``generator``
-after the augmentation's draws, as JAX feeds its step's key to flax's
-``dropout`` stream.
+One train step: per microbatch the augmentation → forward in train mode →
+loss → backward (gradients summed over the ``n_accum`` microbatches as the
+mean, BN running statistics updated microbatch by microbatch, as the JAX
+scan carries them) → clip + optimizer update. With the default DiceCE loss
+a fused model runs the head as the fused head + loss kernel
+(``steps.py:85-87``): loss and the per-batch macro IoU come from its
+statistics and confusion, and the NHWC logits never exist. The step
+updates the model's parameters and BN statistics and the optimizer state
+in place.
+
+``augment`` is Path B's :class:`~mmr_tpu_torch.data.augment.AugmentConfig`
+or a callable ``augment(generator, images, masks) -> (images, masks)``
+(the Path-A hook, ``cli/train_path_a.py:239-251``). The input path is
+chosen where JAX chooses it (``steps.py:135-154``): uint8 images with an
+``AugmentConfig``, batch-shared spatial draws and a
+:class:`~mmr_tpu_torch.models.factory.Preprocessing` take
+``augment_train_batch_u8`` (the warp on the raw bytes, the normalization
+folded in after it); anything else runs /255 (uint8) → ``preprocess`` →
+the augmentation. An ``AugmentConfig`` draws from a CPU generator (its
+batch-shared scalars on the host, its per-sample draws on a device
+generator seeded from it). A model with dropout (SegNet, DeepLabV3+) draws
+its masks in train mode from the step's ``generator`` after a callable
+augmentation's draws, as JAX feeds its step's key to flax's ``dropout``
+stream; with an ``AugmentConfig``, from a device generator seeded from the
+CPU one.
 """
 
 from __future__ import annotations
@@ -26,9 +35,12 @@ from typing import Callable
 import torch
 
 from mmr_tpu_torch.core.device import resolve_device
+from mmr_tpu_torch.data.augment import (AugmentConfig, augment_train_batch,
+                                        augment_train_batch_u8)
 from mmr_tpu_torch.losses.dice_ce import dice_ce_loss
 from mmr_tpu_torch.metrics.confusion import segmentation_stats
 from mmr_tpu_torch.metrics.iou import iou_score
+from mmr_tpu_torch.models.factory import Preprocessing
 from mmr_tpu_torch.models.layers import dropouts, set_dropout
 from mmr_tpu_torch.ops.head_loss import assemble_dice_ce
 
@@ -71,14 +83,14 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
     ``images``: (n_accum, B, H, W, C) uint8 or f32 in [0, 1]; ``masks``:
     (n_accum, B, H, W) int; ``state.model`` is ``model``; ``generator``
     (a ``torch.Generator``, needed with ``augment`` and with dropout unless
-    every dropout's keep-mask is fed) supplies the augmentation and dropout
-    draws. ``metrics`` holds 0-d device tensors ``loss`` and ``iou`` (means
-    over the microbatches). ``device=None`` is CUDA."""
-    if augment is not None and not callable(augment):
-        raise NotImplementedError(
-            "only a callable augment(generator, images, masks) is ported; "
-            "the AugmentConfig pipeline (mmr_tpu/data/augment.py) is not "
-            "(ROADMAP.md)")
+    every dropout's keep-mask is fed; a CPU one with an ``AugmentConfig``)
+    supplies the augmentation and dropout draws. ``metrics`` holds 0-d
+    device tensors ``loss`` and ``iou`` (means over the microbatches).
+    ``device=None`` is CUDA."""
+    config = isinstance(augment, AugmentConfig)
+    if augment is not None and not config and not callable(augment):
+        raise TypeError("augment is an AugmentConfig or a callable "
+                        "augment(generator, images, masks)")
     dev = resolve_device(device)
     if fused_head_loss is None:
         fused_head_loss = loss_fn is dice_ce_loss and getattr(model, "fused", False)
@@ -88,10 +100,18 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
     drops = dropouts(model)
 
     def micro(images, masks, generator):
-        img = _prepare(images, dev, preprocess)
         msk = masks.to(dev, non_blocking=True)
-        if augment is not None:
-            img, msk = augment(generator, img, msk)
+        if (config and images.dtype == torch.uint8 and not augment.per_sample_spatial
+                and isinstance(preprocess, Preprocessing)):
+            img, msk = augment_train_batch_u8(
+                generator, images.to(dev, non_blocking=True), msk, augment,
+                preprocess.mean, preprocess.std)
+        else:
+            img = _prepare(images, dev, preprocess)
+            if config:
+                img, msk = augment_train_batch(generator, img, msk, augment)
+            elif augment is not None:
+                img, msk = augment(generator, img, msk)
         if fused_head_loss:
             res = model(img, labels=msk, with_conf=compute_iou)
             loss, conf = assemble_dice_ce(res["stats"], res["conf"], res["n_pixels"])
@@ -114,7 +134,13 @@ def make_train_step(model, optimizer, loss_fn: Callable, num_classes: int,
         if generator is None and any(m.keep is None for m in drops):
             raise ValueError("the model's dropout needs a generator for its "
                              "draws")
-        set_dropout(model, generator)
+        if config and generator.device.type != "cpu":
+            raise ValueError("an AugmentConfig draws from a CPU generator")
+        if config and drops:
+            set_dropout(model, torch.Generator(device=dev).manual_seed(
+                int(torch.randint(0, 2 ** 62, (1,), generator=generator))))
+        else:
+            set_dropout(model, generator)
         model.train()
         for p in params:
             p.grad = None

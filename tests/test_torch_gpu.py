@@ -902,3 +902,82 @@ def test_zoo_train_and_eval_on_card(dev, arch, k6, dx):
         report = evaluate_checkpoint(model, [(images[0], masks[0])], 10)
     assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (k6, 1)
     assert np.isfinite(report["mean_iou"])
+
+
+# ------------------------------------------------ Path B: augmentation, Trainer
+
+@pytest.mark.parametrize("heavy, warp", [(False, True), (False, False), (True, True)])
+def test_path_b_augment_on_card(dev, heavy, warp):
+    """Path B's augmentation on the card against the CPU on the same draws
+    (made on the CPU, fed to both): masks equal; images within atol 1e-3
+    (the card rounds exp, pow and the f32 statistics in its own order, so
+    a value can land on the neighbouring bf16 value; measured 3.05e-5 on
+    an H100, one bf16 step at |x| in [0.125, 0.25) is 9.8e-4), f32 and
+    uint8 paths; then the draws' own path on the card (a CPU generator,
+    per-sample draws on the card) runs."""
+    from mmr_tpu_torch.data.augment import (AugmentConfig, apply_augment,
+                                            apply_augment_u8, augment_draws,
+                                            augment_train_batch_u8)
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    cfg = AugmentConfig(patch_size=(64, 96), heavy=heavy, low_resolution=True)
+    g = torch.Generator().manual_seed(3)
+    img = torch.randint(0, 256, (6, 80, 112, 3), generator=g, dtype=torch.uint8)
+    masks = torch.randint(0, 10, (6, 80, 112), generator=g, dtype=torch.uint8)
+    d = next(d for s in range(200) for d in [augment_draws(
+        cfg, torch.Generator().manual_seed(s), img.shape, "cpu")] if d.warp == warp)
+    imf = (img.float() / 255 - torch.tensor(mean)) / torch.tensor(std)
+    for got, want in (
+            (apply_augment(imf.to(dev), masks.to(dev), d, cfg),
+             apply_augment(imf, masks, d, cfg)),
+            (apply_augment_u8(img.to(dev), masks.to(dev), d, cfg, mean, std),
+             apply_augment_u8(img, masks, d, cfg, mean, std))):
+        assert torch.equal(got[1].cpu(), want[1])
+        err = (got[0].cpu().float() - want[0].float()).abs().max().item()
+        print(f"card vs CPU: max |dimage| {err:.3e}")
+        assert err <= 1e-3, err
+    out, m = augment_train_batch_u8(torch.Generator().manual_seed(0), img.to(dev),
+                                    masks.to(dev), cfg, mean, std)
+    assert out.is_cuda and out.shape == (6, 64, 96, 3) and bool(torch.isfinite(out).all())
+
+
+def test_trainer_two_epochs_on_card(dev, tmp_path):
+    """Path B's ``Trainer`` for two epochs at 256×256 on the card with the
+    default augmentation through the uint8 path: the fused decoder,
+    front end and head + loss run (K1–K5b launch), the losses are finite,
+    every artifact is written, and a resume starts at epoch 3."""
+    from mmr_tpu_torch.config import get_default_config
+    from mmr_tpu_torch.train.engine import Trainer
+
+    class Sampler:
+        def __init__(self, n):
+            self.n = n
+
+        def __len__(self):
+            return self.n
+
+        def epoch(self, epoch_seed):
+            rng = np.random.RandomState(epoch_seed)
+            for _ in range(self.n):
+                yield (rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8),
+                       rng.randint(0, 10, (4, 256, 256)).astype(np.uint8))
+
+    cfg = get_default_config(9, (256, 256))
+    cfg.update(results_path=str(tmp_path), patch_size=[256, 256], n_epochs=2,
+               val_plot_interval=1)
+    tr = Trainer(cfg)
+    assert tr.model.fused and tr.model.encoder.fused_frontend
+    kernels = (fused_conv, fused_conv_bwd, fused_conv_down, fused_conv_down_bwd,
+               head_loss_fwd, head_loss_bwd)
+    before = [f.launches for f in kernels]
+    hist = tr.train(Sampler(3), Sampler(2))
+    assert all(b > a for a, b in zip(before, [f.launches for f in kernels]))
+    assert all(np.isfinite(hist["train_loss"] + hist["val_loss"]))
+    for f in ("training_metrics.json", "loss_dict.pkl", "training_dashboard.png",
+              "plots/loss.png", "plots/epoch_2.png", "checkpoints/last_model",
+              "checkpoints/best_model.json"):
+        assert (tmp_path / f).is_file(), f
+    cfg["n_epochs"] = 3
+    again = Trainer(cfg)
+    assert again.maybe_resume() and again.start_epoch == 3
+    assert again.train(Sampler(1), Sampler(1))["epoch"] == [3]

@@ -188,7 +188,7 @@ def test_run_inference_matches_jax(rng, tmp_path):
 def test_run_inference_refusals(rng):
     data = _Videos(rng, n_frames=1, hw=(32, 32))
     config = {"n_classes": 9, "patch_size": (32, 32)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="results_path"):
         run_inference(None, data, config, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

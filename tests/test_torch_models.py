@@ -147,7 +147,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown optimizer"):
         build_optimizer("adagrad")   # no such optimizer in the JAX package either
     model = create_model(classes=NC, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AugmentConfig or a callable"):
         make_train_step(model, build_optimizer("adamw"), dice_ce_loss, NC,
                         augment=object(), device="cpu")
 
@@ -166,14 +166,18 @@ def test_port_imports_no_jax():
     """Every module of the port (``cli/``, ``monitor/``, ``data/`` and
     ``core/`` included) and ``chip_smoke.py`` import no JAX and nothing of
     the JAX package, and none of the libraries the card's machine lacks
-    or the package rule forbids (cv2, matplotlib, orbax, yaml)."""
+    or the package rule forbids (cv2, matplotlib, orbax, yaml, psutil, tqdm,
+    tensorstore)."""
     files = sorted((REPO / "mmr_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     for sub in ("cli/train_path_a.py", "cli/eval_path_a.py", "monitor/plots.py",
-                "data/png.py", "data/png_dataset.py", "core/prng.py"):
+                "data/png.py", "data/png_dataset.py", "core/prng.py",
+                "config/config.py", "train/engine.py", "data/pipeline.py",
+                "core/precision.py"):
         assert REPO / "mmr_tpu_torch" / sub in files
     for f in files:
         bad = _imported_roots(f) & {"jax", "flax", "mmr_tpu", "jaxlib", "cv2",
-                                    "matplotlib", "orbax", "yaml"}
+                                    "matplotlib", "orbax", "yaml", "psutil",
+                                    "tqdm", "tensorstore"}
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"

@@ -318,7 +318,7 @@ def test_grad_accumulation_means_microbatches(case):
 
 def test_eval_step_and_unported_augment(case):
     """The eval step reports the loss and macro IoU of eval-mode logits;
-    train-time augmentation is not ported and raises."""
+    an augment that is neither an AugmentConfig nor a callable raises."""
     model = create_model(classes=NC, device="cpu", dtype=torch.float32)
     model.load_state_dict(from_jax_variables(case["variables"]))
     ev = make_eval_step(model, dice_ce_loss, NC, device="cpu",
@@ -328,5 +328,5 @@ def test_eval_step_and_unported_augment(case):
     assert np.isfinite(float(m["loss"])) and 0 <= float(m["iou"]) <= 1
     assert float((m["tp"] + m["fn"]).sum()) == np.prod(SHAPE)
     opt = build_optimizer("adamw")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AugmentConfig or a callable"):
         make_train_step(model, opt, dice_ce_loss, NC, augment=object(), device="cpu")
