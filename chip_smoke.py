@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (``mmr_tpu_torch``) on one NVIDIA card.
 
 Two paths of the UNet++/MobileNetV3 flagship, two of Path A's
-UNet++/ResNet-18, the rest of the Path-A zoo, and the standalone
-shifted-GEMM conv. The flagship at full width (10 classes,
+UNet++/ResNet-18, the rest of the Path-A zoo, the standalone
+shifted-GEMM conv, Path B's ``Trainer``, and the reference's best
+published models (Unet/ConvNeXt-V2, Segformer/MiT). The flagship at full width (10 classes,
 3,714,090 random weights from ``--seed``, BN perturbed away from
 identity): serving — full-HD 1080×1920 sliding-window inference, roi
 512×640, overlap 0.5, Gaussian blend, bf16, 6-frame temporal batches — and
@@ -103,6 +104,18 @@ front-end and head + loss).
     batch), the mean IoU against the plain K7's, the evaluator's model
     against its checkpoint; the evaluation's images/s, host issue and
     device busy.
+12. Path B's ``Trainer`` at the default config (``trainer_phase``): two
+    epochs, checkpoints, a resume, ``run_inference(save_plots=True)``.
+13. The reference's best published models (``published_phase``): the smp
+    Unet over ``tu-convnextv2_tiny`` with the fused decoder (31,976,426
+    parameters; K1 ×8 + K3 ×8, K5a + K5b a train step, K1 ×9 a forward)
+    and Segformer over ``mit_b2`` (24,745,162; its 3×3 head on K6a, K6a dx
+    and K6b), at B=8 512×640 and on 6 full-HD frames: eval logits of the
+    kernel path vs the plain bf16 path, one recorded train step held
+    launch by launch, the loss over five steps, step and serving times,
+    each launch timed and split; ``tu-convnext_tiny`` (UNet++) and
+    ``mit_b0`` (Segformer) at B=2 256×256; a weight store loaded through
+    ``create_model(encoder_weights="imagenet")`` bit-equal.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -211,8 +224,11 @@ def device_profile(fn, reps: int):
 
 def perturb(model, gen: torch.Generator):
     """Conv gain 1.1 and BN scale/shift/running stats away from identity,
-    so the logits are O(1) and a BN-fold error would show."""
-    from mmr_tpu_torch.models.layers import FusedBatchNorm
+    so the logits are O(1) and a BN-fold error would show; LayerNorm
+    scale/shift away from identity and GRN's gamma/beta away from 0 (the
+    MiT / ConvNeXt trunks), so a LayerNorm or GRN error would show too."""
+    from mmr_tpu_torch.models.encoders.convnext import GRN
+    from mmr_tpu_torch.models.layers import FusedBatchNorm, LayerNorm
 
     with torch.no_grad():
         for m in model.modules():
@@ -225,6 +241,14 @@ def perturb(model, gen: torch.Generator):
                 m.bias.copy_(0.1 * torch.randn(c, generator=gen))
                 m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
                 m.running_var.copy_(0.6 + 0.8 * rnd())
+            elif isinstance(m, LayerNorm):
+                c = m.weight.numel()
+                m.weight.copy_(0.9 + 0.4 * torch.rand(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            elif isinstance(m, GRN):
+                c = m.gamma.numel()
+                m.gamma.copy_(0.1 * torch.randn(c, generator=gen))
+                m.beta.copy_(0.1 * torch.randn(c, generator=gen))
 
 
 def k1_labels(min_hw: int) -> list[str]:
@@ -1678,6 +1702,251 @@ def trainer_phase(dev, seed, smi) -> dict:
     return launches
 
 
+# ------------------------------------------- the reference's best models
+
+PUB_UNET = ("Unet", "tu-convnextv2_tiny")   # PKG-INFO Example 3, 83.55 % mIoU
+PUB_SEG = ("Segformer", "mit_b2")           # PKG-INFO Example 2, 82.38 % mIoU
+PUB_PARAMS = {PUB_UNET: 31_976_426, PUB_SEG: 24_745_162}
+PUB_TRAIN = {PUB_UNET: _counts(K1=8, K3=8, K5a=1, K5b=1),   # blocks 1-4, head
+             PUB_SEG: _counts(K6a=2, K6b=1)}                # head: fwd, dx, dW
+PUB_EVAL = {PUB_UNET: _counts(K1=9), PUB_SEG: _counts(K6a=1)}   # a forward
+PUB_SMALL = (("UnetPlusPlus", "tu-convnext_tiny"), ("Segformer", "mit_b0"))
+PUB_SMALL_HW, PUB_SMALL_BATCH = (256, 256), 2
+
+
+def _launches() -> dict:
+    return {k: wrapper(k).launches for k in KERNELS}
+
+
+def _zero_launches():
+    for kind in KERNELS:
+        wrapper(kind).launches = 0
+
+
+def _logits_agree(phase, name, got, want, smi) -> None:
+    """Eval logits of the kernel path vs the plain bf16 path: atol 0.25 /
+    rtol 0.05, argmax agreement ≥ 0.99 (``TestPackedUnetPP``'s bounds)."""
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    dl = (got - want).abs().max().item()
+    within = bool(torch.allclose(got, want, atol=0.25, rtol=0.05))
+    print(f"[{phase}] {smi}: {name}: argmax agreement {agree:.5f}, max |dlogit| "
+          f"{dl:.4f} (max |logit| {want.abs().max().item():.3f}), within atol "
+          f".25/rtol .05: {within}", flush=True)
+    check(agree >= 0.99 and within and bool(torch.isfinite(got).all()),
+          f"{name}: the kernel path disagrees with the plain bf16 path")
+
+
+def _flat_tree(tree, prefix=""):
+    """{path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def published_phase(dev, seed, smi) -> dict:
+    """Phase 13: the reference's best published models at full width, 10
+    classes, bf16, random weights from the seed (BN, LayerNorm and GRN
+    perturbed): the smp Unet over ``tu-convnextv2_tiny`` with the fused
+    decoder (blocks 1-4 on K1, K3 backward; the head + loss on K5a / K5b;
+    block 0 at 32x40 on cuDNN) and Segformer over ``mit_b2`` (the 3x3 head
+    at 128x160 on K6a, K6a dx and K6b backward). For each: eval logits of
+    the kernel path vs the plain bf16 path (the Unet unfused, Segformer's
+    head on the library conv) at the TestPackedUnetPP bounds and the
+    launches of an eval forward; one recorded ``make_train_step`` step at
+    B=8 512x640 (AdamW, DiceCE) with every launch held against its plain
+    version at phase 6's bounds and the counts the code's; five steps on
+    one batch (the loss falls); 10 timed steps (median, host issue, device
+    busy, idle share); ``run_inference`` on 6 full-HD frames (frames/s and
+    the counts); each launch timed beside its bound, plain version and
+    library call, and split by device kernel. Then ``tu-convnext_tiny``
+    (UNet++) and ``mit_b0`` (Segformer) at B=2 256x256, one eval forward
+    each, and the weight store: a random ``tu-convnextv2_tiny`` encoder tree
+    saved by ``save_weight_store`` under a temporary
+    ``$MMR_TPU_WEIGHTS_DIR`` and loaded by ``create_model(encoder_weights=
+    "imagenet")`` on the card, bit-equal. Returns {model: {kind: kernel
+    entry}}."""
+    import os
+    import tempfile
+
+    from mmr_tpu_torch.data.synthetic import render_frame
+    from mmr_tpu_torch.infer.evaluator import run_inference
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from mmr_tpu_torch.models import create_model, get_preprocessing
+    from mmr_tpu_torch.models.convert import jax_leaf, to_jax_variables
+    from mmr_tpu_torch.models.pretrained import save_weight_store
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.schedules import build_lr_schedule
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed + 13)
+    frames = [render_frame(rng, *ROI, N_CLASSES - 1) for _ in range(TRAIN_BATCH)]
+    images = torch.from_numpy(np.stack(
+        [(f[0] * 255.0 + 0.5).astype(np.uint8) for f in frames]))[None]
+    masks = torch.from_numpy(np.stack([f[1] for f in frames]).astype(np.int64))[None]
+    fr = [render_frame(rng, *FRAME, N_CLASSES - 1) for _ in range(VIDEO_FRAMES)]
+    video = [{"id": "video_000", "t0": 0, "t1": VIDEO_FRAMES,
+              "image": np.stack([(f[0] * 255.0 + 0.5).astype(np.uint8) for f in fr]),
+              "mask": np.stack([f[1] for f in fr])}]
+    print(f"[13] rendered {TRAIN_BATCH} frames {ROI} and {VIDEO_FRAMES} full-HD "
+          f"frames in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    lr = build_lr_schedule({"name": "PolynomialLR", "total_iters": N_EPOCHS,
+                            "power": 0.9}, LR, N_EPOCHS)(0)
+    images_d, masks_d = images.to(dev), masks.to(dev)
+    out = {}
+    for key in (PUB_UNET, PUB_SEG):
+        arch, enc = key
+        name = f"{arch}/{enc}"
+        fused = {"fused": True} if arch == "Unet" else {}
+        gen = torch.Generator().manual_seed(seed + 13)
+        model = create_model(arch, encoder_name=enc, classes=N_CLASSES, device=dev,
+                             generator=gen, **fused)
+        perturb(model, gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == PUB_PARAMS[key], f"{name}: {n_params} parameters")
+        pre = get_preprocessing(enc)
+        x = pre(images_d[0].float() / 255.0)
+
+        # ---- 13a. eval: the kernel path vs the plain bf16 path ---------------
+        plain = create_model(arch, encoder_name=enc, classes=N_CLASSES, device=dev)
+        plain.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            _zero_launches()
+            got = model(x)
+            torch.cuda.synchronize()
+            launches = _launches()
+            with library_conv3x3():
+                want = plain(x)
+        del plain
+        print(f"[13] {name}: {n_params} parameters; launches of an eval forward "
+              f"(B={TRAIN_BATCH}): {launches}", flush=True)
+        check(launches == PUB_EVAL[key], f"{name}: expected {PUB_EVAL[key]} launches")
+        _logits_agree(13, f"{name} eval, kernels vs plain bf16", got, want, smi)
+        del got, want
+
+        # ---- 13b. one recorded train step ------------------------------------
+        opt = build_optimizer("adamw", clip_grad_norm=CLIP, weight_decay=1e-2)
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, opt, dice_ce_loss, N_CLASSES, preprocess=pre,
+                               device=dev)
+        with recording() as (records, recorders):
+            state, met = step(state, images, masks, lr)
+            torch.cuda.synchronize()
+        launches = {k: r.launches for k, r in recorders.items()}
+        print(f"[13] {name}: launches in one train step: {launches}", flush=True)
+        check(launches == PUB_TRAIN[key], f"{name}: expected {PUB_TRAIN[key]} "
+              "launches in a train step")
+        if arch == "Segformer":
+            n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
+            check(n_dx == 1, f"{name}: {n_dx} K6a dx launches, expected 1")
+        cases = hold_records(13, records)
+        del records
+
+        # ---- 13c. five steps on one batch: the loss falls ----------------------
+        losses = [float(met["loss"])]
+        for _ in range(4):
+            state, met = step(state, images_d, masks_d, lr)
+            losses.append(float(met["loss"]))
+        print(f"[13] {name}: losses over 5 steps: {[round(v, 5) for v in losses]}",
+              flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{name}: the loss did not fall over five steps")
+
+        # ---- 13d. times ------------------------------------------------------
+        print(f"[13] {smi}: {name} train step (B={TRAIN_BATCH}, {ROI[0]}x{ROI[1]}, "
+              "AdamW, DiceCE, bf16):", flush=True)
+        med = _timed_steps(13, lambda: step(state, images_d, masks_d, lr), TRAIN_STEPS)
+        print(f"[13] {smi}: {name} {TRAIN_BATCH * 1e3 / med:.2f} frames/s "
+              "trained", flush=True)
+        _zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = run_inference(model, video, {"n_classes": N_CLASSES - 1,
+                                                  "patch_size": ROI,
+                                                  "sw_overlap": 0.5},
+                                   preprocess=pre, save_plots=False, device=dev)
+        torch.cuda.synchronize()
+        served = _launches()
+        want = {k: VIDEO_FRAMES * n for k, n in PUB_EVAL[key].items()}
+        check(served == want, f"{name}: run_inference's launches are not "
+              f"{PUB_EVAL[key]} a frame")
+        check(np.isfinite(report["overall_mean_iou"]), f"{name}: non-finite IoU")
+        print(f"[13] {smi}: {name} run_inference on {VIDEO_FRAMES} full-HD frames "
+              f"(roi {ROI[0]}x{ROI[1]}, overlap 0.5, Gaussian, 20 windows a frame): "
+              f"{report['videos']['video_000']['fps']:.2f} frames/s, mean IoU "
+              f"{report['overall_mean_iou']:.4f}; launches {served}", flush=True)
+        time_cases(13, cases)
+        per = (f"sum over the launches of one {name} train step (B={TRAIN_BATCH}, "
+               f"{ROI[0]}x{ROI[1]})")
+        kinds = [k for k, n in PUB_TRAIN[key].items() if n]
+        out[name] = {k: kernel_entry(k, cases, launches[k], per) for k in kinds}
+        for k in kinds:
+            out[name][k]["device_ms"] = device_split(13, cases, k)
+            out[name][k]["serve_launches"] = served[k]
+        del model, state, step, opt, cases
+        torch.cuda.empty_cache()
+
+    # ---- 13e. the small builds ------------------------------------------------
+    for arch, enc in PUB_SMALL:
+        gen = torch.Generator().manual_seed(seed + 14)
+        model = create_model(arch, encoder_name=enc, classes=N_CLASSES, device=dev,
+                             generator=gen)
+        perturb(model, gen)
+        x = torch.rand((PUB_SMALL_BATCH, *PUB_SMALL_HW, 3), device=dev, generator=
+                       torch.Generator(device=dev).manual_seed(seed))
+        with torch.inference_mode():
+            y = model(get_preprocessing(enc)(x))
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (PUB_SMALL_BATCH, *PUB_SMALL_HW, N_CLASSES)
+              and bool(torch.isfinite(y).all()), f"{arch}/{enc}: bad output")
+        print(f"[13] {arch}/{enc}: {sum(p.numel() for p in model.parameters())} "
+              f"parameters, one eval forward at B={PUB_SMALL_BATCH} "
+              f"{PUB_SMALL_HW[0]}x{PUB_SMALL_HW[1]}: {tuple(y.shape)}, finite", flush=True)
+        del model
+
+    # ---- 13f. the weight store ---------------------------------------------
+    arch, enc = PUB_UNET
+    old = os.environ.get("MMR_TPU_WEIGHTS_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MMR_TPU_WEIGHTS_DIR"] = tmp
+        try:
+            with torch.device("meta"):
+                meta = create_model(arch, encoder_name=enc, classes=N_CLASSES,
+                                    device="meta", fused=True)
+            fill, params = np.random.RandomState(seed + 15), {}
+            for k, v in meta.encoder.state_dict().items():
+                _, node_path, leaf, a = jax_leaf(k, np.broadcast_to(np.float32(0), v.shape))
+                node = params
+                for q in node_path:
+                    node = node.setdefault(q, {})
+                node[leaf] = fill.uniform(0.01, 0.2, a.shape).astype(np.float32)
+            path = save_weight_store(enc, params, {})
+            model = create_model(arch, encoder_name=enc, classes=N_CLASSES, device=dev,
+                                 fused=True, encoder_weights="imagenet")
+            back = _flat_tree(to_jax_variables(model.encoder.state_dict())["params"])
+            want = _flat_tree(params)
+            check(back.keys() == want.keys() and all(
+                np.array_equal(back[k], want[k]) for k in want),
+                "the encoder loaded from the weight store is not bit-equal to it")
+            print(f"[13] weight store {os.path.basename(path)} ({len(want)} leaves) "
+                  f"loaded by create_model(encoder_weights='imagenet') on the card: "
+                  "bit-equal", flush=True)
+            del model, meta
+        finally:
+            if old is None:
+                os.environ.pop("MMR_TPU_WEIGHTS_DIR", None)
+            else:
+                os.environ["MMR_TPU_WEIGHTS_DIR"] = old
+    torch.cuda.empty_cache()
+    print(f"[13] {smi}: phase 13 wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1866,6 +2135,15 @@ def main() -> int:
         kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
         if kind is not None:
             e["trainer_launches"] = trained[kind]
+    # ---- 13. the reference's best published models ------------------------------
+    published = published_phase(dev, args.seed, smi)
+    for e in kernels:
+        kind = next((k for k in KERNELS if KERNELS[k][1] == e["name"]), None)
+        for name, entries in published.items():
+            if kind in entries and "(dense dx)" not in e["name"]:
+                e.setdefault("published", {})[name] = {
+                    k: v for k, v in entries[kind].items()
+                    if k not in ("name", "route", "source", "replaces")}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,23 @@
 """Encoder–decoder segmentation models over a pyramid encoder (counterpart
-of ``mmr_tpu/models/decoders.py``): UNet++, and smp's Unet, DeepLabV3+ and
-MAnet. Topology, concat order and module names replicate the JAX models,
-so JAX variables convert mechanically.
+of ``mmr_tpu/models/decoders.py``): UNet++, and smp's Unet, DeepLabV3+,
+MAnet and Segformer. Topology, concat order and module names replicate
+the JAX models, so JAX variables convert mechanically.
 
-UNet++ (smp ``UnetPlusPlusDecoder``, see :func:`smp_unetpp_plan`):
-``fused=True`` runs every node whose output H·W ≥ ``packed_min_hw`` as two
-K1 launches (:mod:`fused_blocks`) and the head as a third; smaller nodes
-stay on cuDNN. The plain and fused paths share one ``state_dict``. In train
-mode with ``labels`` the fused model runs the head as the fused head + loss
-kernel (:mod:`..ops.head_loss`) and returns the loss partials instead of
-logits.
+UNet++ (smp ``UnetPlusPlusDecoder``, see :func:`smp_unetpp_plan`) and the
+smp Unet: ``fused=True`` runs every block whose output H·W ≥
+``packed_min_hw`` as two K1 launches (:mod:`fused_blocks`) and the head
+as a third; smaller blocks stay on cuDNN. The plain and fused paths share
+one ``state_dict``. In train mode with ``labels`` the fused model runs the
+head as the fused head + loss kernel (:mod:`..ops.head_loss`) and returns
+the loss partials instead of logits.
 
-Unet, DeepLabV3+ and MAnet run the plain path only: their bf16 3×3 stride-1
-convs at H·W ≥ 4096 (``Conv3x3``) take K6, the rest the library conv, as in
-JAX. The Unet ``packed=True`` path and Segformer are not ported (ROADMAP).
-Every forward takes an NHWC image batch and returns NHWC f32 logits.
+DeepLabV3+, MAnet and Segformer run the plain path only: their bf16 3×3
+stride-1 convs at H·W ≥ 4096 (``Conv3x3``) take K6, the rest the library
+conv, as in JAX. Encoders with four levels (ConvNeXt, MiT: f1 is
+``None``) drop the missing level as JAX does: UNet++ plans over four
+features and ends with a ×2 head, the Unet and MAnet take no skip there,
+DeepLabV3+ refuses them. Every forward takes an NHWC image batch and
+returns NHWC f32 logits.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from mmr_tpu_torch.models.fused_blocks import (FusedConvBN, Pending, as_array,
                                                as_pending, up_lazy)
 from mmr_tpu_torch.models.fused_blocks import hwio
 from mmr_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvBN, Dropout,
-                                         nchw, nhwc)
+                                         Linear, nchw, nhwc)
 from mmr_tpu_torch.ops.head_loss import fused_head_loss
 from mmr_tpu_torch.ops.resize import resize_bilinear, upsample2x
 
@@ -61,15 +64,20 @@ def _up_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 class SegmentationHead(FusedConvBN):
-    """3×3 conv + bias to classes (smp SegmentationHead, upsampling 1: every
-    ported decoder ends at full resolution; DeepLabV3+ resizes on its own)."""
+    """3×3 conv + bias to classes, then smp's ``UpsamplingBilinear2d``
+    (align_corners=True) by ``upsampling`` in the compute dtype, then f32
+    (``decoders.py:45-63``): ×4 in Segformer, ×2 in UNet++ over a
+    four-level encoder, else 1."""
 
     def __init__(self, in_ch: int, num_classes: int):
         super().__init__(in_ch, num_classes, act="identity", use_bn=False,
                          use_bias=True)
 
-    def forward(self, x):
-        return super().forward(x).float()
+    def forward(self, x, upsampling: int = 1):
+        y = super().forward(x)
+        if upsampling > 1:
+            y = _up_bilinear(y, upsampling)
+        return y.float()
 
     def fused_loss(self, top: Pending, labels: torch.Tensor,
                    with_conf: bool = True):
@@ -106,8 +114,11 @@ class UnetPlusPlusModel(nn.Module):
     """UNet++ — smp-exact nested dense decoder; 3,714,090 parameters with
     the mbv3-small encoder and 10 classes. Over ``resnet18`` (Path A's
     ``smp_UNet++``) the same generic plan runs with encoder channels (64,
-    64, 128, 256, 512). Every registered encoder has five feature levels,
-    so the head's upsampling is 1 (``decoders.py:324``).
+    64, 128, 256, 512). A four-level encoder (ConvNeXt, MiT) drops its
+    missing f1: the plan runs over four features, the last block ends at
+    stride 2 and the head upsamples ×2 (``decoders.py:297-302, 322-325``);
+    the fused path refuses such an encoder (JAX's packed decoder returns
+    its logits at stride 2 there, ``decoders.py:511-530``).
 
     ``forward`` takes an NHWC image batch and returns NHWC f32 logits.
     ``dtype`` is the compute dtype (parameters stay f32). ``fused=True``
@@ -136,12 +147,18 @@ class UnetPlusPlusModel(nn.Module):
         self.packed_min_hw = packed_min_hw
         self.dtype = dtype
         spec = get_encoder(encoder_name)
+        enc_ch = tuple(c for c in spec.channels if c)
+        if fused and len(enc_ch) < 5:
+            raise ValueError(
+                f"the fused UNet++ needs a five-level encoder; {encoder_name} "
+                "has no stride-2 feature (use fused=False)")
         self.encoder = spec.build(fused_frontend=fused_frontend)
-        self.plan = smp_unetpp_plan(spec.channels, tuple(decoder_channels))
+        self.plan = smp_unetpp_plan(enc_ch, tuple(decoder_channels))
         for (d, l), (i, s, o) in self.plan.items():
             self.add_module(f"x_{d}_{l}", DecoderBlock(i, s, o))
-        self.depth = len(spec.channels) - 1
-        self.head = SegmentationHead(decoder_channels[-1], num_classes)
+        self.depth = len(enc_ch) - 1
+        self.head_up = 2 ** max(0, 5 - len(enc_ch))
+        self.head = SegmentationHead(self.plan[(0, self.depth)][2], num_classes)
 
     def _node(self, d: int, l: int) -> DecoderBlock:
         return getattr(self, f"x_{d}_{l}")
@@ -151,7 +168,7 @@ class UnetPlusPlusModel(nn.Module):
         if labels is not None and not self.fused:
             raise ValueError("labels route the fused head + loss: fused=True only")
         x = nchw(x.to(self.dtype).contiguous())
-        fr = self.encoder(x)[::-1]             # [f5 .. f1], smp order
+        fr = [f for f in self.encoder(x) if f is not None][::-1]  # smp order
         depth = self.depth
         if self.fused:
             return self._fused_decoder(fr, depth, labels, with_conf)
@@ -167,7 +184,7 @@ class UnetPlusPlusModel(nn.Module):
                         + [fr[l + 1]]
                 dense[(d, l)] = self._node(d, l)(x_in, skips)
         dense[(0, depth)] = self._node(0, depth)(dense[(0, depth - 1)])
-        return nhwc(self.head(dense[(0, depth)]))
+        return nhwc(self.head(dense[(0, depth)], self.head_up))
 
     def _fused_decoder(self, fr, depth: int, labels=None, with_conf=True):
         """Same topology; nodes at an output scale with H·W ≥
@@ -194,16 +211,24 @@ class UnetPlusPlusModel(nn.Module):
                         + [fr[l + 1]]
                 dense[(d, l)] = run_node(d, l, x_in, skips)
         top = run_node(0, depth, dense[(0, depth - 1)], [])
-        if isinstance(top, Pending):
-            if labels is not None:
-                logp, stats, conf = self.head.fused_loss(top, labels, with_conf)
-                return {"stats": stats, "conf": conf,
-                        "n_pixels": labels.numel(), "logp": logp}
-            return self.head.fused([top]).raw.float()
+        return _fused_head(self.head, top, labels, with_conf)
+
+
+def _fused_head(head: SegmentationHead, top, labels, with_conf: bool):
+    """The head over a fused decoder's top: one K1 launch (NHWC f32
+    logits) or, with ``labels``, the fused head + loss (K5a; K5b backward)
+    and its ``{"stats", "conf", "n_pixels", "logp"}``; over a plain top
+    the plain head."""
+    if isinstance(top, Pending):
         if labels is not None:
-            raise ValueError("the fused head + loss needs the top node fused "
-                             "(its output H·W >= packed_min_hw)")
-        return nhwc(self.head(top))
+            logp, stats, conf = head.fused_loss(top, labels, with_conf)
+            return {"stats": stats, "conf": conf,
+                    "n_pixels": labels.numel(), "logp": logp}
+        return head.fused([top]).raw.float()
+    if labels is not None:
+        raise ValueError("the fused head + loss needs the top block fused "
+                         "(its output H·W >= packed_min_hw)")
+    return nhwc(head(top))
 
 
 def _encode(model: nn.Module, x: torch.Tensor) -> list[torch.Tensor]:
@@ -213,20 +238,33 @@ def _encode(model: nn.Module, x: torch.Tensor) -> list[torch.Tensor]:
 
 
 class UnetDecoderModel(nn.Module):
-    """smp ``Unet`` over a pyramid encoder (``decoders.py:83-110``, plain
-    path): five :class:`DecoderBlock` (×2 nearest upsample, concat the skip
-    [f4, f3, f2, f1, none], two ConvBN) and a 3×3 head. ``packed=True``
-    (the JAX packed-halo dataflow) is not ported and raises."""
+    """smp ``Unet`` over a pyramid encoder (``decoders.py:83-174``): five
+    :class:`DecoderBlock` (×2 nearest upsample, concat the skip [f4, f3,
+    f2, f1, none]; no skip where the encoder has no such level), two
+    ConvBN each, and a 3×3 head.
+
+    ``fused=True`` (bf16; JAX's ``packed=True``, ``_packed``) runs each
+    block whose output H·W ≥ ``packed_min_hw`` as ``DecoderBlock.fused``:
+    two K1 launches over the lazily ×2-upsampled block input and the raw
+    skip (one input where there is no skip), BN + ReLU pending into the
+    next launch; the blocks before the first such one stay on cuDNN. The
+    head then runs as K1 in eval and, with ``labels``, as the fused head +
+    loss (``forward`` returns ``{"stats", "conf", "n_pixels", "logp"}``,
+    as :class:`UnetPlusPlusModel`'s). The size rule is the port's UNet++
+    rule; JAX's ``choose_row_geom`` may also refuse a geometry its
+    packing cannot take, which leaves that block plain there."""
 
     def __init__(self, num_classes: int, encoder_name: str = "resnet18",
                  decoder_channels: tuple[int, ...] = (256, 128, 64, 32, 16),
-                 packed: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 fused: bool = False, packed_min_hw: int = 64 * 64,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if packed:
-            raise NotImplementedError("the packed smp Unet path is not ported "
-                                      "(ROADMAP.md)")
+        if fused and dtype != torch.bfloat16:
+            raise ValueError("the fused path computes in bf16")
         self.num_classes = num_classes
         self.encoder_name = encoder_name
+        self.fused = fused
+        self.packed_min_hw = packed_min_hw
         self.dtype = dtype
         spec = get_encoder(encoder_name)
         self.encoder = spec.build()
@@ -238,12 +276,22 @@ class UnetDecoderModel(nn.Module):
         self.n_blocks = len(decoder_channels)
         self.head = SegmentationHead(decoder_channels[-1], num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
+                with_conf: bool = True):
+        if labels is not None and not self.fused:
+            raise ValueError("labels route the fused head + loss: fused=True only")
         feats = _encode(self, x)
         skips = feats[:-1][::-1] + [None]
         y = feats[-1]
+        h5, w5 = y.shape[-2:]
         for i in range(self.n_blocks):
-            y = getattr(self, f"block{i}")(y, None if skips[i] is None else [skips[i]])
+            block, s = getattr(self, f"block{i}"), skips[i]
+            if self.fused and (h5 << (i + 1)) * (w5 << (i + 1)) >= self.packed_min_hw:
+                y = block.fused([up_lazy(y)] + ([] if s is None else [as_pending(s)]))
+            else:
+                y = block(as_array(y), None if s is None else [s])
+        if self.fused:
+            return _fused_head(self.head, y, labels, with_conf)
         return nhwc(self.head(y))
 
 
@@ -306,6 +354,10 @@ class DeepLabV3PlusModel(nn.Module):
         self.encoder_name = encoder_name
         self.dtype = dtype
         spec = get_encoder(encoder_name)
+        if not spec.channels[0]:
+            raise ValueError(
+                f"DeepLabV3+ dilates its encoder to output stride 16; "
+                f"{encoder_name} takes no output_stride (nor in JAX)")
         self.encoder = spec.build(output_stride=16)
         enc = spec.channels
         self.aspp = ASPP(enc[-1], aspp_ch, atrous_rates)
@@ -383,7 +435,8 @@ class MFAB(nn.Module):
 class MAnetModel(nn.Module):
     """smp ``MAnet`` (``decoders.py:736-763``): a :class:`PAB` centre on the
     deepest feature, :class:`MFAB` blocks wherever a skip exists, a plain
-    :class:`DecoderBlock` for the skipless tail, a 3×3 head."""
+    :class:`DecoderBlock` where none does (the tail; f1 of a four-level
+    encoder), a 3×3 head."""
 
     def __init__(self, num_classes: int, encoder_name: str = "resnet18",
                  decoder_channels: tuple[int, ...] = (256, 128, 64, 32, 16),
@@ -396,10 +449,10 @@ class MAnetModel(nn.Module):
         self.encoder = spec.build()
         enc = spec.channels
         self.center = PAB(enc[-1], pab_channels)
-        skip_ch = list(enc[:-1][::-1])
+        skip_ch = list(enc[:-1][::-1]) + [0]
         in_ch = [enc[-1]] + list(decoder_channels[:-1])
         for i, ch in enumerate(decoder_channels):
-            block = (MFAB(in_ch[i], skip_ch[i], ch) if i < len(skip_ch)
+            block = (MFAB(in_ch[i], skip_ch[i], ch) if skip_ch[i]
                      else DecoderBlock(in_ch[i], 0, ch))
             self.add_module(f"block{i}", block)
         self.n_blocks = len(decoder_channels)
@@ -407,9 +460,45 @@ class MAnetModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = _encode(self, x)
-        skips = feats[:-1][::-1]
+        skips = feats[:-1][::-1] + [None]
         y = self.center(feats[-1])
         for i in range(self.n_blocks):
             block = getattr(self, f"block{i}")
-            y = block(y, skips[i]) if i < len(skips) else block(y)
+            y = block(y, skips[i]) if skips[i] is not None else block(y)
         return nhwc(self.head(y))
+
+
+class SegformerModel(nn.Module):
+    """smp ``Segformer`` (``decoders.py:533-564``): the last four pyramid
+    levels each projected by a Dense (``linear_c{i}``) to ``embed_dim``,
+    bilinearly resized (align_corners=False) to the stride-4 level,
+    concatenated deepest first, fused by a 1×1 ConvBN + ReLU (``fuse``),
+    then the 3×3 head (K6a at bf16 when the stride-4 map has H·W ≥ 4096,
+    K6a dx and K6b backward) and its ×4 bilinear (align_corners=True)."""
+
+    def __init__(self, num_classes: int, encoder_name: str = "mit_b2",
+                 embed_dim: int = 256, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.encoder_name = encoder_name
+        self.dtype = dtype
+        spec = get_encoder(encoder_name)
+        self.encoder = spec.build()
+        chans = [c for c in spec.channels if c][-4:]
+        for i, c in enumerate(chans):
+            self.add_module(f"linear_c{i + 1}", Linear(c, embed_dim))
+        self.n_levels = len(chans)
+        self.fuse = ConvBN(embed_dim * len(chans), embed_dim, kernel=1, padding=0)
+        self.head = SegmentationHead(embed_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [f for f in _encode(self, x) if f is not None][-4:]
+        target = tuple(feats[0].shape[-2:])
+        proj = []
+        for i, f in enumerate(feats):
+            y = getattr(self, f"linear_c{i + 1}")(nhwc(f))
+            if tuple(y.shape[1:3]) != target:
+                y = resize_bilinear(y, target)
+            proj.append(y)
+        y = self.fuse(nchw(torch.cat(proj[::-1], -1)))
+        return nhwc(self.head(y, x.shape[1] // y.shape[2]))

@@ -64,6 +64,37 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, w, b)
 
 
+class Linear(nn.Linear):
+    """flax ``nn.Dense`` over the last axis: the f32 parameters cast to the
+    input's dtype, the product rounded to it, then the bias added in it
+    (flax adds the cast bias to the rounded product)."""
+
+    def forward(self, x):
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis (``normalization.py::
+    _compute_stats`` and ``_normalize``, flax 0.12): mean and the fast
+    variance ``max(E[x²] − E[x]², 0)`` in f32, then ``(x − mean) ·
+    (rsqrt(var + eps) · scale) + bias`` in f32, rounded once to the
+    input's dtype. ``F.layer_norm`` takes the centred variance instead."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
 class Conv3x3(Conv2d):
     """3×3 stride-1 SAME conv (JAX ``Conv3x3``) with ``nn.Conv2d``'s
     parameters. A bf16 input whose H·W ≥ 64·64 runs through

@@ -40,10 +40,12 @@ def _source_coords(out_size: int, in_size: int, align_corners: bool) -> np.ndarr
 
 
 @functools.lru_cache(maxsize=128)
+@torch.inference_mode(False)
 def _lerp_plan(in_size: int, out_size: int, align_corners: bool,
                device: torch.device, dtype: torch.dtype):
     """(lo, hi, 1 − w, w) of one axis: gather indices and weights in
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device``; ordinary tensors even when first made under
+    ``inference_mode`` (autograd may meet them later)."""
     src = _source_coords(out_size, in_size, align_corners)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
@@ -53,6 +55,7 @@ def _lerp_plan(in_size: int, out_size: int, align_corners: bool,
 
 
 @functools.lru_cache(maxsize=128)
+@torch.inference_mode(False)
 def _nearest_index(in_size: int, out_size: int, device: torch.device):
     """torch ``nn.Upsample(mode="nearest")``: floor(dst · in / out)."""
     return torch.arange(out_size, device=device) * in_size // out_size

@@ -20,7 +20,6 @@ a resumed run draws what an uninterrupted one does.
 
 from __future__ import annotations
 
-import logging
 import pickle
 import sys
 from collections.abc import Mapping
@@ -38,6 +37,7 @@ from mmr_tpu_torch.data.pipeline import (DeviceTransfer, PrefetchIterator,
 from mmr_tpu_torch.losses import dice_ce_loss
 from mmr_tpu_torch.models import create_model, get_preprocessing
 from mmr_tpu_torch.models.convert import from_jax_variables
+from mmr_tpu_torch.models.encoders import get_encoder
 from mmr_tpu_torch.monitor import (ProfilerTrace, TrainingMonitor, model_summary,
                                    save_dashboard, save_losses, save_triptychs)
 from mmr_tpu_torch.train.checkpoint import CheckpointManager
@@ -58,11 +58,17 @@ class Trainer:
     get_default_config`'s schema, ``results_path`` added) on ``device``
     (``None``: CUDA; ``"cpu"`` to run there).
 
-    On CUDA, a UNet++ at bf16 with patches of at least 128 turns ``fused``
-    on, and over an mbv3 encoder with ``w % 128 == 0`` and ``h % 4 == 0``
-    ``fused_frontend`` too (JAX's ``packed`` / ``packed_frontend`` gate,
-    ``engine.py:62-83``; the config's ``model.packed`` /
-    ``model.packed_frontend`` set them); elsewhere the plain model runs.
+    On CUDA, a UNet++ at bf16 with patches of at least 128 over a
+    five-level encoder turns ``fused`` on, and over an mbv3 encoder with
+    ``w % 128 == 0`` and ``h % 4 == 0`` ``fused_frontend`` too (JAX's
+    ``packed`` / ``packed_frontend`` gate, ``engine.py:62-83``, which
+    also packs a UNet++ over ConvNeXt or MiT and then returns its logits
+    at stride 2: the port leaves that one plain). The config's
+    ``model.packed`` / ``model.packed_frontend`` / ``model.packed_min_hw``
+    set them, for the smp Unet too (JAX's ``packed=True``); elsewhere the
+    plain model runs. ``model.encoder_weights`` (the default config's
+    ``imagenet``) loads through ``create_model``: from the offline weight
+    store, or, where it holds none, a warning and the random init.
     The samplers have JAX's ``PatchSampler`` interface: ``epoch(epoch_seed)``
     yields (images (B, H, W, 3) uint8 or f32 in [0, 1], masks (B, H, W)
     ints) and ``len()`` counts its batches."""
@@ -88,7 +94,9 @@ class Trainer:
                 model_cfg[name] = model_cfg.pop(jax_name)
         precision = resolve_precision(config.get("precision"))
         # the fused kernels compute in bf16 and exist on the card only
-        if (_is_unetpp(arch) and self.device.type == "cuda"
+        five_levels = self.encoder_name is None or all(
+            get_encoder(self.encoder_name).channels)
+        if (_is_unetpp(arch) and self.device.type == "cuda" and five_levels
                 and precision.compute_dtype == torch.bfloat16
                 and min(self.patch_size) >= 128):
             model_cfg.setdefault("fused", True)
@@ -99,7 +107,8 @@ class Trainer:
         self.model = create_model(arch, encoder_name=self.encoder_name,
                                   classes=self.n_classes,
                                   dtype=precision.compute_dtype, device=self.device,
-                                  generator=self.rng.named("init"), **model_cfg)
+                                  generator=self.rng.named("init"),
+                                  encoder_weights=self.encoder_weights, **model_cfg)
         self.preprocess = (get_preprocessing(self.encoder_name)
                            if self.encoder_name else None)
 
@@ -161,17 +170,13 @@ class Trainer:
     # ----------------------------------------------------------------- setup
     @torch.no_grad()
     def init_state(self, variables: Mapping | None = None) -> TrainState:
-        """The state over the model's weights: those ``create_model`` drew
-        from the seed's ``init`` stream, or, given ``variables`` (flax
-        ``{"params", "batch_stats"}`` as numpy, e.g. a JAX ``TrainState``'s),
-        those; the optimizer state at zero."""
+        """The state over the model's weights: those ``create_model`` made
+        (the seed's ``init`` stream, the encoder's pretrained weights where
+        the store has them), or, given ``variables`` (flax ``{"params",
+        "batch_stats"}`` as numpy, e.g. a JAX ``TrainState``'s), those; the
+        optimizer state at zero."""
         if variables is not None:
             self.model.load_state_dict(from_jax_variables(variables, self.model))
-        elif self.encoder_weights not in (None, "", "none", "None"):
-            logging.getLogger("mmr_tpu_torch").warning(
-                "pretrained weights %r for encoder %r are not available to "
-                "the port; using random init", self.encoder_weights,
-                self.encoder_name)
         self.state = TrainState.create(self.model, self.optimizer)
         return self.state
 

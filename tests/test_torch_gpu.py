@@ -235,6 +235,25 @@ def test_k1_moments_and_k3(dev, spec, cout, hw, batch):
     _grad_close("dbias", got[3], want[3])
 
 
+# the smp Unet over tu-convnextv2_tiny, B=8 512x640 (chip_smoke.py phase
+# 13): the fused blocks' conv1 — block 1's lazy x2 256 beside the raw
+# 192-channel skip (448 in, the widest concat a K1 launch meets), block 2's
+# 128 + 96, block 3's lone lazy 64 — then the widest concat at a ragged H
+# and W, and one raw 64 -> 32 input alone
+PUB_CONVS = [
+    ([(256, True), (192, False)], 128, (64, 80), 8),
+    ([(128, True), (96, False)], 64, (128, 160), 8),
+    ([(64, True)], 32, (256, 320), 8),
+    ([(256, True), (192, False)], 128, (62, 84), 2),
+    ([(64, False)], 32, (42, 70), 2),
+]
+
+
+@pytest.mark.parametrize("spec,cout,hw,batch", PUB_CONVS)
+def test_k1_k3_published_unet_shapes(dev, spec, cout, hw, batch):
+    test_k1_moments_and_k3(dev, spec, cout, hw, batch)
+
+
 # K1 on the Hopper tile's edges: W = 80 (a 64-pixel segment and 16 more),
 # H = 20 (not a multiple of a block's 8 rows), 1, 4 and 8 inputs with a
 # lazy x2 input and 24 / 48-channel inputs (chunks padded to 16), cout 16,
@@ -539,6 +558,16 @@ def test_k6a_k6b(dev, b, h, w, cin, cout):
     assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
     _grad_close("dw", dw, conv3x3_dw_ref(x, gy))
     assert torch.equal(conv3x3_dw(x, gy), dw)    # no atomics: the same bits
+
+
+# Segformer's head over mit_b2 at B=8 512x640: 256 -> 10 at stride 4
+# (128x160), its dx 10 -> 256, and the same at a ragged H and W
+PUB_K6 = [(8, 128, 160, 256, 10), (8, 128, 160, 10, 256), (2, 33, 70, 256, 10)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", PUB_K6)
+def test_k6_segformer_head_shapes(dev, b, h, w, cin, cout):
+    test_k6a_k6b(dev, b, h, w, cin, cout)
 
 
 def test_k6_autograd_op(dev):

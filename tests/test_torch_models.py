@@ -136,10 +136,11 @@ def test_entry_points_refuse_cpu_fallback():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        create_model("Segformer", device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_model(encoder_name="mit_b2", device="cpu")
+    with pytest.raises(ValueError, match="unknown encoder"):
+        create_model(encoder_name="mit_b3", device="cpu")   # JAX has none either
+    with pytest.raises(NotImplementedError, match="MobileNetV3 stem"):
+        create_model(encoder_name="resnet18", device="cpu", fused=True,
+                     fused_frontend=True)
     from mmr_tpu_torch.losses import dice_ce_loss
     from mmr_tpu_torch.train.optim import build_optimizer
     from mmr_tpu_torch.train.steps import make_train_step

@@ -95,7 +95,8 @@ def test_weights_carry_across(case):
     """The port's ``smp_UNet++`` takes the JAX tree (ResNet names
     ``conv1``, ``bn1``, ``layer{i}_{b}/…``, ``downsample_*``) whole and
     gives it back unchanged; the zoo's other strings build other models
-    (``tests/test_torch_zoo.py``), and Segformer still raises."""
+    (``tests/test_torch_zoo.py``), and an encoder neither package has
+    raises."""
     model = _port(case)
     assert model.encoder_name == "resnet18"
     back = to_jax_variables(model.state_dict())
@@ -107,8 +108,8 @@ def test_weights_carry_across(case):
     for arch in ("segnet", "unet", "resnet18", "smp_unet18", "smp_DeepLabV3+",
                  "smp_MANet"):
         assert type(create_model(arch, device="cpu")) is not type(model)
-    with pytest.raises(NotImplementedError):
-        create_model("Segformer", device="cpu")
+    with pytest.raises(ValueError, match="unknown encoder"):
+        create_model("smp_UNet++", encoder_name="mit_b1", device="cpu")
     with pytest.raises(NotImplementedError):
         create_model("smp_UNet++", device="cpu", fused=True, fused_frontend=True)
 
