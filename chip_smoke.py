@@ -116,6 +116,17 @@ front-end and head + loss).
     each launch timed and split; ``tu-convnext_tiny`` (UNet++) and
     ``mit_b0`` (Segformer) at B=2 256×256; a weight store loaded through
     ``create_model(encoder_weights="imagenet")`` bit-equal.
+14. Path B end to end from Zarr stores on disk (``zarr_phase``): a
+    synthetic dataset of 3 videos × 8 full-HD frames (9 tool classes,
+    512×640 chunks, uint8) and one float32 store of 8 frames written by
+    ``make_synthetic_dataset``; the ``PatchSampler`` alone at B=8 512×640
+    for both dtypes (batches/s, decoded MB/s, against phase 12's step
+    rate); ``mmr_torch_train_model`` in process for 2 epochs of 6 + 2
+    batches, then ``-c`` for a third (launch counts the code's, files,
+    finite losses, the resume at epoch 3); ``mmr_torch_infer`` on the
+    saved test split (21 K1 + 2 K2 a frame; frames/s and the share of the
+    time spent reading frames); ``mmr_torch_visualize`` on one frame (a
+    triptych the PNG reader decodes).
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -156,7 +167,9 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -630,19 +643,22 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILES = 6   # profiles taken at most for one launch's device split
+
+
 def _profiled_parts(fn, args, names, part_of, reps):
     """({part: ms a call}, {part: events counted}) of ``reps`` calls of
     ``fn(**args)`` under ``torch.profiler``, a warm-up call inside it
     first. The profiler has been seen to lose some calls' events (0.2 to
     0.8 of them a call, or all of them) and, without a synchronize at each
-    step, to count the warm-up's: the profile is taken again, up to three
+    step, to count the warm-up's: the profile is taken again, up to six
     times, until it has events and every part counts a whole number of
     them a call, and a part's time is its mean event time times its events
     a call, rounded. ({}, {}) when no profile had an event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
+    for _ in range(PROFILES):
         with torch.no_grad(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
@@ -728,7 +744,7 @@ def device_split(phase, cases, kind, reps=5) -> dict:
             grid = (f"; grid {gr['blocks']} blocks ({gr['per_sm']} a SM x "
                     f"{gr['sms']} SMs, {gr['smem']} B shared memory); "
                     f"{graph} a call from a CUDA graph's replays")
-        dev = "not measured (no profiler event in 3 profiles)"
+        dev = f"not measured (no profiler event in {PROFILES} profiles)"
         if parts:
             dev = ", ".join(f"{k} {v:.4f} ({counts[k] / reps:g} a call)"
                             for k, v in parts.items()) + " ms"
@@ -1529,7 +1545,8 @@ def trainer_phase(dev, seed, smi) -> dict:
     video of 6 frames (its ``test_plots_0/config.yaml`` read back). Prints
     the epochs' times and samples/s, the train step's median, host issue,
     device busy and idle share, and the augmentation alone (device and
-    host-issue ms). Returns {kind: launches of the two-epoch run}."""
+    host-issue ms). Returns {"launches": {kind: launches of the two-epoch
+    run}, "history": the monitor's history, "step_ms": the step's median}."""
     import pickle
     import tempfile
 
@@ -1699,7 +1716,7 @@ def trainer_phase(dev, seed, smi) -> dict:
     torch.cuda.empty_cache()
     print(f"[12] {smi}: phase 12 wall time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches
+    return {"launches": launches, "history": hist, "step_ms": med}
 
 
 # ------------------------------------------- the reference's best models
@@ -1947,6 +1964,237 @@ def published_phase(dev, seed, smi) -> dict:
     return out
 
 
+# ------------------------------------------- Path B from Zarr stores, CLIs
+
+ZARR_VIDEOS, ZARR_FRAMES = 3, 8      # uint8 videos x full-HD frames; + 1 f32 store
+ZARR_SAMPLER_BATCHES = 24            # batches timed per dtype
+ZARR_TRAIN, ZARR_VAL, ZARR_EPOCHS = 6, 2, 2
+
+
+def sampler_decoded_bytes(sampler, epoch_seed) -> int:
+    """The bytes of chunks that ``sampler.epoch(epoch_seed)`` decodes: the
+    same epoch drawn again (the draws depend on the seed alone), each
+    read's chunks counted and read by a second, untimed pass."""
+    from mmr_tpu_torch.data import zarr_io
+
+    decoded, lock = [0], threading.Lock()
+    read_chunk = zarr_io.ZarrArray._read_chunk
+
+    def counting(self, idx):
+        chunk = read_chunk(self, idx)
+        if chunk is not None:
+            with lock:
+                decoded[0] += chunk.nbytes
+        return chunk
+
+    zarr_io.ZarrArray._read_chunk = counting
+    try:
+        for _ in sampler.epoch(epoch_seed=epoch_seed):
+            pass
+    finally:
+        zarr_io.ZarrArray._read_chunk = read_chunk
+    return decoded[0]
+
+
+def zarr_phase(dev, seed, smi, trained) -> dict:
+    """Phase 14: Path B end to end from Zarr stores on disk through the
+    port's CLIs, the flagship at its defaults (UNet++ over mbv3, 10
+    classes, 512×640, B=8). ``make_synthetic_dataset`` writes
+    ``ZARR_VIDEOS`` × ``ZARR_FRAMES`` full-HD frames (9 tool classes, 512×640
+    chunks, uint8) and one float32 store of ``ZARR_FRAMES`` frames (the
+    reference's schema); its split file is removed, so the CLI makes it.
+    Times the ``PatchSampler`` alone at B=8 512×640 for both dtypes
+    (batches/s, samples/s; MB/s of chunks decoded, the bytes counted in a
+    second, untimed pass) beside phase 12's step (``trained``). Runs
+    ``cli.train_model.main`` for ``ZARR_EPOCHS`` epochs of ``ZARR_TRAIN``
+    + ``ZARR_VAL`` batches, then ``-c`` for one more
+    (``n_epochs`` raised in its ``config.yaml``), ``cli.infer.main`` on the
+    saved test split (one video, ``infer_batch_size`` 6) and
+    ``cli.visualize.main`` on one frame. Checks exit codes, files, finite
+    losses, the launch counts (``trainer_counts`` of the steps and eval
+    forwards; 21 K1 + 2 K2 a served frame and a visualized forward), the
+    resume at epoch 3, the report and the triptych. Returns {kind:
+    launches of the two-epoch CLI run}."""
+    import pickle
+    import tempfile
+
+    from mmr_tpu_torch.cli import infer, train_model, visualize
+    from mmr_tpu_torch.config import create_config, read_config
+    from mmr_tpu_torch.data import png, video_dataset, zarr_io
+    from mmr_tpu_torch.data.augment import AugmentConfig
+    from mmr_tpu_torch.data.patch_dataset import PatchSampler
+    from mmr_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mmr_tpu_torch.infer.sliding_window import _window_starts
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the dataset -----------------------------------------------------
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(f"{tmp}/ds", ZARR_VIDEOS, ZARR_FRAMES, *FRAME,
+                                    N_CLASSES - 1, ROI, seed + 14, np.uint8)
+        (ds / "train_val_test_split.json").unlink()
+        t_u8 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f32 = make_synthetic_dataset(f"{tmp}/f32", 1, ZARR_FRAMES, *FRAME,
+                                     N_CLASSES - 1, ROI, seed + 15, np.float32)
+        t_f32 = time.perf_counter() - t0
+        for name, root, dt in (("uint8", ds, t_u8), ("float32", f32, t_f32)):
+            stores = [zarr_io.VideoStore(p) for p in zarr_io.list_dataset_stores(root)]
+            on_disk = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+            arrays = sum(np.prod(s.shape) * (3 * s.image_dtype.itemsize + 1) for s in stores)
+            print(f"[14] wrote {len(stores)} {name} store(s) of {ZARR_FRAMES} {FRAME[0]}x"
+                  f"{FRAME[1]} frames in {dt:.1f} s: {on_disk / 1e6:.1f} MB on disk for "
+                  f"{arrays / 1e6:.1f} MB of arrays (gzip level {zarr_io.GZIP_LEVEL})",
+                  flush=True)
+
+        # ---- the sampler alone -------------------------------------------------
+        initial = AugmentConfig(patch_size=ROI, low_resolution=False).initial_patch_size
+        step_rate = TRAIN_BATCH * 1e3 / trained["step_ms"]
+        rates = {}
+        for name, root in (("uint8", ds), ("float32", f32)):
+            sampler = PatchSampler(zarr_io.list_dataset_stores(root), ROI, TRAIN_BATCH,
+                                   ZARR_SAMPLER_BATCHES, initial_patch_size=initial,
+                                   seed=seed)
+            n, t0 = 0, time.perf_counter()
+            for imgs, masks in sampler.epoch(epoch_seed=seed):
+                n += 1
+            dt = time.perf_counter() - t0
+            check(n == ZARR_SAMPLER_BATCHES and imgs.shape == (TRAIN_BATCH, *initial, 3)
+                  and imgs.dtype == np.dtype(name), f"the {name} sampler's batches")
+            rates[name] = n * TRAIN_BATCH / dt
+            decoded = sampler_decoded_bytes(sampler, seed)
+            print(f"[14] {smi}: PatchSampler ({name}, B={TRAIN_BATCH}, {initial[0]}x"
+                  f"{initial[1]}): {n / dt:.2f} batches/s, {rates[name]:.1f} samples/s, "
+                  f"{decoded / 1e6 / dt:.1f} MB/s of chunks decoded "
+                  f"({decoded / 1e6 / n:.1f} MB a batch); phase 12's step in this call "
+                  f"takes {step_rate:.1f} samples/s", flush=True)
+
+        # ---- mmr_torch_train_model ----------------------------------------------
+        run = f"{tmp}/run"
+        argv = [str(ds), run, "train-val-test", str(N_CLASSES - 1), f"[{ROI[0]},{ROI[1]}]",
+                "--device", str(dev)]
+        _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_model.main(argv + [
+                "--n_epochs", str(ZARR_EPOCHS), "--steps_per_epoch", str(ZARR_TRAIN),
+                "--val_steps_per_epoch", str(ZARR_VAL), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        config = read_config(f"{run}/config.yaml")
+        forwards = ZARR_EPOCHS * ZARR_VAL + sum(
+            e % config["val_plot_interval"] == 0 for e in range(1, ZARR_EPOCHS + 1))
+        print(f"[14] mmr_torch_train_model: exit {rc} in {dt:.1f} s; launches {launches}",
+              flush=True)
+        check(rc == 0, "mmr_torch_train_model did not exit 0")
+        check(launches == trainer_counts(ZARR_EPOCHS * ZARR_TRAIN, forwards),
+              "the train CLI's launches are not its steps' and eval forwards'")
+        res = Path(run)
+        for f in (res / "config.yaml", res / "checkpoints" / "last_model",
+                  res / "checkpoints" / "best_model", ds / "train_val_test_split.json"):
+            check(f.is_file(), f"{f.name} was not written")
+        split = json.loads((ds / "train_val_test_split.json").read_text())
+        hist = json.loads((res / "training_metrics.json").read_text())
+        check(hist["epoch"] == list(range(1, ZARR_EPOCHS + 1))
+              and np.all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+              "the train CLI's losses are missing or not finite")
+        pool = trained["history"]
+        for e in range(ZARR_EPOCHS):
+            print(f"[14] {smi}: epoch {e + 1} from Zarr: {hist['epoch_time_s'][e]:.3f} s, "
+                  f"{hist['samples_per_sec'][e]:.2f} samples/s, train loss "
+                  f"{hist['train_loss'][e]:.5f}, val loss {hist['val_loss'][e]:.5f} "
+                  f"(phase 12's fixed pool: {pool['epoch_time_s'][e]:.3f} s, "
+                  f"{pool['samples_per_sec'][e]:.2f} samples/s)", flush=True)
+
+        # ---- -c for a third epoch ------------------------------------------------
+        create_config(dict(config, n_epochs=ZARR_EPOCHS + 1), run)
+        _zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_model.main(argv + ["-c"])
+        torch.cuda.synchronize()
+        resumed = _launches()
+        losses = pickle.loads((res / "loss_dict.pkl").read_bytes())
+        last = json.loads((res / "checkpoints" / "last_model.json").read_text())
+        logs = "".join(f.read_text() for f in res.glob("training_log_*.log"))
+        print(f"[14] mmr_torch_train_model -c: exit {rc}; last_model at epoch "
+              f"{last['epoch']}, {len(losses['train'])} train losses; launches {resumed}",
+              flush=True)
+        check(rc == 0 and last["epoch"] == ZARR_EPOCHS + 1
+              and f"Resumed from epoch {ZARR_EPOCHS}" in logs
+              and len(losses["train"]) == ZARR_EPOCHS + 1
+              and losses["train"][:ZARR_EPOCHS] == hist["train_loss"],
+              "the resume did not continue at epoch 3")
+        check(resumed == trainer_counts(ZARR_TRAIN, ZARR_VAL + (
+            (ZARR_EPOCHS + 1) % config["val_plot_interval"] == 0)),
+              "the resumed epoch's launches are not the code's")
+
+        # ---- mmr_torch_infer --------------------------------------------------------
+        reads = []
+        get_item = video_dataset.VideoFrameDataset.__getitem__
+
+        def timed_get(self, i):
+            t = time.perf_counter()
+            item = get_item(self, i)
+            reads.append(time.perf_counter() - t)
+            return item
+
+        _zero_launches()
+        video_dataset.VideoFrameDataset.__getitem__ = timed_get
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = infer.main([str(ds), run, "--infer_batch_size", "6",
+                                 "--device", str(dev)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            video_dataset.VideoFrameDataset.__getitem__ = get_item
+        served = _launches()
+        report = json.loads((res / "inference_report.json").read_text())
+        n_frames = len(split["test"]) * ZARR_FRAMES
+        print(f"[14] mmr_torch_infer: exit {rc} in {dt:.1f} s; {n_frames} frames of "
+              f"{split['test']}; launches {served}", flush=True)
+        check(rc == 0 and sorted(report["videos"]) == sorted(split["test"])
+              and np.isfinite(report["overall_mean_iou"]),
+              "mmr_torch_infer did not report the test split")
+        check(served == _counts(K1=21 * n_frames, K2=2 * n_frames),
+              "mmr_torch_infer's launches are not 21 K1 + 2 K2 a frame")
+        for v, r in report["videos"].items():
+            print(f"[14] {smi}: {v}: {r['fps']:.2f} frames/s (reads included), mean IoU "
+                  f"{r['mean_iou']:.4f}", flush=True)
+        print(f"[14] {smi}: reading frames took {sum(reads):.3f} s of the report's "
+              f"{report['total_time_s']:.3f} s ({len(reads)} chunks of <= 6 frames; read "
+              f"share {sum(reads) / report['total_time_s']:.3f})", flush=True)
+
+        # ---- mmr_torch_visualize --------------------------------------------------
+        n_win = (len(_window_starts(FRAME[0], ROI[0], 0.25))
+                 * len(_window_starts(FRAME[1], ROI[1], 0.25)))
+        vis_forwards = -(-n_win // config["sw_batch_size"])
+        store = ds / "data" / f"{split['test'][0]}.zarr"
+        _zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = visualize.main([run, str(store), "--frames", "3", "--out", f"{tmp}/vis",
+                                 "--device", str(dev)])
+        torch.cuda.synchronize()
+        shown = _launches()
+        img = png.read(f"{tmp}/vis/prediction_triptychs.png")
+        print(f"[14] mmr_torch_visualize: exit {rc}; triptych {img.shape}; "
+              f"launches {shown}", flush=True)
+        check(rc == 0 and img.shape == (FRAME[0], 3 * FRAME[1] + 2 * 4, 3),
+              "mmr_torch_visualize wrote no triptych of one frame")
+        check(shown == _counts(K1=21 * vis_forwards, K2=2 * vis_forwards),
+              "mmr_torch_visualize's launches are not its forwards'")
+    wall = time.perf_counter() - t_phase
+    print(f"[14] {smi}: sampler {rates['uint8']:.1f} (uint8) / {rates['float32']:.1f} "
+          f"(float32) samples/s, Zarr epochs {hist['epoch_time_s'][0]:.3f} / "
+          f"{hist['epoch_time_s'][1]:.3f} s, infer "
+          f"{min(r['fps'] for r in report['videos'].values()):.2f} frames/s; "
+          f"phase 14 wall time {wall:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2134,7 +2382,7 @@ def main() -> int:
     for e in kernels:
         kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
         if kind is not None:
-            e["trainer_launches"] = trained[kind]
+            e["trainer_launches"] = trained["launches"][kind]
     # ---- 13. the reference's best published models ------------------------------
     published = published_phase(dev, args.seed, smi)
     for e in kernels:
@@ -2144,6 +2392,12 @@ def main() -> int:
                 e.setdefault("published", {})[name] = {
                     k: v for k, v in entries[kind].items()
                     if k not in ("name", "route", "source", "replaces")}
+    # ---- 14. Path B from Zarr stores through its CLIs ----------------------------
+    zarr = zarr_phase(dev, args.seed, smi, trained)
+    for e in kernels:
+        kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
+        if kind is not None:
+            e["zarr_cli_launches"] = zarr[kind]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ greyscale file and ``(H, W, 3)`` uint8 RGB for the others: alpha is
 dropped and a palette expanded, as ``cv2.imread`` does (which gives BGR).
 Anything else raises ``ValueError`` with its reason: a bit depth other
 than 8, an interlaced file, grey + alpha, a bad chunk CRC, a truncated
-file. :func:`read_text` returns a file's ``tEXt`` chunks. :func:`write`
+file. :func:`read_text` returns a file's ``tEXt`` chunks; :func:`decode`
+does both for a file's bytes, and gives the stored samples on request. :func:`write`
 encodes (H, W) grey or (H, W, 3) RGB uint8, with optional ``tEXt``
 chunks.
 """
@@ -88,9 +89,11 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int, name: str) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def _decode(path: str | Path):
-    name = str(path)
-    data = Path(path).read_bytes()
+def decode(data: bytes, name: str = "<bytes>", samples: bool = False):
+    """(image, tEXt chunks) of the PNG file ``data`` (``name`` in errors).
+    The image as :func:`read` gives it; with ``samples``, the stored
+    samples as PIL's ``np.array(Image.open(...))`` gives them: (H, W)
+    grey or palette indices, (H, W, 3) RGB, (H, W, 4) RGBA."""
     header, palette, idat, text = None, None, [], {}
     for kind, body in _chunks(data, name):
         if kind == b"IHDR":
@@ -120,7 +123,9 @@ def _decode(path: str | Path):
         raise ValueError(f"{name}: truncated or corrupt image data ({e})") from None
     n = _CHANNELS[colour]
     px = _unfilter(raw, h, w, n, name)
-    if colour == 0:
+    if samples:
+        img = px[..., 0] if n == 1 else px
+    elif colour == 0:
         img = px[..., 0]
     elif colour == 3:
         if int(px.max(initial=0)) >= len(palette):
@@ -133,12 +138,12 @@ def _decode(path: str | Path):
 
 def read(path: str | Path) -> np.ndarray:
     """(H, W) uint8 for a greyscale file, else (H, W, 3) uint8 RGB."""
-    return _decode(path)[0]
+    return decode(Path(path).read_bytes(), str(path))[0]
 
 
 def read_text(path: str | Path) -> dict[str, str]:
     """The file's ``tEXt`` chunks, keyword -> text."""
-    return _decode(path)[1]
+    return decode(Path(path).read_bytes(), str(path))[1]
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -7,12 +7,7 @@ from __future__ import annotations
 
 import torch
 
-
-def one_hot(target: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """(…) int ids -> (…, C) f32; ids outside [0, C) give all zeros
-    (``mmr_tpu/ops/onehot.py::one_hot``)."""
-    classes = torch.arange(num_classes, device=target.device)
-    return (target.long()[..., None] == classes).float()
+from mmr_tpu_torch.ops.onehot import one_hot
 
 
 def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from mmr_tpu_torch.losses.ce import one_hot
+from mmr_tpu_torch.ops.onehot import one_hot
 
 
 def soft_dice_score(probs: torch.Tensor, target_onehot: torch.Tensor,

@@ -5,8 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from mmr_tpu_torch.losses.ce import cross_entropy_loss, one_hot
+from mmr_tpu_torch.losses.ce import cross_entropy_loss
 from mmr_tpu_torch.losses.dice import dice_loss
+from mmr_tpu_torch.ops.onehot import one_hot
 
 
 def blended_ce_dice_loss(logits: torch.Tensor, target: torch.Tensor,

@@ -168,17 +168,21 @@ def test_port_imports_no_jax():
     ``core/`` included) and ``chip_smoke.py`` import no JAX and nothing of
     the JAX package, and none of the libraries the card's machine lacks
     or the package rule forbids (cv2, matplotlib, orbax, yaml, psutil, tqdm,
-    tensorstore)."""
+    tensorstore, sklearn, PIL, zarr, numcodecs, zstandard, blosc)."""
     files = sorted((REPO / "mmr_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     for sub in ("cli/train_path_a.py", "cli/eval_path_a.py", "monitor/plots.py",
                 "data/png.py", "data/png_dataset.py", "core/prng.py",
                 "config/config.py", "train/engine.py", "data/pipeline.py",
-                "core/precision.py"):
+                "core/precision.py", "data/zarr_io.py", "data/patch_dataset.py",
+                "data/video_dataset.py", "data/splits.py", "data/synthetic.py",
+                "data/convert.py", "ops/onehot.py", "ops/padcrop.py",
+                "cli/train_model.py", "cli/infer.py", "cli/visualize.py"):
         assert REPO / "mmr_tpu_torch" / sub in files
     for f in files:
         bad = _imported_roots(f) & {"jax", "flax", "mmr_tpu", "jaxlib", "cv2",
                                     "matplotlib", "orbax", "yaml", "psutil",
-                                    "tqdm", "tensorstore"}
+                                    "tqdm", "tensorstore", "sklearn", "PIL",
+                                    "zarr", "numcodecs", "zstandard", "blosc"}
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"
