@@ -127,6 +127,22 @@ front-end and head + loss).
     saved test split (21 K1 + 2 K2 a frame; frames/s and the share of the
     time spent reading frames); ``mmr_torch_visualize`` on one frame (a
     triptych the PNG reader decodes).
+15. Data parallelism over two ranks under torchrun (``mesh_phase``): NCCL
+    with a card a rank where two cards are visible, else gloo with both
+    ranks on the one card. (a) The flagship's fused train step on phase
+    6's weights and batch split 4 + 4: each rank's 46 launches recorded
+    and held at phase 6's bounds; against one rank on all 8: loss rtol
+    2e-2, the clipped gradient's cosine ≥ 0.99 and norm within 2 %, BN
+    running statistics atol 1e-3 / rtol 1e-2; the plain f32 step: loss
+    rtol 1e-5, gradient relative L2 < 1e-2; each rank's step median, host
+    issue, device busy, collectives a step and their time. (b) 12 full-HD
+    frames through ``make_sliding_window_fn(mesh=)``, 6 a rank (21 K1 + 2
+    K2 a frame), gathered, against one rank serving all 12 (phase 3's
+    bounds); frames/s of both. (c) ``train_path_a`` under torchrun for one
+    epoch on phase 11's PNG frames: exit 0, each file and log line once,
+    each rank's K6a / K6b launches the code's. The ranks are this script
+    run by torchrun with ``--mesh-rank`` / ``--cli-rank``; their lines of
+    the phase are printed.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -217,11 +233,12 @@ def host_issue_ms(fn, reps: int) -> float:
     return sorted(ts)[len(ts) // 2]
 
 
-def device_profile(fn, reps: int):
+def device_profile(fn, reps: int, skip: str | None = None):
     """Device-busy ms per call — the sum of the device events (kernels,
-    copies) ``torch.profiler`` records over ``reps`` calls — and the top
-    device events as (name, ms per call, count per call). Busy is 0 when
-    the profiler records no device activity."""
+    copies) ``torch.profiler`` records over ``reps`` calls, but those whose
+    name holds ``skip`` (lower case) — and the top device events as (name,
+    ms per call, count per call). Busy is 0 when the profiler records no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,7 +246,8 @@ def device_profile(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not (skip and skip in e.key.lower())]
     ms = lambda e: e.self_device_time_total / 1e3 / reps
     top = sorted(dev, key=ms, reverse=True)[:8]
     return sum(ms(e) for e in dev), [(e.key[:70], ms(e), e.count / reps) for e in top]
@@ -948,6 +966,7 @@ def train_phase(model, dev, rng) -> dict:
     out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
     for kind in ("K1", "K2", "K3", "K4", "K5a", "K5b"):
         out[kind]["device_ms"] = device_split(6, cases, kind)
+    out["inputs"] = (sd0, images, masks, lr)   # phase 15's weights and batch
     return out
 
 
@@ -2195,15 +2214,403 @@ def zarr_phase(dev, seed, smi, trained) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- 15. data parallelism
+
+MESH_RANKS = 2
+MESH_STEPS = 5          # timed train steps a rank
+MESH_FRAMES = 12        # full-HD frames served over the ranks
+MESH_TIMEOUT = 600      # seconds a torchrun of phase 15 may take
+MESH_CLI_EPOCHS = 1
+RANK_SCRIPT = Path(__file__).resolve()   # what torchrun runs a rank of
+
+
+def mesh_backend() -> str:
+    """NCCL with one card a rank where there are cards enough, else gloo
+    with the ranks sharing the card."""
+    return "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+
+
+def torchrun(phase, args, what: str) -> str:
+    """``chip_smoke.py ARGS`` as ``MESH_RANKS`` ranks under torchrun, in a
+    session of its own (killed whole at the time limit); its phase lines go
+    to stdout, its end into a failed check."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MESH_RANKS), str(RANK_SCRIPT), *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True,
+                            cwd=Path(__file__).resolve().parent)
+    try:
+        out, _ = proc.communicate(timeout=MESH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in out.splitlines():
+        if f"[{phase}" in line:
+            print(line, flush=True)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+@contextlib.contextmanager
+def collectives(timed: bool = False):
+    """Count (and, ``timed``, time with the device drained around each
+    call) the collectives the port issues: ``torch.distributed``'s
+    all_reduce, broadcast and all_gather. Yields {"calls", "ms"}."""
+    import torch.distributed as dist
+
+    tally, saved = {"calls": 0, "ms": 0.0}, {}
+    for name in ("all_reduce", "broadcast", "all_gather"):
+        fn = saved[name] = getattr(dist, name)
+
+        def counted(*a, _fn=fn, **kw):
+            tally["calls"] += 1
+            if not timed:
+                return _fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            tally["ms"] += (time.perf_counter() - t) * 1e3
+            return out
+        setattr(dist, name, counted)
+    try:
+        yield tally
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def _clipped_grad(state) -> torch.Tensor:
+    """The step's clipped (and, on a mesh, rank-averaged) gradient: AdamW's
+    first moment after one step over 1 − b1."""
+    return state.opt_state["mu"] / (1.0 - 0.9)
+
+
+def _mesh_steps(model, mesh_or_dev, pre):
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from mmr_tpu_torch.train.optim import build_optimizer
+    from mmr_tpu_torch.train.state import TrainState
+    from mmr_tpu_torch.train.steps import make_train_step
+
+    opt = build_optimizer("adamw", clip_grad_norm=CLIP, weight_decay=1e-2)
+    where = ({"device": mesh_or_dev} if isinstance(mesh_or_dev, torch.device)
+             else {"mesh": mesh_or_dev})
+    return TrainState.create(model, opt), make_train_step(
+        model, opt, dice_ce_loss, N_CLASSES, preprocess=pre, **where)
+
+
+def mesh_rank(out: Path) -> None:
+    """One rank of phase 15 (a) and (b), run by torchrun: the flagship's
+    fused and plain f32 train steps on this rank's half of phase 6's batch,
+    every launch recorded and held, five timed steps with their
+    collectives; then this rank's frames of ``MESH_FRAMES`` full-HD frames
+    served, and on rank 0 one rank serving them all. Writes
+    ``out/rank<r>.pt``."""
+    import torch.distributed as dist
+    from mmr_tpu_torch.core.mesh import create_mesh, gather_batch, shard_batch
+    from mmr_tpu_torch.infer.sliding_window import make_sliding_window_fn
+    from mmr_tpu_torch.models import create_model, get_preprocessing
+    from mmr_tpu_torch.ops import _build
+    from mmr_tpu_torch.ops.fused_conv import fused_conv, fused_conv_down
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(backend=mesh_backend())
+    tag, dev = f"15 r{mesh.rank}", mesh.device
+    _build.library()
+    inp = torch.load(out / "inputs.pt", weights_only=False)
+    pre = get_preprocessing("tu-mobilenetv3_small_100")
+    print(f"[{tag}] {dist.get_backend()} rank {mesh.rank} of {mesh.size} on {dev} "
+          f"({torch.cuda.get_device_name(dev)})", flush=True)
+    res = {}
+
+    # ---- (a) the flagship's train step on 4 + 4 of phase 6's batch --------
+    images, masks = shard_batch(mesh, (inp["images"], inp["masks"]), axis=1)
+    fused = create_model(classes=N_CLASSES, device=dev, fused=True, fused_frontend=True)
+    fused.load_state_dict(inp["weights"])
+    state, step = _mesh_steps(fused, mesh, pre)
+    with recording() as (records, recorders), collectives() as calls:
+        state, met = step(state, images, masks, inp["lr"])
+        torch.cuda.synchronize()
+    launches = {k: r.launches for k, r in recorders.items()}
+    print(f"[{tag}] launches in one train step on {tuple(images.shape[1:])}: "
+          f"{launches}; collectives {calls['calls']}", flush=True)
+    check(launches == TRAIN_COUNTS, f"expected {TRAIN_COUNTS} launches")
+    cases = hold_records(tag, records)
+    res.update(loss=float(met["loss"]), iou=float(met["iou"]), launches=launches,
+               held=len(cases), collectives=calls["calls"],
+               grad=_clipped_grad(state).cpu(),
+               stats={k: v.cpu().clone() for k, v in fused.state_dict().items()
+                      if "running" in k})
+    del records, cases
+
+    run = lambda: step(state, images, masks, inp["lr"])
+    ts = []
+    for _ in range(MESH_STEPS):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    mesh.barrier()
+    with collectives(timed=True) as timed:
+        run()
+    res.update(step_ms=sorted(ts)[len(ts) // 2], issue_ms=host_issue_ms(run, 3),
+               busy_ms=device_profile(run, 2, skip="nccl")[0], collective_ms=timed["ms"],
+               collective_calls_timed=timed["calls"])
+    print(f"[{tag}] fused step median {res['step_ms']:.3f} ms ({MESH_STEPS} steps), "
+          f"host issue {res['issue_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms "
+          f"(NCCL's kernels left out: they wait for the peer); "
+          f"{timed['calls']} collectives a step, {timed['ms']:.3f} ms with the device "
+          f"drained around each", flush=True)
+
+    plain = create_model(classes=N_CLASSES, device=dev, dtype=torch.float32)
+    plain.load_state_dict(inp["weights"])
+    pstate, pstep = _mesh_steps(plain, mesh, pre)
+    pstate, pmet = pstep(pstate, images, masks, inp["lr"])
+    res.update(ploss=float(pmet["loss"]), pgrad=_clipped_grad(pstate).cpu())
+    del plain, pstate, pstep, state, step, run
+    torch.cuda.empty_cache()
+
+    # ---- (b) sharded serving ------------------------------------------------
+    fused.load_state_dict(inp["weights"])
+    fused.eval()
+    sw = make_sliding_window_fn(fused, ROI, N_CLASSES, preprocess=pre,
+                                compute_dtype=torch.bfloat16, fuse_blend=True, mesh=mesh)
+    sw(inp["frames"][:MESH_RANKS])   # warm-up
+    fused_conv.launches = fused_conv_down.launches = 0
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    local = sw(inp["frames"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    res["serve_launches"] = {"K1": fused_conv.launches, "K2": fused_conv_down.launches}
+    n_local = MESH_FRAMES // mesh.size
+    print(f"[{tag}] served {n_local} of {MESH_FRAMES} frames in {dt * 1e3:.1f} ms; "
+          f"launches {res['serve_launches']}", flush=True)
+    check(res["serve_launches"] == {"K1": 21 * n_local, "K2": 2 * n_local},
+          "a rank did not serve its frames through the kernels")
+    check(tuple(local.shape) == (n_local, *FRAME, N_CLASSES)
+          and bool(torch.isfinite(local).all()), "sharded logits")
+    slowest = torch.tensor([dt], device=dev)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    res["serve_s"] = slowest.item()
+    every = gather_batch(mesh, local)
+    del local
+    if mesh.rank == 0:
+        one = make_sliding_window_fn(fused, ROI, N_CLASSES, preprocess=pre,
+                                     compute_dtype=torch.bfloat16, fuse_blend=True,
+                                     device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref = one(inp["frames"])
+        torch.cuda.synchronize()
+        res["serve_one_s"] = time.perf_counter() - t
+        agree = (every.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        within = bool(torch.allclose(every, ref, atol=0.25, rtol=0.05))
+        res.update(serve_agree=agree, serve_within=within,
+                   serve_max_abs=(every - ref).abs().max().item())
+        print(f"[{tag}] {MESH_FRAMES} frames over {mesh.size} ranks vs one rank: "
+              f"argmax agreement {agree:.5f}, max |dlogit| {res['serve_max_abs']:.3e}, "
+              f"within atol .25/rtol .05: {within}", flush=True)
+        del ref
+    del every
+    torch.save(res, out / f"rank{mesh.rank}.pt")
+    mesh.barrier()
+
+
+def cli_rank(out: Path, args: list[str]) -> None:
+    """One rank of phase 15 (c): ``train_path_a.main(args)`` under torchrun,
+    its launch counts and exit code to ``out/cli_rank<r>.json``."""
+    import os
+
+    from mmr_tpu_torch.cli import train_path_a
+
+    for kind in KERNELS:
+        wrapper(kind).launches = 0
+    rc = train_path_a.main(args)
+    torch.cuda.synchronize()
+    rank = int(os.environ["RANK"])
+    (out / f"cli_rank{rank}.json").write_text(json.dumps(
+        {"rc": rc, "launches": {k: wrapper(k).launches for k in KERNELS}}))
+
+
+def mesh_phase(dev, seed, smi, inputs) -> dict:
+    """Phase 15: data parallelism over ``MESH_RANKS`` ranks (NCCL, one card
+    each, where there are cards enough; else gloo, the ranks sharing the
+    card). (a) The flagship's fused train step on phase 6's weights and
+    B=8 512×640 batch split 4 + 4 (every launch of each rank held; the
+    2-rank step against the 1-rank step on the global batch: loss rtol
+    2e-2, the clipped gradient's cosine ≥ 0.99 and norm within 2 %, BN
+    running statistics atol 1e-3 / rtol 1e-2; the plain f32 step: loss
+    rtol 1e-5, gradient relative L2 < 1e-2), step times and collectives;
+    (b) ``MESH_FRAMES`` full-HD frames through ``make_sliding_window_fn(
+    mesh=)`` against one rank serving them all (phase 3's bounds), launches
+    per rank, frames/s; (c) ``train_path_a`` under torchrun for one epoch
+    on phase 11's PNG frames: exit 0, each file once, the K6a / K6b / K7
+    launches each rank's code makes. Returns {kind: launches of rank 0}."""
+    import tempfile
+
+    from mmr_tpu_torch.data import png
+    from mmr_tpu_torch.data.synthetic import render_frame
+    from mmr_tpu_torch.models import create_model, get_preprocessing
+
+    t_phase = time.perf_counter()
+    backend = mesh_backend()
+    print(f"[15] {MESH_RANKS} ranks over {backend} "
+          f"({torch.cuda.device_count()} card(s) visible); {smi}", flush=True)
+    weights, images, masks, lr = inputs
+    pre = get_preprocessing("tu-mobilenetv3_small_100")
+    ref = {}
+    for name, kw in (("fused", {"fused": True, "fused_frontend": True}),
+                     ("plain", {"dtype": torch.float32})):
+        m = create_model(classes=N_CLASSES, device=dev, **kw)
+        m.load_state_dict(weights)
+        state, step = _mesh_steps(m, dev, pre)
+        state, met = step(state, images, masks, lr)
+        ref[name] = {"loss": float(met["loss"]), "grad": _clipped_grad(state),
+                     "stats": {k: v.clone() for k, v in m.state_dict().items()
+                               if "running" in k}}
+        if name == "fused":
+            images_d, masks_d = images.to(dev), masks.to(dev)
+            ref["step_ms"] = _timed_steps(15, lambda: step(state, images_d, masks_d, lr),
+                                          MESH_STEPS)
+        del m, state, step
+    rng = np.random.RandomState(seed + 15)
+    frames = np.stack([(render_frame(rng, *FRAME, N_CLASSES - 1)[0] * 255.0 + 0.5)
+                       .astype(np.uint8) for _ in range(MESH_FRAMES)])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        torch.save({"weights": {k: v.cpu() for k, v in weights.items()},
+                    "images": images, "masks": masks, "lr": lr, "frames": frames},
+                   out / "inputs.pt")
+        t0 = time.perf_counter()
+        torchrun(15, ["--mesh-rank", str(out)], "phase 15's ranks")
+        print(f"[15] (a) + (b): {MESH_RANKS} ranks in {time.perf_counter() - t0:.1f} s "
+              "(process start, build load and both parts)", flush=True)
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                 for r in range(MESH_RANKS)]
+
+        # ---- (a) against one rank on the global batch -------------------------
+        r0 = ranks[0]
+        for name, loss, grad, rtol in (("fused", r0["loss"], r0["grad"], 2e-2),
+                                       ("plain f32", r0["ploss"], r0["pgrad"], 1e-5)):
+            want = ref["fused" if name == "fused" else "plain"]
+            g, w = grad.to(dev).double(), want["grad"].double()
+            cos = (g @ w / (g.norm() * w.norm())).item()
+            norm = (g.norm() / w.norm()).item()
+            rel = ((g - w).norm() / w.norm()).item()
+            print(f"[15] {name} step, {MESH_RANKS} ranks vs 1 on the global batch: loss "
+                  f"{loss:.6f} vs {want['loss']:.6f}; clipped gradient cosine "
+                  f"{cos:.6f}, norm ratio {norm:.5f}, relative L2 {rel:.3e}", flush=True)
+            check(abs(loss - want["loss"]) <= rtol * abs(want["loss"]),
+                  f"the {name} loss on {MESH_RANKS} ranks differs from one rank's")
+            if name == "fused":
+                check(cos >= 0.99 and abs(norm - 1.0) <= 0.02,
+                      "the fused step's gradient on the ranks differs from one rank's")
+            else:
+                check(rel < 1e-2, "the plain f32 gradient on the ranks differs")
+        worst = max(((r["stats"][k].to(dev) - v).abs().max().item(), k)
+                    for r in ranks for k, v in ref["fused"]["stats"].items())
+        for r in ranks:
+            for k, v in ref["fused"]["stats"].items():
+                check(torch.allclose(r["stats"][k].to(dev), v, atol=1e-3, rtol=1e-2),
+                      f"BN statistic {k} on the ranks differs from one rank's")
+        print(f"[15] BN running statistics vs one rank: worst max |Δ| {worst[0]:.3e} "
+              f"({worst[1]})", flush=True)
+        for rank, r in enumerate(ranks):
+            check(r["launches"] == TRAIN_COUNTS and r["held"] == sum(TRAIN_COUNTS.values()),
+                  f"rank {rank} did not launch and hold every kernel")
+            print(f"[15] rank {rank}: step median {r['step_ms']:.3f} ms ({MESH_RANKS} ranks, "
+                  f"B={TRAIN_BATCH // MESH_RANKS} each; one rank B={TRAIN_BATCH}: "
+                  f"{ref['step_ms']:.3f} ms), host issue {r['issue_ms']:.3f} ms, device "
+                  f"busy {r['busy_ms']:.3f} ms; {r['collectives']} collectives a step, "
+                  f"{r['collective_ms']:.3f} ms with the device drained around each; "
+                  f"{smi}", flush=True)
+
+        # ---- (b) sharded serving ------------------------------------------------
+        check(r0["serve_agree"] >= 0.99 and r0["serve_within"],
+              "sharded serving disagrees with one rank serving every frame")
+        print(f"[15] serving {MESH_FRAMES} full-HD frames: {MESH_RANKS} ranks "
+              f"{MESH_FRAMES / r0['serve_s']:.2f} frames/s (slowest rank), one rank "
+              f"{MESH_FRAMES / r0['serve_one_s']:.2f} frames/s; launches a rank "
+              f"{[r['serve_launches'] for r in ranks]}; {smi}", flush=True)
+
+        # ---- (c) Path A's CLI under torchrun ----------------------------------------
+        root, run = out / "data", out / "run"
+        rng = np.random.RandomState(seed + 6)   # phase 11's frames
+        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+            for i in range(n):
+                img, mask = render_frame(rng, *PATH_A_HW, N_CLASSES - 1)
+                png.write(root / split / "images" / f"f{i:03d}.png",
+                          (img * 255.0 + 0.5).astype(np.uint8))
+                png.write(root / split / "groundtruth" / f"f{i:03d}.png", mask)
+        t0 = time.perf_counter()
+        torchrun(15, ["--cli-rank", str(out), "--",
+                      "--data_dir", str(root), "--model", "smp_UNet++",
+                      "--epochs", str(MESH_CLI_EPOCHS), "--trainBatchSize", str(CLI_BATCH),
+                      "--valBatchSize", str(CLI_VAL_BATCH), "--save_dir", str(run),
+                      "--seed", str(seed), "--resizedHeight", str(PATH_A_HW[0]),
+                      "--resizedWidth", str(PATH_A_HW[1]), "--backend", backend,
+                      "--device", str(dev)],
+                 "train_path_a under torchrun")
+        dt = time.perf_counter() - t0
+        cli = [json.loads((out / f"cli_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+        steps = MESH_CLI_EPOCHS * (CLI_TRAIN // CLI_BATCH)
+        forwards = (MESH_CLI_EPOCHS + 1) * (CLI_VAL // CLI_VAL_BATCH)   # val, heavy metrics
+        for rank, c in enumerate(cli):
+            sample = 1 if rank == 0 else 0   # rank 0 predicts the triptych's batch
+            want = _counts(K6a=K6_PER_FORWARD * (2 * steps + forwards + sample),
+                           K6b=K6_PER_FORWARD * steps)
+            print(f"[15] train_path_a rank {rank}: exit {c['rc']}, launches "
+                  f"{c['launches']}", flush=True)
+            check(c["rc"] == 0 and c["launches"] == want,
+                  f"train_path_a's rank {rank} launches are not the code's ({want})")
+        files = sorted(p.name for p in run.iterdir())
+        check(files == ["accuracy.png", "checkpoints", "epoch_1_samples.png", "loss.png",
+                        "train.log"], f"train_path_a wrote {files}")
+        log = (run / "train.log").read_text()
+        check(log.count(f"epoch {MESH_CLI_EPOCHS}/{MESH_CLI_EPOCHS}") == 1
+              and log.count("heavy metrics") == 1 and log.count(" done") == 1,
+              "train.log does not hold each line once")
+        print(f"[15] train_path_a under torchrun ({MESH_RANKS} ranks, {backend}): "
+              f"{dt:.1f} s, files {files}, each log line once", flush=True)
+    print(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"backend": backend, "launches": r0["launches"],
+            "cli_launches": cli[0]["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and the synthetic frames")
-    args = ap.parse_args()
+    ap.add_argument("--mesh-rank", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # phase 15's ranks (a), (b)
+    ap.add_argument("--cli-rank", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # phase 15's ranks (c), CLI args after --
+    args, cli_args = ap.parse_known_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.mesh_rank is not None:
+        mesh_rank(args.mesh_rank)
+        return 0
+    if args.cli_rank is not None:
+        cli_rank(args.cli_rank, cli_args[1:] if cli_args[:1] == ["--"] else cli_args)
+        return 0
+    if cli_args:
+        ap.error(f"unrecognized arguments: {' '.join(cli_args)}")
 
     from mmr_tpu_torch.data.synthetic import render_frame
     from mmr_tpu_torch.infer.evaluator import run_inference
@@ -2398,6 +2805,14 @@ def main() -> int:
         kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
         if kind is not None:
             e["zarr_cli_launches"] = zarr[kind]
+    # ---- 15. data parallelism over two ranks -------------------------------------
+    meshed = mesh_phase(dev, args.seed, smi, train["inputs"])
+    for e in kernels:
+        kind = next((k for k in KERNELS if KERNELS[k][1] == e["name"]), None)
+        if kind in FLAGSHIP:
+            e["mesh_launches_per_rank"] = meshed["launches"][kind]
+        elif kind in ("K6a", "K6b", "K7"):
+            e["mesh_cli_launches_rank0"] = meshed["cli_launches"][kind]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

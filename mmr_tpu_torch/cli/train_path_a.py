@@ -1,5 +1,11 @@
 """Path-A argparse trainer — the ``ModelTraining.py`` surface, counterpart
-of ``mmr_tpu/cli/train_path_a.py``, on one device.
+of ``mmr_tpu/cli/train_path_a.py``, on one device or data-parallel under
+``torchrun --nproc_per_node N`` (one card a rank over NCCL; with ``--device
+cpu`` gloo ranks on the CPU), its steps on the mesh as JAX builds them
+(``train_path_a.py:109-125``): each rank takes its slice of every train
+and validation batch (the batch sizes are global, multiples of N), the
+validation's counts and the heavy metrics are summed over the ranks, and
+rank 0 alone writes the log, checkpoints, curves and triptychs.
 
 The same flags (``ModelTraining.py:59-133``; canonical values in
 ``ConfigModelUnetPlus/train_sarrarp50.sh:4-28``) plus ``--device`` (default
@@ -20,19 +26,23 @@ Example:
         --model smp_UNet++ --epochs 20 --trainBatchSize 8 --lr 1e-3 \\
         --optimizer Adam --wd 1e-5 --dice_loss_factor 0.5 \\
         --resizedHeight 256 --resizedWidth 256 --save_dir runs/a
+On two cards: ``torchrun --nproc_per_node 2 -m mmr_tpu_torch.cli.train_path_a
+...`` with the same flags.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import logging
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from mmr_tpu_torch.core.device import resolve_device
+from mmr_tpu_torch.core.mesh import (broadcast_module, host_shard, launch_mesh,
+                                    psum_if_sharded)
 from mmr_tpu_torch.core.prng import RngStream, seed_everything
 from mmr_tpu_torch.data.augment import augment_path_a_batch
 from mmr_tpu_torch.data.classes import load_class_json, sarrarp50_key, sarrarp50_names
@@ -85,6 +95,10 @@ def parse_args(argv=None):
     p.add_argument("--heavy_metric_interval", type=int, default=25)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process group under torchrun: nccl (one card a rank; "
+                        "the default on cuda) or gloo (the CPU's; on cuda it "
+                        "lets ranks share a card)")
     return p.parse_args(argv)
 
 
@@ -111,12 +125,28 @@ def _predict(model, imgs: np.ndarray, dev) -> np.ndarray:
         return model(torch.from_numpy(imgs).to(dev)).argmax(-1).cpu().numpy()
 
 
+def _silent_logger() -> logging.Logger:
+    """The logger of a rank other than 0: it writes nothing."""
+    logger = logging.getLogger("mmr_tpu_torch.train_path_a.silent")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
+
+
+def _rank_sums(mesh, *values) -> list[float]:
+    """Host numbers summed over the mesh's ranks."""
+    t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    return psum_if_sharded(t, mesh).tolist()
+
+
 def main(argv=None):
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    mesh = launch_mesh(args.device, args.backend)
+    dev, main_rank = mesh.device, mesh.rank == 0
     save_dir = Path(args.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    logger = get_logger(save_dir)
+    logger = get_logger(save_dir) if main_rank else _silent_logger()
     rng = RngStream(seed_everything(args.seed))
 
     key, names = class_key(args.json_path)
@@ -142,8 +172,8 @@ def main(argv=None):
     loss_fn = functools.partial(blended_ce_dice_loss,
                                 dice_loss_factor=args.dice_loss_factor)
     train_step = make_train_step(model, optimizer, loss_fn, num_classes,
-                                 augment=augment_path_a_batch, device=dev)
-    eval_step = make_eval_step(model, loss_fn, num_classes, device=dev)
+                                 augment=augment_path_a_batch, mesh=mesh)
+    eval_step = make_eval_step(model, loss_fn, num_classes, mesh=mesh)
     ckpts = CheckpointManager(save_dir / "checkpoints")
 
     if args.resume:
@@ -172,6 +202,7 @@ def main(argv=None):
                         getattr(fresh, head).state_dict())
                     logger.info(f"re-initialized head {head!r} for resume")
             del fresh
+    broadcast_module(mesh, model)   # the ranks start from rank 0's weights
 
     history = {"epoch": [], "train_loss": [], "val_loss": [],
                "train_iou": [], "val_iou": []}
@@ -180,8 +211,9 @@ def main(argv=None):
         tr_losses, tr_ious = [], []
         for i, (imgs, masks) in enumerate(
                 train_ds.epoch(args.trainBatchSize, seed=args.seed + epoch)):
-            state, met = train_step(state, torch.from_numpy(imgs)[None],
-                                    torch.from_numpy(masks)[None], lr,
+            b_img, b_msk = host_shard(mesh, (imgs[None], masks[None]), axis=1)
+            state, met = train_step(state, torch.from_numpy(b_img),
+                                    torch.from_numpy(b_msk), lr,
                                     rng.step("train", epoch, i, device=dev))
             tr_losses.append(met["loss"])
             tr_ious.append(met["iou"])
@@ -189,7 +221,8 @@ def main(argv=None):
         ev = Evaluate(num_classes)
         va_losses, counts, last_batch = [], None, None
         for imgs, masks in val_ds.epoch(args.valBatchSize, shuffle=False):
-            met = eval_step(state, torch.from_numpy(imgs), torch.from_numpy(masks))
+            b_img, b_msk = host_shard(mesh, (imgs, masks))
+            met = eval_step(state, torch.from_numpy(b_img), torch.from_numpy(b_msk))
             va_losses.append(met["loss"])
             stats = torch.stack([met["tp"], met["fp"], met["fn"]])
             counts = stats if counts is None else counts + stats
@@ -221,27 +254,33 @@ def main(argv=None):
             tot_dice, tot_haus, n_img = 0.0, 0.0, 0
             eye = np.eye(num_classes, dtype=bool)
             for imgs, masks in val_ds.epoch(args.valBatchSize, shuffle=False):
+                imgs, masks = host_shard(mesh, (imgs, masks))
                 for p, m in zip(_predict(model, imgs, dev), masks):
                     tot_dice += float(binary_dice(eye[p], eye[m]))
                     tot_haus += sum(capped_hausdorff(p == c, m == c)
                                     for c in range(num_classes))
                     n_img += 1
+            tot_dice, tot_haus, n_img = _rank_sums(mesh, tot_dice, tot_haus, n_img)
+            n_img = int(n_img)
             logger.info(
                 f"  heavy metrics over {n_img} val images: "
                 f"mean dice {tot_dice / max(n_img, 1):.4f} "
                 f"mean hausdorff {tot_haus / max(n_img, 1):.1f}")
 
-        if ckpts.save_best_by_f1(state, epoch, mean_f1):
+        if main_rank and ckpts.save_best_by_f1(state, epoch, mean_f1):
             logger.info(f"  new best mean F1 {mean_f1:.4f} — checkpointed")
 
-        if epoch == args.epochs and strbool(args.save_samples) and last_batch is not None:
+        if (main_rank and epoch == args.epochs and strbool(args.save_samples)
+                and last_batch is not None):
             imgs, masks = last_batch
             save_triptychs(imgs, masks, _predict(model, imgs, dev),
                            save_dir / f"epoch_{epoch}_samples.png", key=key)
+        mesh.barrier()
 
-    save_losses(history["train_loss"], history["val_loss"], save_dir,
-                loss_name="CE+Dice")
-    save_accuracy_curves(history, save_dir)
+    if main_rank:
+        save_losses(history["train_loss"], history["val_loss"], save_dir,
+                    loss_name="CE+Dice")
+        save_accuracy_curves(history, save_dir)
     logger.info("done")
     return 0
 

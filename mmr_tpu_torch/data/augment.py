@@ -16,6 +16,12 @@ Path A (``augment_path_a_batch``; the reference's
 
 :func:`path_a_draws` draws, :func:`apply_path_a` applies.
 
+The ``augment_*`` functions take ``rows`` = (rank, ranks) on a
+data-parallel mesh: the draws are made for the global batch of ``ranks``
+equal shards and this rank's rows are applied (:func:`take_rows`), so the
+ranks together draw what one device draws for the whole batch (JAX's
+GSPMD step draws over the global batch).
+
 Path B (the nnU-Net pipeline, ``Pre_Process.py:278-463``; ranges by regime
 in :class:`AugmentConfig`): rotation and scaling (p = 0.2 each; one
 angle and scale for the whole batch unless ``per_sample_spatial``) with
@@ -112,12 +118,37 @@ def apply_path_a(images: torch.Tensor, masks: torch.Tensor, d: PathADraws):
     return images, masks
 
 
+def _global_batch(shape, rows) -> tuple[int, ...]:
+    """The shape of the global batch whose ``rows`` this batch is."""
+    return (shape[0] * (rows[1] if rows else 1),) + tuple(shape[1:])
+
+
+def take_rows(d, rows: tuple[int, int] | None, b: int):
+    """Draws (a draws dataclass) made for the global batch -> those of
+    rank ``rows[0]``'s ``b`` samples: every tensor cut on its first axis;
+    host scalars are the batch's. ``rows=None`` returns ``d``."""
+    if rows is None:
+        return d
+    return _map_draws(d, lambda v: v[rows[0] * b:(rows[0] + 1) * b])
+
+
+def _map_draws(d, fn):
+    """``d`` (a draws dataclass) with ``fn`` applied to each of its
+    tensors, those in tuples too; host values as they are."""
+    each = lambda v: fn(v) if isinstance(v, torch.Tensor) else v
+    return dataclasses.replace(d, **{
+        f.name: (tuple(map(each, v)) if isinstance(v, tuple) else each(v))
+        for f in dataclasses.fields(d) for v in (getattr(d, f.name),)})
+
+
 def augment_path_a_batch(generator: torch.Generator, images: torch.Tensor,
-                         masks: torch.Tensor):
+                         masks: torch.Tensor, rows: tuple[int, int] | None = None):
     """The Path-A augmentation with fresh draws from ``generator``: the
     ``augment(generator, images, masks)`` hook of
     :func:`mmr_tpu_torch.train.steps.make_train_step`."""
-    return apply_path_a(images, masks, path_a_draws(generator, images.shape[0]))
+    b = images.shape[0]
+    d = path_a_draws(generator, _global_batch(images.shape, rows)[0])
+    return apply_path_a(images, masks, take_rows(d, rows, b))
 
 
 # ------------------------------------------------------------------ Path B
@@ -476,10 +507,7 @@ def _intensity_and_mirror(images, masks, d: AugmentDraws, cfg: AugmentConfig):
 
 def _on(d: AugmentDraws, device) -> AugmentDraws:
     """The draws' tensors on ``device`` (no copy where they are already)."""
-    move = lambda v: v.to(device) if isinstance(v, torch.Tensor) else v
-    return dataclasses.replace(d, **{
-        f.name: (tuple(map(move, v)) if isinstance(v, tuple) else move(v))
-        for f in dataclasses.fields(d) for v in (getattr(d, f.name),)})
+    return _map_draws(d, lambda v: v.to(device))
 
 
 def apply_augment(images, masks, d: AugmentDraws, cfg: AugmentConfig):
@@ -532,17 +560,24 @@ def apply_augment_u8(images, masks, d: AugmentDraws, cfg: AugmentConfig,
     return _intensity_and_mirror(images, masks, d, cfg)
 
 
+def _batch_draws(cfg, generator, images, rows) -> AugmentDraws:
+    d = augment_draws(cfg, generator, _global_batch(images.shape, rows),
+                      images.device)
+    return take_rows(d, rows, images.shape[0])
+
+
 def augment_train_batch(generator: torch.Generator, images, masks,
-                        cfg: AugmentConfig):
+                        cfg: AugmentConfig, rows: tuple[int, int] | None = None):
     """Path B's augmentation of an f32 batch with fresh draws from the CPU
     ``generator`` (see :func:`augment_draws`)."""
-    return apply_augment(images, masks, augment_draws(
-        cfg, generator, images.shape, images.device), cfg)
+    return apply_augment(images, masks, _batch_draws(cfg, generator, images, rows),
+                         cfg)
 
 
 def augment_train_batch_u8(generator: torch.Generator, images, masks,
-                           cfg: AugmentConfig, mean: tuple, std: tuple):
+                           cfg: AugmentConfig, mean: tuple, std: tuple,
+                           rows: tuple[int, int] | None = None):
     """Path B's augmentation of a uint8 batch, normalization folded in,
     with fresh draws from the CPU ``generator``."""
-    return apply_augment_u8(images, masks, augment_draws(
-        cfg, generator, images.shape, images.device), cfg, mean, std)
+    return apply_augment_u8(images, masks, _batch_draws(cfg, generator, images, rows),
+                            cfg, mean, std)

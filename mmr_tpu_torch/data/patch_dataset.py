@@ -117,10 +117,15 @@ class PatchSampler:
         return self._class_locs[store_idx].get(int(t), {})
 
     # ----------------------------------------------------------------- epoch
-    def epoch(self, epoch_seed: int | None = None):
+    def epoch(self, epoch_seed: int | None = None, part: slice | None = None):
         """Yield ``steps_per_epoch`` batches of (images (B, h, w, 3) in the
         STORE dtype — uint8 0..255 for compact stores, f32 [0, 1] for the
         reference schema — masks (B, h, w) u8), (h, w) the initial patch.
+
+        ``part`` (a data-parallel rank's ``local_batch_slice``): every
+        draw of the global batch is made, in the same order, but only the
+        windows of the batch positions in ``part`` are read, and the
+        batches hold those samples alone.
 
         A batch's window reads all start before any is awaited, and the
         next batch's start before this one is yielded: their chunks decode
@@ -131,10 +136,11 @@ class PatchSampler:
         if epoch_seed is not None:
             self.rng = np.random.RandomState(epoch_seed)
         iph, ipw = self.initial_patch_size
+        keep = range(self.batch_size)[part or slice(None)]
 
         def start_batch():
             """Draw one batch's windows (every draw in order, on the
-            caller's thread) and start their reads."""
+            caller's thread) and start the reads of those in ``part``."""
             finishers = []
             for pos, sample_idx in enumerate(self._next_sample_indices(self.batch_size)):
                 si, t = self.samples[sample_idx]
@@ -142,8 +148,9 @@ class PatchSampler:
                               if self._force_fg(pos) else None)
                 y0, x0 = self._get_bbox(self.stores[si].shape[1:],
                                         frame_locs is not None, frame_locs)
-                finishers.append(self.stores[si].read_windows_async(
-                    t, y0, x0, iph, ipw))
+                if pos in keep:
+                    finishers.append(self.stores[si].read_windows_async(
+                        t, y0, x0, iph, ipw))
             return finishers
 
         pending = start_batch() if self.steps_per_epoch > 0 else None
@@ -151,8 +158,8 @@ class PatchSampler:
             finishers = pending
             # the next batch's chunks decode while this one is assembled
             pending = start_batch() if step + 1 < self.steps_per_epoch else None
-            imgs = np.empty((self.batch_size, iph, ipw, 3), self.stores[0].image_dtype)
-            masks = np.empty((self.batch_size, iph, ipw), np.uint8)
+            imgs = np.empty((len(keep), iph, ipw, 3), self.stores[0].image_dtype)
+            masks = np.empty((len(keep), iph, ipw), np.uint8)
             for pos, finish in enumerate(finishers):
                 imgs[pos], masks[pos] = finish()
             yield imgs, masks

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from mmr_tpu_torch.core.device import resolve_device
+from mmr_tpu_torch.core.mesh import shard_batch
 
 
 def _window_starts(image_size: int, roi: int, overlap: float) -> list[int]:
@@ -110,16 +111,26 @@ def make_sliding_window_fn(model, roi, num_classes: int,
                            sw_batch_size: int = 24, overlap: float = 0.5,
                            mode: str = "gaussian", preprocess=None,
                            compute_dtype: torch.dtype = torch.float32,
-                           fuse_blend: bool = False, device=None):
+                           fuse_blend: bool = False, device=None, mesh=None):
     """Bind a model into a frame-batch predictor ``(N, H, W, 3) -> (N, H, W,
     num_classes)`` f32 logits on ``device`` (default CUDA). Frames may be a
     numpy array or a tensor; uint8 frames are scaled by 1/255 on the
-    device."""
-    dev = resolve_device(device)
+    device.
+
+    With a multi-rank ``mesh`` (in place of ``device``) the frame axis is
+    split over the ranks (``sliding_window.py:275-290``): each rank takes
+    its N / ranks frames of the N it is given (N must divide), blends its
+    own frames' windows on ``mesh.device`` with no collective and returns
+    its frames' logits; :func:`~mmr_tpu_torch.core.mesh.gather_batch`
+    gives every frame's to a caller that needs them."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass device or mesh, not both")
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     @torch.inference_mode()
     def run(frames):
-        x = torch.as_tensor(frames).to(dev)
+        x = (shard_batch(mesh, torch.as_tensor(frames)) if mesh is not None
+             else torch.as_tensor(frames).to(dev))
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
         if preprocess is not None:

@@ -11,6 +11,12 @@ and they can be assigned and added to in place (``ev.tp += ...``, as the
 JAX trainer does). ``iou`` is ``tp / (tp + fp + fn + 1e-15)`` and
 ``precision_recall_f1`` uses the same epsilon, as the reference
 (``utils.py:140-181``).
+
+With a multi-rank ``mesh`` each rank adds its own slice's batches (its K7
+launches count only those), and the device totals are summed over the
+ranks when the host counts are read, so every rank reads the global
+counts. Every rank must then add the same number of batches and read the
+counts at the same points: the sum is a collective.
 """
 
 from __future__ import annotations
@@ -18,12 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mmr_tpu_torch.core.mesh import psum_if_sharded
 from mmr_tpu_torch.ops import confusion
 
 
 class Evaluate:
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, mesh=None):
         self.num_classes = num_classes
+        self.mesh = mesh
         self.reset()
 
     def reset(self) -> None:
@@ -46,10 +54,12 @@ class Evaluate:
         self._pending = True
 
     def _fold(self) -> np.ndarray:
-        """The (3, C) host counts, the device's added once since the last
-        ``add_batch``."""
+        """The (3, C) host counts, the device's (summed over the mesh's
+        ranks) added once since the last ``add_batch``."""
         if self._pending:
-            self._host += self._device.cpu().numpy()
+            total = self._device if self.mesh is None else psum_if_sharded(
+                self._device, self.mesh)
+            self._host += total.cpu().numpy()
             self._device.zero_()
             self._pending = False
         return self._host

@@ -15,7 +15,11 @@ Conventions:
   give them) and is normalized by one per-channel affine; an f32 input
   takes the variance in two passes, ``mean((x − mean)²)``, and is
   normalized centred. ``F.batch_norm`` is not used: it stores the unbiased
-  variance.
+  variance. While a step runs on a multi-rank mesh
+  (:mod:`mmr_tpu_torch.core.mesh`), train-mode statistics are those of the
+  global batch: the moments (and the f32 path's two sums) are summed over
+  the ranks, as JAX's ``FusedBatchNorm`` ``psum``s them under
+  ``shard_map`` and GSPMD reduces them over the global batch.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmr_tpu_torch.core.mesh import active_mesh, all_reduce_moments, all_reduce_sum
 from mmr_tpu_torch.ops import conv3x3_packed as k6
 
 
@@ -158,7 +163,10 @@ class FusedBatchNorm(nn.Module):
     def batch_affine(self, mom: torch.Tensor, count: int):
         """(s, t) from the batch moments ``mom`` (2, C) f32 over ``count``
         values per channel (gradients flow into ``mom``); updates the
-        running statistics in place (``packed_blocks.py::DeferredBN``)."""
+        running statistics in place (``packed_blocks.py::DeferredBN``).
+        On a multi-rank mesh the moments and the count are the global
+        batch's (``layers.py:149-156``)."""
+        mom, count = all_reduce_moments(mom, count)
         mean, var = moments_to_stats(mom, count)
         self._update_running(mean, var)
         s = self.weight * torch.rsqrt(var + self.eps)
@@ -187,11 +195,20 @@ class FusedBatchNorm(nn.Module):
         """``((x − mean)·s + β)`` in f32, rounded to x's dtype. In train
         mode the variance is two-pass, ``mean((x − mean)²)``: E[x²] − E[x]²
         put the f32 step-1 gradient of a UNet++/ResNet-18 case 3.7e-3 from
-        float64 (relative L2), the two-pass form 7.2e-6 (CPU measurement)."""
+        float64 (relative L2), the two-pass form 7.2e-6 (CPU measurement).
+        On a multi-rank mesh each pass's sums are summed over the ranks: the
+        global mean before the centred sum."""
         if self.training:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+            mesh = active_mesh()
+            if mesh is None:
+                mean = xf.mean((0, 2, 3))
+                var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+            else:
+                n = xf.numel() // xf.shape[1] * mesh.size
+                mean = all_reduce_sum(xf.sum((0, 2, 3)), mesh) / n
+                var = all_reduce_sum((xf - mean[:, None, None]).square()
+                                     .sum((0, 2, 3)), mesh) / n
             self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -276,13 +293,16 @@ class Dropout(nn.Module):
     ``nn.Dropout``: ``where(keep, x / (1 − rate), 0)``). The keep-mask is
     fed (:attr:`keep`, a bool tensor of :meth:`mask_shape`) or drawn from
     :attr:`generator`; the train step sets the generator
-    (:func:`set_dropout`). In train mode with neither, it raises."""
+    (:func:`set_dropout`). In train mode with neither, it raises. With
+    :attr:`rows` = (rank, ranks) the mask is drawn for the global batch of
+    ``ranks`` equal shards and this rank's rows are kept (GSPMD's draws)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
         self.keep: torch.Tensor | None = None
+        self.rows: tuple[int, int] | None = None
 
     def mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
         return tuple(x.shape)
@@ -293,8 +313,10 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise ValueError("dropout in train mode needs a generator or a "
                              "fed keep-mask")
-        u = torch.rand(self.mask_shape(x), generator=self.generator,
-                       device=self.generator.device)
+        shape = self.mask_shape(x)
+        rank, ranks = self.rows or (0, 1)
+        u = torch.rand((shape[0] * ranks,) + shape[1:], generator=self.generator,
+                       device=self.generator.device)[rank * shape[0]:(rank + 1) * shape[0]]
         return (u < 1.0 - self.rate).to(x.device)
 
     def forward(self, x):
@@ -324,10 +346,12 @@ def dropouts(model: nn.Module) -> list[Dropout]:
             if isinstance(m, Dropout) and m.rate > 0.0]
 
 
-def set_dropout(model: nn.Module, generator: torch.Generator | None):
-    """Let every dropout of ``model`` draw its masks from ``generator``."""
+def set_dropout(model: nn.Module, generator: torch.Generator | None,
+                rows: tuple[int, int] | None = None):
+    """Let every dropout of ``model`` draw its masks from ``generator``
+    (``rows``: see :class:`Dropout`)."""
     for m in dropouts(model):
-        m.generator = generator
+        m.generator, m.rows = generator, rows
 
 
 class SqueezeExcite(nn.Module):

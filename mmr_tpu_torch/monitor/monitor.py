@@ -75,7 +75,11 @@ def _cpu_percent(last, now) -> float:
 
 
 class TrainingMonitor:
-    def __init__(self, results_path: str | Path, n_epochs: int):
+    """``write=False`` (a data-parallel rank other than 0) keeps the
+    history and neither prints nor writes the log."""
+
+    def __init__(self, results_path: str | Path, n_epochs: int, write: bool = True):
+        self.write = write
         self.results_path = Path(results_path)
         self.results_path.mkdir(parents=True, exist_ok=True)
         self.n_epochs = n_epochs
@@ -90,6 +94,8 @@ class TrainingMonitor:
         self._cpu = _cpu_times()
 
     def log_message(self, message: str, level: str = "INFO") -> None:
+        if not self.write:
+            return
         line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] [{level}] {message}"
         print(line, flush=True)
         with open(self.log_file, "a") as f:

@@ -1,6 +1,6 @@
 """Training engine, counterpart of ``mmr_tpu/train/engine.py``: the
 reference's ``SegModel`` orchestrator (``Main_MMR_SegModel.py:520-1203``)
-on one device.
+on one device or on a data-parallel mesh (one process a rank, ``torchrun``).
 
 The epoch loop (``train()``, ``:1076-1203``): train epoch → validation →
 monitor (throughput, ETA, memory) → loss curves, metrics JSON and
@@ -16,6 +16,14 @@ runs on the device inside the train step; the per-step losses, IoUs and
 the validation's confusion counts stay on the device and are read once an
 epoch. Each step's draws come from a generator of (seed, epoch, step), so
 a resumed run draws what an uninterrupted one does.
+
+On a multi-rank :class:`~mmr_tpu_torch.core.mesh.Mesh` every rank draws the
+same global batches from the same epoch seeds and transfers only its slice
+(``engine.py:195-220``); a :class:`~mmr_tpu_torch.data.patch_dataset.
+PatchSampler` reads only that slice's windows. The steps run on the mesh.
+Rank 0 alone writes the log, checkpoints, metrics JSON, plots, triptychs
+(of its own slice's samples) and profiler traces, once, while the other
+ranks wait at a barrier; a resume reads ``last_model`` on every rank.
 """
 
 from __future__ import annotations
@@ -29,9 +37,12 @@ import numpy as np
 import torch
 
 from mmr_tpu_torch.core.device import resolve_device
+from mmr_tpu_torch.core.mesh import (Mesh, broadcast_module, host_shard,
+                                    local_batch_slice)
 from mmr_tpu_torch.core.precision import resolve as resolve_precision
 from mmr_tpu_torch.core.prng import RngStream, seed_everything
 from mmr_tpu_torch.data.augment import AugmentConfig
+from mmr_tpu_torch.data.patch_dataset import PatchSampler
 from mmr_tpu_torch.data.pipeline import (DeviceTransfer, PrefetchIterator,
                                          microbatch_stacker)
 from mmr_tpu_torch.losses import dice_ce_loss
@@ -56,7 +67,9 @@ def _is_unetpp(arch: str) -> bool:
 class Trainer:
     """Path B's trainer over ``config`` (:func:`~mmr_tpu_torch.config.
     get_default_config`'s schema, ``results_path`` added) on ``device``
-    (``None``: CUDA; ``"cpu"`` to run there).
+    (``None``: CUDA; ``"cpu"`` to run there), or on ``mesh`` (its rank's
+    device; see the module's docstring). As in JAX, ``config["mesh"]`` is
+    not read.
 
     On CUDA, a UNet++ at bf16 with patches of at least 128 over a
     five-level encoder turns ``fused`` on, and over an mbv3 encoder with
@@ -73,9 +86,14 @@ class Trainer:
     yields (images (B, H, W, 3) uint8 or f32 in [0, 1], masks (B, H, W)
     ints) and ``len()`` counts its batches."""
 
-    def __init__(self, config: dict, loss_fn=None, device=None):
+    def __init__(self, config: dict, mesh: Mesh | None = None, loss_fn=None,
+                 device=None):
         self.config = config
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass device or mesh, not both")
+        self.mesh = mesh or Mesh(0, 1, None, resolve_device(device))
+        self.device = self.mesh.device
+        self.is_main = self.mesh.rank == 0
         self.results_path = Path(config["results_path"])
         self.results_path.mkdir(parents=True, exist_ok=True)
         self.n_classes = int(config["n_classes"]) + 1  # + background (common_utils.py:236)
@@ -138,7 +156,8 @@ class Trainer:
             per_sample_spatial=aug_cfg.get("per_sample_spatial", False),
         )
 
-        self.monitor = TrainingMonitor(self.results_path, self.n_epochs)
+        self.monitor = TrainingMonitor(self.results_path, self.n_epochs,
+                                       write=self.is_main)
         if aug_cfg.get("heavy_augmentation") and not aug_cfg.get("per_sample_spatial"):
             # the batch-shared spatial draws differ from the reference's
             # per-sample ones (Pre_Process.py:278-463); say so
@@ -163,9 +182,9 @@ class Trainer:
         self._train_step = make_train_step(
             self.model, self.optimizer, self.loss_fn, self.n_classes,
             n_accum=self.n_accum, augment=self.augment, preprocess=self.preprocess,
-            device=self.device)
+            mesh=self.mesh)
         self._eval_step = make_eval_step(self.model, self.loss_fn, self.n_classes,
-                                         preprocess=self.preprocess, device=self.device)
+                                         preprocess=self.preprocess, mesh=self.mesh)
 
     # ----------------------------------------------------------------- setup
     @torch.no_grad()
@@ -177,6 +196,7 @@ class Trainer:
         optimizer state at zero."""
         if variables is not None:
             self.model.load_state_dict(from_jax_variables(variables, self.model))
+        broadcast_module(self.mesh, self.model)
         self.state = TrainState.create(self.model, self.optimizer)
         return self.state
 
@@ -199,20 +219,31 @@ class Trainer:
         """The epoch's batches on the device, staged ahead: images as uint8
         (float images are k/255 values, so the copy is lossless and 4×
         smaller; the steps convert back), masks as uint8 (int32 past 255
-        classes); train batches stacked (n_accum, B, ...)."""
+        classes); train batches stacked (n_accum, B, ...). On a multi-rank
+        mesh, this rank's slice of each (a ``PatchSampler`` yields only
+        that)."""
         mask_dtype = np.uint8 if self.n_classes <= 255 else np.int32
+        seed = epoch * 7919 + 1 if train else epoch * 104729 + 2
+        local = self.mesh.size > 1 and isinstance(sampler, PatchSampler)
+        if local:
+            if sampler.batch_size % self.mesh.size:
+                raise ValueError(
+                    f"batch_size {sampler.batch_size} is not divisible by the "
+                    f"data-parallel mesh size {self.mesh.size}")
+            source = sampler.epoch(epoch_seed=seed, part=local_batch_slice(
+                sampler.batch_size, self.mesh))
+        else:
+            source = sampler.epoch(epoch_seed=seed)
 
         def transfer(item):
-            imgs, masks = item
+            imgs, masks = item if local else host_shard(self.mesh, item,
+                                                        axis=1 if train else 0)
             if imgs.dtype != np.uint8:
                 imgs = np.round(np.asarray(imgs) * 255.0).astype(np.uint8)
             return self._transfer((imgs, np.asarray(masks).astype(mask_dtype)))
 
         if train:
-            source = microbatch_stacker(sampler.epoch(epoch_seed=epoch * 7919 + 1),
-                                        self.n_accum)
-        else:
-            source = sampler.epoch(epoch_seed=epoch * 104729 + 2)
+            source = microbatch_stacker(source, self.n_accum)
         return PrefetchIterator(source, transfer, depth=2, ready=self._transfer.ready)
 
     def train_one_epoch(self, sampler, epoch: int, lr: float):
@@ -226,13 +257,13 @@ class Trainer:
                     self.state, images, masks, lr, self.rng.step("train", epoch, len(losses)))
                 losses.append(met["loss"])
                 ious.append(met["iou"])
-                n_samples += images.shape[0] * images.shape[1]
-                if self.config.get("progress_bar"):
+                n_samples += images.shape[0] * images.shape[1] * self.mesh.size
+                if self.config.get("progress_bar") and self.is_main:
                     print(f"\repoch {epoch}: {len(losses)}/{total}", end="",
                           file=sys.stderr, flush=True)
         finally:
             batches.close()
-        if self.config.get("progress_bar"):
+        if self.config.get("progress_bar") and self.is_main:
             print(file=sys.stderr)
         vals = torch.stack([torch.stack(losses), torch.stack(ious)]).double().cpu().numpy()
         return float(np.mean(vals[0])), float(np.mean(vals[1])), n_samples
@@ -280,7 +311,7 @@ class Trainer:
                                  + model_summary(self.model))
         profile_epochs = self.config.get("profile_epochs") or ()
         self._tracer = ProfilerTrace(self.results_path, epochs=profile_epochs,
-                                     enabled=bool(profile_epochs))
+                                     enabled=bool(profile_epochs) and self.is_main)
         self.monitor.start_training()
         val_plot_interval = int(self.config.get("val_plot_interval", 5))
         plots_dir = self.results_path / "plots"
@@ -295,20 +326,23 @@ class Trainer:
             self._tracer.maybe_stop(epoch)
             want_plot = val_plot_interval > 0 and epoch % val_plot_interval == 0
             val_loss, val_iou, per_class_iou, sample = self.validate_one_epoch(
-                val_sampler, epoch, want_samples=want_plot)
+                val_sampler, epoch, want_samples=want_plot and self.is_main)
 
             self.loss_dict["train"].append(train_loss)
             self.loss_dict["val"].append(val_loss)
             self.monitor.end_epoch(epoch, train_loss, val_loss, train_iou, val_iou, lr,
                                    n_samples)
-            save_losses(self.loss_dict["train"], self.loss_dict["val"], plots_dir)
-            self.monitor.save_metrics()
-            save_dashboard(self.monitor.history, self.results_path)
-            if sample is not None:
-                save_triptychs(*sample, plots_dir / f"epoch_{epoch}.png")
-            is_best = self.checkpoints.save(self.state, epoch, val_loss)
-            (self.results_path / "loss_dict.pkl").write_bytes(pickle.dumps(self.loss_dict))
-            if is_best:
-                self.monitor.log_message(f"New best model (val loss {val_loss:.4f})")
+            if self.is_main:
+                save_losses(self.loss_dict["train"], self.loss_dict["val"], plots_dir)
+                self.monitor.save_metrics()
+                save_dashboard(self.monitor.history, self.results_path)
+                if sample is not None:
+                    save_triptychs(*sample, plots_dir / f"epoch_{epoch}.png")
+                is_best = self.checkpoints.save(self.state, epoch, val_loss)
+                (self.results_path / "loss_dict.pkl").write_bytes(
+                    pickle.dumps(self.loss_dict))
+                if is_best:
+                    self.monitor.log_message(f"New best model (val loss {val_loss:.4f})")
+            self.mesh.barrier()
         self.monitor.log_message("Training complete")
         return self.monitor.history

@@ -23,6 +23,11 @@ and subtracts ``lr`` times it from the parameters, in place.
 
 ``differential_lr`` scales the direction of every parameter outside the
 encoder by 0.1 (``optim.py:182-193``).
+
+On a multi-rank :class:`~mmr_tpu_torch.core.mesh.Mesh` the flat gradient
+is averaged over the ranks in one all-reduce before the clip (JAX's
+``pmean`` of the gradients, ``steps.py:181-184``), so every rank takes the
+same update.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from mmr_tpu_torch.core.mesh import psum_if_sharded
 
 
 def _flat(params: list[torch.Tensor], grads: list[torch.Tensor | None]):
@@ -80,10 +87,13 @@ class _Flat:
     @torch.no_grad()
     def apply_updates(self, params: list[torch.Tensor], opt_state: dict,
                       grads: list[torch.Tensor | None], lr: float,
-                      mult: torch.Tensor | None = None) -> dict:
+                      mult: torch.Tensor | None = None, mesh=None) -> dict:
         """Update ``params`` in place; returns the new optimizer state. A
-        None gradient counts as zeros."""
+        None gradient counts as zeros; ``mesh``: average the gradient over
+        its ranks first."""
         g, p = _flat(params, grads)
+        if mesh is not None and mesh.size > 1:
+            g = psum_if_sharded(g, mesh) / mesh.size
         d, state = self.direction(self._clipped(g), p, opt_state)
         if mult is not None:
             d = d * mult
