@@ -143,6 +143,15 @@ front-end and head + loss).
     each rank's K6a / K6b launches the code's. The ranks are this script
     run by torchrun with ``--mesh-rank`` / ``--cli-rank``; their lines of
     the phase are printed.
+16. Path B's data entry (``native_data_phase``): the host decoders built
+    by ``cc``; the committed 1080×1920 Motion-JPEG fixture decoded to the
+    recorded sha256 (ms a frame); the committed JAX-written blosc-zstd
+    stores read through ``VideoStore`` and ``PatchSampler`` to JAX's
+    recorded sha256, and MB/s of their chunks decoded beside gzip copies
+    (64×80 chunks and full-size 512×640 ones);
+    ``mmr_torch_create_dataset`` on a ZIP of two video ZIPs (the fixture
+    and PNG masks) at the flagship's defaults, one ``mmr_torch_train_model``
+    epoch on those stores (launches the code's) and ``mmr_torch_infer``.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -2590,6 +2599,251 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
             "cli_launches": cli[0]["launches"]}
 
 
+# ------------------------------------------------- 16. Path B's data entry
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+CONVERT_VIDEOS = 2                   # inner video ZIPs made from the Motion-JPEG fixture
+CONVERT_STEPS, CONVERT_VAL = 4, 1    # the train epoch on the converted stores
+DECODE_REPS = 5                      # timed decodes of each fixture frame
+STORE_READS = 20                     # timed whole-array reads a rate
+
+
+def _sha256(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def chunk_decode_rates(array_path, threads, reps=STORE_READS) -> dict:
+    """{pool threads: MB/s of chunks decoded} for whole reads of the Zarr
+    array at ``array_path`` (its chunk files in the page cache after a
+    first read: warm), each chunk decoded on the pool into the output."""
+    from mmr_tpu_torch.data import zarr_io
+
+    arr = zarr_io.ZarrArray(array_path)
+    n = math.prod(-(-s // c) for s, c in zip(arr.shape, arr.chunks))
+    nbytes = n * math.prod(arr.chunks) * arr.dtype.itemsize
+    out = {}
+    for k in threads:
+        zarr_io.set_pool_threads(k)
+        arr[:]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            arr[:]
+        out[k] = reps * nbytes / 1e6 / (time.perf_counter() - t0)
+    zarr_io.set_pool_threads(zarr_io.POOL_THREADS)
+    return out
+
+
+def gzip_copy(src: Path, dst: Path) -> Path:
+    """The store at ``src`` written again by the port (``bytes`` + ``gzip``)
+    in the same chunks, with its properties."""
+    from mmr_tpu_torch.data import zarr_io
+
+    s = zarr_io.VideoStore(src)
+    t, h, w = s.shape
+    d = zarr_io.VideoStore.create(dst, t, h, w, s.image.chunks[2:], image_dtype=s.image_dtype)
+    img, mask = s.read_frames(0, t)
+    d.image.write((slice(None),), img.transpose(3, 0, 1, 2))
+    d.mask.write((slice(None),), mask)
+    d.set_properties(s.properties)
+    return dst
+
+
+def fixture_masks(seed: int, n: int) -> list[np.ndarray]:
+    """``n`` full-HD masks of the 9 tool classes (``render_frame``'s blobs)."""
+    from mmr_tpu_torch.data.synthetic import render_frame
+
+    rng = np.random.RandomState(seed)
+    return [render_frame(rng, *FRAME, N_CLASSES - 1)[1] for _ in range(n)]
+
+
+def native_data_phase(dev, seed, smi) -> dict:
+    """Phase 16: Path B's entry on the card's machine — the host decoders
+    (``csrc/host``, built by ``cc``) and ``mmr_torch_create_dataset``.
+    (a) builds the library; (b) decodes every frame of the committed
+    1080×1920 Motion-JPEG fixture (cv2's writer, 4:2:0): each frame's
+    sha256 the recorded one (the port's decode, equal to PIL's where it was
+    recorded), ms a frame, and ms a frame with OpenCV's chroma (the
+    converter's decode); (c) reads the committed blosc-zstd stores (JAX's
+    ``VideoStore``) through ``VideoStore`` and ``PatchSampler``: arrays and
+    batches of the recorded sha256 (JAX's reads); writes the bitshuffled
+    small stores and the two of one full-size (3, 1, 512, 640) chunk again
+    as gzip stores and times whole-array reads of both (MB/s of chunks
+    decoded, one thread and the pool's default); (d) a ZIP of
+    ``CONVERT_VIDEOS`` inner ZIPs of the fixture video and ``png.write``
+    masks through ``create_dataset.main`` at the flagship's defaults (9
+    tool classes, the reference's ``n_classes`` beside the background;
+    ``[512,640]``, float32, ``--write_split``): stores of the
+    frames decoded with OpenCV's chroma and the masks, class locations; one
+    ``train_model.main`` epoch of ``CONVERT_STEPS`` + ``CONVERT_VAL``
+    batches on them (launches the code's), ``infer.main`` on the split's
+    test video (exit 0, 21 K1 + 2 K2 a frame). Returns {kind: launches of
+    the train epoch}."""
+    import tempfile
+    import zipfile
+
+    from mmr_tpu_torch.cli import create_dataset, infer, train_model
+    from mmr_tpu_torch.config import read_config
+    from mmr_tpu_torch.data import hostlib, png, zarr_io
+    from mmr_tpu_torch.data.patch_dataset import PatchSampler
+    from mmr_tpu_torch.data.video import VideoReader
+
+    t_phase = time.perf_counter()
+    records = json.loads((FIXTURES / "records.json").read_text())
+    # ---- (a) the host library --------------------------------------------------
+    t0 = time.perf_counter()
+    hostlib.library()   # prints its cc build's time where it builds
+    print(f"[16] {smi}: host decoders {hostlib.build().name} ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- (b) Motion-JPEG frames ----------------------------------------------------
+    avi = records["avi"]
+    frames, times, cv_times = [], [], []
+    with VideoReader(FIXTURES / avi["file"]) as video:
+        check(video.frame_count == len(avi["frames"]) and video.fourcc == "MJPG"
+              and (video.height, video.width) == FRAME, "the Motion-JPEG fixture's header")
+        for t, want in enumerate(avi["frames"]):
+            data = video.frame_bytes(t)
+            frame = video.read(t)
+            check(frame.shape == tuple(avi["shape"]) and _sha256(frame) == want,
+                  f"frame {t} of {avi['file']} decoded to other samples than recorded")
+            frames.append(frame)
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                hostlib.jpeg_decode(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                hostlib.jpeg_decode(data, fancy_upsampling=False)
+                cv_times.append((time.perf_counter() - t0) * 1e3)
+        check(video.read(len(frames)) is None, "a frame past the fixture's end was read")
+    with VideoReader(FIXTURES / avi["file"], fancy_upsampling=False) as video:
+        # the converter's decode (OpenCV's repeated chroma): what (d) stores
+        converted = [video.read(t) for t in range(len(frames))]
+    kb = (FIXTURES / avi["file"]).stat().st_size / 1e3 / len(frames)
+    print(f"[16] {smi}: Motion-JPEG {FRAME[0]}x{FRAME[1]} 4:2:0, {len(frames)} frames "
+          f"({kb:.1f} kB a frame) of the recorded sha256; decode median "
+          f"{sorted(times)[len(times) // 2]:.2f} ms a frame, min {min(times):.2f} ms "
+          f"({len(times)} decodes, one thread); with OpenCV's chroma (the converter's) "
+          f"median {sorted(cv_times)[len(cv_times) // 2]:.2f} ms", flush=True)
+
+    # ---- (c) the JAX-written blosc-zstd stores -----------------------------------
+    for name, rec in records["stores"].items():
+        store = zarr_io.VideoStore(FIXTURES / "blosc" / f"{name}.zarr")
+        img, mask = store.read_frames(0, store.shape[0])
+        check(_sha256(store.image[:]) == rec["image"] and _sha256(mask) == rec["mask"]
+              and img.dtype == np.dtype(rec["dtype"]),
+              f"the blosc store {name} reads other arrays than JAX's")
+    smp = records["sampler"]
+    for kind, want in smp["batches"].items():
+        sampler = PatchSampler(
+            [FIXTURES / "blosc" / f"{kind}_{ab}.zarr" for ab in "ab"], tuple(smp["patch"]),
+            smp["batch"], smp["steps"],
+            oversample_foreground_percent=smp["oversample_foreground_percent"],
+            initial_patch_size=tuple(smp["initial_patch_size"]), seed=smp["seed"])
+        got = [[_sha256(i), _sha256(m)] for i, m in sampler.epoch(epoch_seed=smp["epoch_seed"])]
+        check(got == want, f"the {kind} PatchSampler's batches are not JAX's")
+    print(f"[16] {len(records['stores'])} blosc-zstd stores and "
+          f"{sum(map(len, smp['batches'].values()))} PatchSampler batches equal JAX's "
+          f"reads (sha256)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        threads = (1, zarr_io.POOL_THREADS)
+        for name in ("f32_a", "u8_a", "f32_full", "u8_full"):
+            src = FIXTURES / "blosc" / f"{name}.zarr"
+            dst = gzip_copy(src, tmp / f"{name}.zarr")
+            check(np.array_equal(zarr_io.VideoStore(dst).image[:], zarr_io.VideoStore(src).image[:]),
+                  f"the gzip copy of {name} differs")
+            arr = zarr_io.ZarrArray(src / "image")
+            stored = [sum(f.stat().st_size for f in (p / "image" / "c").rglob("*")
+                          if f.is_file()) / 1e6 for p in (src, dst)]
+            blosc = chunk_decode_rates(src / "image", threads)
+            gz = chunk_decode_rates(dst / "image", threads)
+            print(f"[16] {smi}: {name} image {arr.shape}, chunks {arr.chunks} {arr.dtype} "
+                  f"(stored {stored[0]:.3f} MB blosc-zstd, {stored[1]:.3f} MB gzip; warm "
+                  "reads): " + "; ".join(f"{k} threads: blosc-zstd+bitshuffle {blosc[k]:.1f} "
+                                         f"MB/s, gzip {gz[k]:.1f} MB/s" for k in threads),
+                  flush=True)
+
+        # ---- (d) mmr_torch_create_dataset, train, infer ------------------------------
+        masks = fixture_masks(seed + 16, len(frames))
+        outer = tmp / "videos.zip"
+        with zipfile.ZipFile(outer, "w") as zo:
+            for v in range(CONVERT_VIDEOS):
+                inner = tmp / f"video_{v + 1:02d}.zip"
+                with zipfile.ZipFile(inner, "w") as zi:
+                    zi.write(FIXTURES / avi["file"], "video_left.avi")
+                    for t, m in enumerate(masks):
+                        zi.write(png.write(tmp / "m.png", m), f"segmentation/{t:09d}.png")
+                zo.write(inner, inner.name)
+        ds, run = tmp / "ds", tmp / "run"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = create_dataset.main([str(outer), str(ds), str(N_CLASSES - 1),
+                                      f"[{ROI[0]},{ROI[1]}]", "--write_split"])
+        dt = time.perf_counter() - t0
+        stores = zarr_io.list_dataset_stores(ds)
+        on_disk = sum(f.stat().st_size for f in ds.rglob("*") if f.is_file())
+        print(f"[16] {smi}: mmr_torch_create_dataset: exit {rc} in {dt:.2f} s for "
+              f"{CONVERT_VIDEOS} videos x {len(frames)} {FRAME[0]}x{FRAME[1]} frames "
+              f"(float32, {on_disk / 1e6:.1f} MB on disk)", flush=True)
+        check(rc == 0 and len(stores) == CONVERT_VIDEOS
+              and (ds / "train_val_test_split.json").is_file(),
+              "mmr_torch_create_dataset did not write the stores and the split")
+        for p in stores:
+            store = zarr_io.VideoStore(p)
+            img, mask = store.read_frames(0, len(frames))
+            check(img.dtype == np.float32 and store.shape == (len(frames), *FRAME)
+                  and all(np.array_equal(img[t], converted[t].astype(np.float32) / 255.0)
+                          and np.array_equal(mask[t], masks[t]) for t in range(len(frames)))
+                  and all(len(c) for c in store.class_locations.values()),
+                  f"{p.name} does not hold the decoded frames, masks and class locations")
+        split = json.loads((ds / "train_val_test_split.json").read_text())
+        argv = [str(ds), str(run), "train-val-test", str(N_CLASSES - 1),
+                f"[{ROI[0]},{ROI[1]}]", "--device", str(dev)]
+        _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_model.main(argv + [
+                "--n_epochs", "1", "--steps_per_epoch", str(CONVERT_STEPS),
+                "--val_steps_per_epoch", str(CONVERT_VAL), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        config = read_config(run / "config.yaml")
+        hist = json.loads((run / "training_metrics.json").read_text())
+        print(f"[16] {smi}: mmr_torch_train_model on the converted stores: exit {rc} in "
+              f"{dt:.1f} s; epoch {hist['epoch_time_s'][0]:.3f} s, "
+              f"{hist['samples_per_sec'][0]:.2f} samples/s, train loss "
+              f"{hist['train_loss'][0]:.5f}, val loss {hist['val_loss'][0]:.5f}; "
+              f"launches {launches}", flush=True)
+        check(rc == 0 and np.all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
+              "the train CLI on the converted stores failed")
+        check(launches == trainer_counts(CONVERT_STEPS, CONVERT_VAL + (
+            1 % config["val_plot_interval"] == 0)),
+              "the train CLI's launches on the converted stores are not the code's")
+        _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = infer.main([str(ds), str(run), "--infer_batch_size", "6",
+                             "--device", str(dev)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        served = _launches()
+        report = json.loads((run / "inference_report.json").read_text())
+        n_frames = len(split["test"]) * len(frames)
+        print(f"[16] {smi}: mmr_torch_infer on {split['test']}: exit {rc} in {dt:.1f} s; "
+              f"mean IoU {report['overall_mean_iou']:.4f}; launches {served}", flush=True)
+        check(rc == 0 and sorted(report["videos"]) == sorted(split["test"])
+              and np.isfinite(report["overall_mean_iou"]),
+              "mmr_torch_infer on the converted stores did not report the test split")
+        check(served == _counts(K1=21 * n_frames, K2=2 * n_frames),
+              "mmr_torch_infer's launches are not 21 K1 + 2 K2 a frame")
+    print(f"[16] {smi}: phase 16 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2813,6 +3067,12 @@ def main() -> int:
             e["mesh_launches_per_rank"] = meshed["launches"][kind]
         elif kind in ("K6a", "K6b", "K7"):
             e["mesh_cli_launches_rank0"] = meshed["cli_launches"][kind]
+    # ---- 16. Path B's data entry: host decoders, mmr_torch_create_dataset -------
+    converted = native_data_phase(dev, args.seed, smi)
+    for e in kernels:
+        kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
+        if kind is not None:
+            e["converted_cli_launches"] = converted[kind]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 """Measure what sets the rate of the port's Path B data path, on one NVIDIA card.
 
     python3 data_probe.py [--steps 50] [--threads 1 4 8] [--epoch-threads N ...]
-                          [--seed 0]
+                          [--seed 0] [--fixture-only]
 
 Writes ``chip_smoke.py``'s phase-14 dataset under a temporary directory
 (``ZARR_VIDEOS`` uint8 videos and one float32 store of ``ZARR_FRAMES``
@@ -25,7 +25,18 @@ then measures in one process:
    float32 store and the fixed pool again, after a 2-step warm-up epoch:
    epoch s and samples/s (the monitor's), the host's time in the train
    step's calls; then, for each ``--epoch-threads`` count, the uint8 and
-   float32 epochs again with the chunk pool held to that many threads.
+   float32 epochs again with the chunk pool held to that many threads;
+4. blosc-zstd against gzip: the committed stores JAX's ``VideoStore``
+   wrote (``tests/torch_fixtures/blosc``: blosc, zstd clevel 3,
+   bitshuffle; float32 and uint8, the small 64×80-chunked pairs and one
+   full-size (3, 1, 512, 640) chunk of a decoded Motion-JPEG frame each)
+   and the port's gzip copies of the same arrays — MB/s of output of one
+   image chunk decoded on one thread (the host decoder, and ``zlib`` for
+   the copy; the best of 5 rounds of 8), of whole-array reads on the chunk
+   pool at each ``--threads`` count (chunk files warm in the page cache),
+   and the ``PatchSampler``'s samples/s over each (B=8; 64×64 patches, a
+   whole chunk's 512×640 on the full-size stores). ``--fixture-only``
+   runs this part alone.
 
 Prints the card's name and power limit first and one JSON object of every
 number last. Needs ``chip_smoke.py`` beside it and one card.
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,6 +59,10 @@ from pathlib import Path
 import numpy as np
 
 SAMPLER_BATCHES = 12   # batches timed per dtype and thread count
+BLOSC_STORES = {       # part 4: the fixture's blosc-zstd stores of each kind
+    "f32": ["f32_a", "f32_b"], "u8": ["u8_a", "u8_b"],
+    "f32_full": ["f32_full"], "u8_full": ["u8_full"],
+}
 WARMUP_STEPS, VAL_STEPS = 2, 2
 
 
@@ -95,6 +111,44 @@ def sampler_rates(stores, initial, threads, seed) -> dict:
     return out
 
 
+def blosc_rates(tmp, threads, seed) -> dict:
+    """Part 4: per dtype, the fixture's blosc-zstd stores against gzip
+    copies: one chunk on one thread, whole reads on the pool, the sampler."""
+    import chip_smoke as cs
+    from mmr_tpu_torch.data import hostlib, zarr_io
+    from mmr_tpu_torch.data.patch_dataset import PatchSampler
+
+    out = {}
+    for kind, names in BLOSC_STORES.items():
+        src = [cs.FIXTURES / "blosc" / f"{name}.zarr" for name in names]
+        dst = [cs.gzip_copy(p, Path(tmp) / "fixture_gzip" / p.name) for p in src]
+        arr = zarr_io.ZarrArray(src[0] / "image")
+        patch = tuple(arr.chunks[2:]) if kind.endswith("_full") else (64, 64)
+        n = math.prod(arr.chunks) * arr.dtype.itemsize
+        first = ("image", "c", "0", "0", "0", "0")
+        blosc, gz = (p.joinpath(*first).read_bytes() for p in (src[0], dst[0]))
+        buf = np.empty(n, np.uint8)
+        one = {"blosc": lambda: hostlib.blosc_decompress_into(blosc, buf),
+               "gzip": lambda: zlib.decompress(gz, 31, n)}
+        r = out[kind] = {"chunk": list(arr.chunks), "chunk_mb": n / 1e6, "patch": list(patch),
+                         "stored_mb": {"blosc": len(blosc) / 1e6, "gzip": len(gz) / 1e6},
+                         "one_thread_mb_s": {}, "pool_mb_s": {}, "sampler_samples_s": {}}
+        for codec, fn in one.items():
+            best = min(_timed(lambda: [fn() for _ in range(8)]) for _ in range(5))
+            r["one_thread_mb_s"][codec] = 8 * n / 1e6 / best
+        for codec, paths in (("blosc", src), ("gzip", dst)):
+            r["pool_mb_s"][codec] = cs.chunk_decode_rates(paths[0] / "image", threads)
+            sampler = PatchSampler(paths, patch, cs.TRAIN_BATCH, SAMPLER_BATCHES, seed=seed)
+            per = r["sampler_samples_s"][codec] = {}
+            for k in threads:
+                zarr_io.set_pool_threads(k)
+                list(sampler.epoch(epoch_seed=seed))
+                dt = _timed(lambda: [None for _ in sampler.epoch(epoch_seed=seed)])
+                per[k] = SAMPLER_BATCHES * cs.TRAIN_BATCH / dt
+        zarr_io.set_pool_threads(zarr_io.POOL_THREADS)
+    return out
+
+
 def trainer_epoch(dev, tmp, name, train_s, val_s, seed) -> dict:
     """One epoch of a fresh flagship ``Trainer`` over the given samplers."""
     import torch
@@ -132,6 +186,8 @@ def main() -> int:
     ap.add_argument("--epoch-threads", type=int, nargs="*", default=[],
                     help="chunk pool sizes for further Zarr epochs")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fixture-only", action="store_true",
+                    help="run part 4 (blosc-zstd against gzip) alone")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,9 +210,26 @@ def main() -> int:
     print(f"host: {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} usable; "
           f"chunk pool default {zarr_io.POOL_THREADS} threads", flush=True)
     dev = torch.device("cuda")
-    _build.library()
     result = {"card": smi}
     with tempfile.TemporaryDirectory() as tmp:
+        r = result["blosc_vs_gzip"] = blosc_rates(tmp, args.threads, args.seed)
+        for kind, x in r.items():
+            print(f"{smi}: fixture {kind} image chunk {x['chunk']} ({x['chunk_mb']:.3f} MB; "
+                  f"stored {x['stored_mb']['blosc']:.3f} MB blosc-zstd, "
+                  f"{x['stored_mb']['gzip']:.3f} MB gzip), warm: one thread "
+                  + ", ".join(f"{c} {v:.1f}" for c, v in x["one_thread_mb_s"].items())
+                  + " MB/s; whole reads on the pool "
+                  + "; ".join(f"{c} " + ", ".join(f"{k} threads {v:.1f}"
+                                                  for k, v in x["pool_mb_s"][c].items())
+                              for c in x["pool_mb_s"]) + " MB/s; PatchSampler (B="
+                  f"{cs.TRAIN_BATCH}, {x['patch'][0]}x{x['patch'][1]}) "
+                  + "; ".join(f"{c} " + ", ".join(f"{k} threads {v:.1f}"
+                                                  for k, v in x["sampler_samples_s"][c].items())
+                              for c in x["sampler_samples_s"]) + " samples/s", flush=True)
+        if args.fixture_only:
+            print(json.dumps(result), flush=True)
+            return 0
+        _build.library()
         t0 = time.perf_counter()
         ds = make_synthetic_dataset(f"{tmp}/ds", cs.ZARR_VIDEOS, cs.ZARR_FRAMES, *cs.FRAME,
                                     cs.N_CLASSES - 1, cs.ROI, args.seed + 14, np.uint8)

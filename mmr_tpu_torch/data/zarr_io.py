@@ -1,6 +1,6 @@
 """Zarr v3 video stores without tensorstore (counterpart of
-``mmr_tpu/data/zarr_io.py``), in numpy, ``json``, ``zlib`` and the standard
-library.
+``mmr_tpu/data/zarr_io.py``), in numpy, ``json``, ``zlib``, the standard
+library and the port's host decoders (:mod:`mmr_tpu_torch.data.hostlib`).
 
 The on-disk schema is the reference's (zarr v3, ``Data_Loader.py:303-397``):
 
@@ -12,18 +12,21 @@ The on-disk schema is the reference's (zarr v3, ``Data_Loader.py:303-397``):
 Chunks are files ``<array>/c/<i>/<j>/...`` (the ``default`` chunk key
 encoding), edge chunks stored at full size; a chunk that holds only the
 fill value is absent, and reads as the fill value. :class:`ZarrArray`
-writes the ``bytes`` (little endian) + ``gzip`` codecs, which
-tensorstore reads too, and reads ``bytes`` alone or ``bytes`` + ``gzip``.
-It takes what the schema holds and nothing more: uint8 and float32, the
-``/`` chunk key separator, a numeric fill value; anything else raises
-``NotImplementedError`` naming it, and so does any other codec: the
-reference's converter writes ``blosc`` (zstd, bitshuffle), which needs a
-decoder this package does not have, so such stores are refused rather
-than misread.
+reads the codecs ``bytes`` (little endian) alone, ``bytes`` + ``gzip``,
+and ``bytes`` + ``blosc`` with the zstd compressor: the stores the
+reference's converter writes (zstd, clevel 3, bitshuffle;
+``Data_Loader.py:664-666``) and JAX's ``VideoStore`` writes through
+tensorstore. It writes ``bytes`` + ``gzip``, which tensorstore reads too;
+writing blosc would need an encoder this package does not have, so a write
+into a blosc array raises. It takes what the schema holds and nothing
+more: uint8 and float32, the ``/`` chunk key separator, a numeric fill
+value, blosc over zstd; anything else (another codec, another blosc
+compressor) raises ``NotImplementedError`` naming it, rather than being
+misread.
 
 Reads decode only the chunks a window touches, each on a shared thread
-pool (``zlib`` and file reads release the GIL, so the decodes run in
-parallel), straight into the caller's output array.
+pool (``zlib``, the host decoders and file reads release the GIL, so the
+decodes run in parallel), straight into the caller's output array.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ from pathlib import Path
 
 import numpy as np
 
+from mmr_tpu_torch.data import hostlib
 from mmr_tpu_torch.ops.padcrop import window_slices
 
 GZIP_LEVEL = 1
 _DTYPES = ("uint8", "float32")
+_COMPRESSORS = ("gzip", "blosc")   # the codecs this reader takes after ``bytes``
 
 POOL_THREADS = min(32, os.cpu_count() or 1)   # the chunk pool's default size
 
@@ -110,15 +115,24 @@ class ZarrArray:
         codecs = meta["codecs"]
         names = [c["name"] for c in codecs]
         bad = next((n for i, n in enumerate(names)
-                    if (i == 0) != (n == "bytes") or (i > 0 and n != "gzip")), None)
+                    if (i == 0) != (n == "bytes") or (i > 0 and n not in _COMPRESSORS)),
+                   None)
         if bad is not None or len(names) > 2:
             raise NotImplementedError(
                 f"{self.path}: codec {bad or names[-1]!r} is not supported "
-                f"(codecs {names}; this reader takes 'bytes' and 'bytes' + 'gzip')")
+                f"(codecs {names}; this reader takes 'bytes', 'bytes' + 'gzip' "
+                f"and 'bytes' + 'blosc')")
         endian = codecs[0].get("configuration", {}).get("endian", "little")
         if endian != "little":
             raise NotImplementedError(f"{self.path}: {endian} endian bytes")
-        self._gzip = len(names) == 2
+        self._codec = names[1] if len(names) == 2 else None
+        if self._codec == "blosc":
+            cname = codecs[1].get("configuration", {}).get("cname")
+            if cname != "zstd":
+                raise NotImplementedError(
+                    f"{self.path}: blosc compressor {cname!r} is not supported "
+                    f"(this reader takes blosc over zstd, the reference's)")
+            hostlib.library()   # built here, on the opener's thread, not on the pool
         fill = meta.get("fill_value", 0)
         if isinstance(fill, (str, bool)) or not isinstance(fill, (int, float)):
             raise NotImplementedError(f"{self.path}: fill value {fill!r}")
@@ -161,7 +175,10 @@ class ZarrArray:
         except FileNotFoundError:
             return None
         n = int(np.prod(self.chunks)) * self.dtype.itemsize
-        if self._gzip:
+        if self._codec == "blosc":
+            buf = hostlib.blosc_decompress_into(data, np.empty(n, np.uint8), str(path))
+            return buf.view(self.dtype).reshape(self.chunks)
+        if self._codec == "gzip":
             try:   # one output buffer of the chunk's size: no regrowth, no join
                 data = zlib.decompress(data, 31, n)
             except zlib.error as e:
@@ -171,6 +188,9 @@ class ZarrArray:
         return np.frombuffer(data, self.dtype).reshape(self.chunks)
 
     def _write_chunk(self, idx, src, part: np.ndarray) -> None:
+        if self._codec == "blosc":
+            raise NotImplementedError(
+                f"{self.path}: writing blosc chunks (this package writes 'bytes' + 'gzip')")
         in_bounds = tuple(min(c, n - i * c)
                           for i, c, n in zip(idx, self.chunks, self.shape))
         whole = all(s.stop - s.start == m for s, m in zip(src, in_bounds))
@@ -183,7 +203,7 @@ class ZarrArray:
             path.unlink(missing_ok=True)   # fill-valued chunks stay absent
             return
         data = buf.tobytes()
-        if self._gzip:
+        if self._codec == "gzip":
             c = zlib.compressobj(GZIP_LEVEL, zlib.DEFLATED, 31)
             data = c.compress(data) + c.flush()
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,9 @@ flags, so an edited source rebuilds and an unchanged one is reused. The
 build runs at first use: the first CUDA tensor that reaches a kernel.
 ``ptxas -v`` output (registers, shared memory, spills) is printed, and
 one summary line per Hopper kernel (:func:`ptxas_summary`).
+
+:func:`cached_build` and :func:`load` are the policy this library and the
+host decoders' (:mod:`mmr_tpu_torch.data.hostlib`, built by ``cc``) share.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from collections.abc import Callable, Sequence
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -95,14 +100,6 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources + sorted(SRC_DIR.glob("*.cuh")):
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    return h.hexdigest()[:16]
-
-
 def ptxas_summary(out: str) -> list[str]:
     """"kernel<ints[, f32]>: registers; spills" for each Hopper kernel in
     nvcc's ``-Xptxas -v`` output."""
@@ -125,52 +122,85 @@ def ptxas_summary(out: str) -> list[str]:
     return sorted(rows.values())
 
 
+_LOCK = threading.Lock()   # one build at a time in a process
+
+
+def cached_build(prefix: str, flags: Sequence[str], sources: list[Path],
+                 headers: list[Path], compile: Callable[[Path, Path], None],
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """``build_dir/<prefix>_<hash>.so``, the hash over ``flags`` and the
+    names and bytes of ``sources`` and ``headers``: returned where it
+    exists, else written by ``compile(tmp_dir, tmp_lib)`` inside a
+    temporary directory of ``build_dir`` and renamed into place, so that
+    processes building at once each write files of their own. Threads of
+    one process build one at a time: the first to come builds, the others
+    wait and find its file."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in [*sources, *headers]:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    lib = build_dir / f"{prefix}_{h.hexdigest()[:16]}.so"
+    with _LOCK:
+        if lib.exists():
+            return lib
+        build_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            tmp_lib = Path(tmp) / lib.name
+            compile(Path(tmp), tmp_lib)
+            os.replace(tmp_lib, lib)
+    return lib
+
+
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
+    """The library at ``path``, through :class:`ctypes.CDLL` (which
+    releases the GIL during each call), each entry of ``signatures`` given
+    its argument types and a C ``int`` result."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _nvcc_compile(sources: list[Path], tmp: Path, tmp_lib: Path) -> None:
+    nvcc = _nvcc()
+    t0 = time.time()
+    objs = [tmp / (s.stem + ".o") for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    failed = []
+    summary = []
+    for s, pr in zip(sources, procs):
+        out, _ = pr.communicate()
+        print(f"[nvcc {s.name}]\n{out}", flush=True)
+        summary += [f"{s.name} {row}" for row in ptxas_summary(out)]
+        if pr.returncode != 0:
+            failed.append(s.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    for row in summary:
+        print(f"[ptxas] {row}", flush=True)
+    print(f"[mmr_tpu_torch] built {tmp_lib.name} in {time.time() - t0:.1f} s",
+          flush=True)
+
+
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing;
     returns its path."""
     sources = sorted(SRC_DIR.glob("*.cu"))
-    lib = BUILD_DIR / f"libmmr_kernels_{_digest(sources)}.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.time()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True)
-                 for s, o in zip(sources, objs)]
-        failed = []
-        summary = []
-        for s, pr in zip(sources, procs):
-            out, _ = pr.communicate()
-            print(f"[nvcc {s.name}]\n{out}", flush=True)
-            summary += [f"{s.name} {row}" for row in ptxas_summary(out)]
-            if pr.returncode != 0:
-                failed.append(s.name)
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}")
-        tmp_lib = Path(tmp) / lib.name
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib),
-                               *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(tmp_lib, lib)
-    for row in summary:
-        print(f"[ptxas] {row}", flush=True)
-    print(f"[mmr_tpu_torch] built {lib.name} in {time.time() - t0:.1f} s",
-          flush=True)
-    return lib
+    return cached_build("libmmr_kernels", NVCC_FLAGS, sources,
+                        sorted(SRC_DIR.glob("*.cuh")),
+                        lambda tmp, tmp_lib: _nvcc_compile(sources, tmp, tmp_lib))
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return load(build(), SIGNATURES)

@@ -1,7 +1,7 @@
 """Path B's host data path in the port against the JAX package on the CPU:
 the Zarr stores both ways (the port's gzip stores read by JAX's
 tensorstore-backed ``VideoStore``, tensorstore's gzip and raw stores read
-by the port, absent chunks as the fill value, blosc refused), the window
+by the port, absent chunks as the fill value, blosc-lz4 refused), the window
 crops, the ``PatchSampler`` (bit-equal batches for three epochs), the
 ``VideoFrameDataset``, ``make_synthetic_dataset``, the split files (byte-
 equal to scikit-learn's), the one-hot codecs and the converter's parts
@@ -150,17 +150,17 @@ def test_tensorstore_store_read_by_port(tmp_path, codecs):
 
 
 def test_blosc_store_raises(tmp_path):
-    """(c) the reference's blosc-zstd store (JAX's writer) is refused,
-    naming the codec."""
-    from mmr_tpu.data.zarr_io import VideoStore as JaxStore
-
-    s = JaxStore.create(tmp_path / "b.zarr", 2, 40, 40, (32, 32), image_dtype=np.uint8)
-    s.write_frame(0, np.ones((3, 40, 40), np.float32) * 0.5,
-                  np.ones((40, 40), np.uint8))
-    with pytest.raises(NotImplementedError, match="blosc"):
-        VideoStore(tmp_path / "b.zarr").read_frames(0, 1)
-    with pytest.raises(NotImplementedError, match="blosc"):
-        PatchSampler([tmp_path / "b.zarr"], (32, 32), 2, 1)
+    """(c) a blosc store of another compressor than the reference's zstd
+    (lz4, written by tensorstore) is refused, naming the compressor; the
+    reference's blosc-zstd stores read (``test_torch_native_data.py``)."""
+    path = tmp_path / "b.zarr"
+    _ts_store(path, np.random.RandomState(2), 2, 40, 40, (32, 32),
+              [BYTES, {"name": "blosc", "configuration": {
+                  "cname": "lz4", "clevel": 3, "shuffle": "bitshuffle", "typesize": 4}}])
+    with pytest.raises(NotImplementedError, match="blosc compressor 'lz4'"):
+        VideoStore(path).read_frames(0, 1)
+    with pytest.raises(NotImplementedError, match="blosc compressor 'lz4'"):
+        PatchSampler([path], (32, 32), 2, 1)
 
 
 def test_zarr_array_partial_writes_and_indexing(tmp_path):
