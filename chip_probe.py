@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K5a, K7 and K8a of the port found under a tree, on one NVIDIA card.
 
-    python3 chip_probe.py TREE [--only K5a|K7|K8a|eval ...] [--no-hold]
+    python3 chip_probe.py TREE [--only K5a|K7|K8a|eval|K2bits|epilogue ...] [--no-hold]
 
 TREE holds an ``mmr_tpu_torch`` package: this checkout (``.``) or another
 version of it unpacked beside (``git archive <commit> mmr_tpu_torch``), so
@@ -29,7 +29,20 @@ directory. Measured:
   with the blended loss: median, host issue, device busy and idle share
   (``chip_smoke.py``'s ``_timed_steps``).
 
-``--only`` picks what is timed (all four by default).
+- ``K2bits`` (asked for by name only): the sha256 of K2's depthwise outputs
+  (y and its moments) and of K4's (dx, dW, d scale, d shift, dbias) at C
+  = 8, 16, 32 and 64 on one seeded B=8 256×320 input each (hardswish
+  prologue, a bias, the moments' cotangent), so that two trees' kernels
+  show whether they compute the same bits.
+
+- ``epilogue`` (asked for by name only): the device time of the two
+  kernels other than K3 that run ``csrc/common.cuh``'s ``wg_epilogue``:
+  K5b (``head_loss_bwd``) at the K5a probe's inputs, and K6a
+  (``conv3x3``, forward) at four of ``smp_UNet++``'s decoder shapes (B=8,
+  64² to 256², 128 → 64 down to 32 → 16 channels), so that two trees
+  show what a change to the epilogue costs them.
+
+``--only`` picks what is timed (the first four by default).
 
 A package older than the narrow tile (``head_loss.head_grid`` missing) has
 its kernels named by their own device names (``head_loss_fwd_kernel``,
@@ -113,10 +126,77 @@ def eval_probe(cs, tree, dev):
           f"{cs.PATH_A_HW[1]}: median {med:.3f} ms", flush=True)
 
 
+def k2_bits(tree, dev):
+    """Print the sha256 of K2's and K4's depthwise outputs at the widths
+    before the tile took any multiple of 8 (see ``K2bits`` above)."""
+    import hashlib
+
+    import torch
+
+    from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv_down,
+                                              fused_conv_down_bwd)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for c in (8, 16, 32, 64):
+        g = torch.Generator(device=dev).manual_seed(c)
+        rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+        x = Pending(rand(8, 256, 320, c).to(torch.bfloat16),
+                    torch.rand(c, device=dev, generator=g) + 0.5,
+                    0.3 * rand(c), "hswish")
+        w, b = 0.3 * rand(3, 3, 1, c), rand(c)
+        y, mom = fused_conv_down(x, w, b, True, emit_moments=True)
+        dy, dmom = rand(*y.shape).to(torch.bfloat16), 1e-3 * rand(2, c)
+        dx, dw, dpro, db = fused_conv_down_bwd(x, w, y, dy, dmom, True, True, True)
+        torch.cuda.synchronize()
+        print(f"[{tree}] K2 depthwise C={c}: y and moments {digest(y, mom)}; "
+              f"K4 dx, dW, dscale, dshift, dbias {digest(dx, dw, *dpro, db)}",
+              flush=True)
+
+
+EPILOGUE_K6A = [(8, 64, 64, 128, 64), (8, 128, 128, 128, 64),
+               (8, 256, 256, 64, 32), (8, 256, 256, 32, 16)]   # B, H, W, Cin, Cout
+
+
+def epilogue_probe(cs, tree, dev, x, wt, bias, labels):
+    """Device time of K5b and K6a (see the module's docstring)."""
+    import torch
+
+    from mmr_tpu_torch.ops import head_loss as hl
+    from mmr_tpu_torch.ops.conv3x3_packed import conv3x3
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    logp, stats, _ = hl.head_loss_fwd(x, wt, bias, labels, True)
+    kw = dict(x=x, w=wt, logp=logp, labels=labels,
+              dstats=torch.randn(stats.shape, device=dev, generator=g))
+    ms = cs.cuda_ms(lambda: hl.head_loss_bwd(**kw), cs.REPS)
+    print(f"[{tree}] K5b: {ms:.4f} ms with the wrapper", flush=True)
+    cs.device_split("K5b", [{"kind": "K5b", "label": "flagship", "args": kw,
+                             "ms": ms}], "K5b")
+    cases = []
+    for b, h, w, ci, co in EPILOGUE_K6A:
+        kw = dict(x=torch.randn(b, h, w, ci, device=dev, generator=g).to(
+                      torch.bfloat16),
+                  w=0.1 * torch.randn(3, 3, ci, co, device=dev, generator=g),
+                  bias=0.1 * torch.randn(co, device=dev, generator=g), relu=True)
+        ms = cs.cuda_ms(lambda: conv3x3(**kw), cs.REPS)
+        cases.append({"kind": "K6a", "label": f"{h}x{w} {ci}->{co}",
+                      "args": kw, "ms": ms})
+        print(f"[{tree}] K6a {h}x{w} {ci}->{co}: {ms:.4f} ms with the wrapper",
+              flush=True)
+    cs.device_split("K6a", cases, "K6a")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="directory holding the mmr_tpu_torch package")
-    ap.add_argument("--only", nargs="+", choices=("K5a", "K7", "K8a", "eval"),
+    ap.add_argument("--only", nargs="+",
+                    choices=("K5a", "K7", "K8a", "eval", "K2bits", "epilogue"),
                     default=("K5a", "K7", "K8a", "eval"), help="what to time")
     ap.add_argument("--no-hold", action="store_true",
                     help="time without holding against the plain version")
@@ -171,6 +251,10 @@ def main() -> int:
               f"{gms:.4f} ms a call from a CUDA graph", flush=True)
         cs.device_split("K5a", [{"kind": "K5a", "label": f"conf={conf}",
                                  "args": kw, "ms": ms}], "K5a")
+    if "K2bits" in args.only:
+        k2_bits(tree, dev)
+    if "epilogue" in args.only:
+        epilogue_probe(cs, tree, dev, x, wt, bias, labels)
     if "K7" in args.only:
         k7_probe(cs, tree, dev, args.no_hold)
     if "eval" in args.only:

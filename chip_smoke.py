@@ -52,6 +52,18 @@ front-end and head + loss).
    device events; each training kernel's time, plain time, bound and one
    library call (cuDNN ``convolution_backward`` on the materialized input
    for K3/K4; ``F.conv2d`` + log-softmax + DiceCE under autograd for K5).
+   The step runs with ``thread_dx`` (the default): K3 launches take the
+   ``thru`` addends of the surfaces the decoder threads, held with the
+   rest; the same step with ``thread_dx=False`` on the same weights and
+   batch (launch counts equal, loss rtol 1e-3, clipped-gradient cosine ≥
+   0.999), and each step's surface-sized cotangent sums (autograd's add
+   ops on 4-D tensors, ``torch.profiler``): fewer with threading by the
+   inputs the decoder threaded; the two steps, and the two models'
+   forward alone and forward + backward, timed in 16 pairs whose first
+   call alternates (host issue and wall: median, min, max; the per-pair
+   differences; the medians by position in the pair), and the host's
+   self time by op in forward + backward, threaded against unthreaded
+   (``torch.profiler``; the ops that differ most).
    6e. K4's dense dx (not on the flagship's path, whose stem reads the
    image): the train-mode stem on a B=8 512×640 image that requires a
    gradient, its K4 launch (dW and dx) held at the backward bound, timed
@@ -140,7 +152,10 @@ front-end and head + loss).
     K2 a frame), gathered, against one rank serving all 12 (phase 3's
     bounds); frames/s of both. (c) ``train_path_a`` under torchrun for one
     epoch on phase 11's PNG frames: exit 0, each file and log line once,
-    each rank's K6a / K6b launches the code's. The ranks are this script
+    each rank's K6a / K6b launches the code's. (d) ``Evaluate(mesh=)``: 6
+    batches of 4×256×256 uint8 id maps, 3 a rank on K7; the counts summed
+    over the ranks equal one rank's over all 6 exactly, and so does the
+    mean IoU. The ranks are this script
     run by torchrun with ``--mesh-rank`` / ``--cli-rank``; their lines of
     the phase are printed.
 16. Path B's data entry (``native_data_phase``): the host decoders built
@@ -152,6 +167,13 @@ front-end and head + loss).
     ``mmr_torch_create_dataset`` on a ZIP of two video ZIPs (the fixture
     and PNG masks) at the flagship's defaults, one ``mmr_torch_train_model``
     epoch on those stores (launches the code's) and ``mmr_torch_infer``.
+17. The fused b1 pair (``b1_phase``): the mbv3 encoder with
+    ``fused_frontend=True, fused_b1=True`` at B=8 512×640 against the plain
+    encoder on the same weights, eval and train: every launch held (b1_0's
+    depthwise on K2 / K4 at C = 72, b1_1's on the depthwise mode of K1 /
+    K3 at C = 88), the launch counts the code's, f3 and b1's BN statistics
+    within ``test_packed_chain.py``'s bounds; the four new launches timed
+    and split; the b1 pair fused vs plain (median, host issue, busy).
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -335,7 +357,8 @@ KERNELS = {  # kind -> (module, wrapper, plain version, source, TPU kernel)
             "mmr_tpu_torch/csrc/conv3x3.cu", "mmr_tpu/ops/pallas/conv3x3.py:208"),
 }
 # modules that bind a wrapper under its own name (besides its defining module)
-BINDERS = {"K1": ("mmr_tpu_torch.models.fused_blocks",),
+BINDERS = {"K1": ("mmr_tpu_torch.models.fused_blocks",
+                  "mmr_tpu_torch.models.fused_encoder"),
            "K2": ("mmr_tpu_torch.models.fused_encoder",)}
 GRAD_REL = 1e-2   # backward outputs: max|Δ| / max|ref| and ‖Δ‖ / ‖ref‖
 
@@ -465,12 +488,17 @@ def _library(kind, args):
         return lambda: torch.bincount(gt.long() * nc + pred, minlength=nc * nc)
     if kind in ("K1", "K3"):
         x, w = _materialized(args["inputs"]), _oihw(args["weights"])
+        groups = x.shape[1] if args.get("depthwise") else 1
         if kind == "K1":
             b = _bf16(args["bias"])
-            return lambda: F.conv2d(x, w, b, padding=1)
+            return lambda: F.conv2d(x, w, b, padding=1, groups=groups)
         dy = args["dy"].permute(0, 3, 1, 2)
-        return lambda: conv_bwd(dy, x, w, None, [1, 1], [1, 1], [1, 1], False,
-                                [0, 0], 1, [True, True, False])
+        # with addends, the sums that K3's `thru` saves (as autograd does
+        # them: two surfaces read, one written) after the library's backward
+        adds = [a for a in (args.get("daccs") or []) if a is not None]
+        return lambda: (conv_bwd(dy, x, w, None, [1, 1], [1, 1], [1, 1], False,
+                                 [0, 0], groups, [True, True, False]),
+                        [a + a for a in adds])
     if kind in ("K2", "K4"):
         p, groups = args["x"], args["x"].c if args["depthwise"] else 1
         x, w = activated(p).to(torch.bfloat16).permute(0, 3, 1, 2), _oihw([args["w"]])
@@ -522,9 +550,10 @@ def _work(kind, args, out):
     if kind in ("K1", "K3"):
         ins, cout = args["inputs"], args["weights"][0].shape[-1]
         grid = (_tensors(out)[0] if kind == "K1" else args["dy"]).shape[:3]
-        cin = sum(p.c for p in ins)
+        cin = 1 if args.get("depthwise") else sum(p.c for p in ins)
         macs = math.prod(grid) * 9 * cin * cout
-        read = sum(pending(p) for p in ins) + 2 * 9 * cin * cout
+        read = (sum(pending(p) for p in ins) + 2 * 9 * cin * cout
+                + sum(nb(a) for a in (args.get("daccs") or [])))
     elif kind in ("K2", "K4"):
         x, w = args["x"], args["w"]
         cout = x.c if args["depthwise"] else w.shape[-1]
@@ -629,11 +658,13 @@ def time_cases(phase, cases):
 # as parts of its device time; K6a's and K8a's part is the case's label
 # (forward, dx)
 PARTS = {
-    "K1": {"pending_conv_kernel": "conv"},
+    "K1": {"pending_conv_kernel": "conv", "down_dw_fwd_kernel": "depthwise",
+           "down_rows_reduce_kernel": "reduce"},
     "K2": {"down_stem_kernel": "dense", "down_dw_fwd_kernel": "depthwise",
            "down_rows_reduce_kernel": "reduce"},
     "K3": {"dy_prep_kernel": "dy prep", "conv_dw_wg_kernel": "dW",
-           "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2"},
+           "conv_wg_kernel": "dx", "conv_up2_dx_kernel": "dx x2",
+           "down_dw_bwd_kernel": "depthwise", "down_rows_reduce_kernel": "reduce"},
     "K4": {"down_stem_bwd_kernel": "dense", "down_dw_bwd_kernel": "depthwise",
            "down_rows_reduce_kernel": "reduce"},
     "K5a": {"narrow_head_kernel": "head", "head_rows_reduce_kernel": "reduce"},
@@ -718,6 +749,9 @@ def persistent_grid(kind, args):
     if kind in ("K2", "K4"):
         return down_grid(args["x"], args["w"], args["depthwise"], kind == "K4",
                          bool(args.get("need_dx")))
+    if kind in ("K1", "K3") and args.get("depthwise"):   # the stride-1 tile
+        return down_grid(args["inputs"][0], args["weights"][0], True,
+                         kind == "K3", True, stride=1)
     if kind in ("K6b", "K8b"):
         x, g = args["x"], args["g" if kind == "K6b" else "dy"]
         return dw_grid(*x.shape, g.shape[-1], x.dtype == torch.float32, dev)
@@ -799,7 +833,8 @@ def k1_tile_ab(phase, cases) -> dict:
     from mmr_tpu_torch.ops import fused_conv as fc
 
     table = {}
-    for c in (c for c in cases if c["kind"] == "K1"):
+    for c in (c for c in cases if c["kind"] == "K1"
+              and not c["args"].get("depthwise")):
         cout = c["args"]["weights"][0].shape[-1]
         for n in (16, 32, 64):
             if n > fc._wg_tile(cout)[0]:
@@ -927,6 +962,9 @@ def train_phase(model, dev, rng) -> dict:
     check(torch.equal(again[1], stats) and torch.equal(again[2], conf),
           "K5a's statistics differ on a second launch")
     print("[6] K5a stats and conf bit-equal on a second launch", flush=True)
+    grad1 = _clipped_grad(state).clone()
+    thru = thru_phase(sd0, trainer, pre, images, masks, lr, records, launches,
+                      loss1, grad1)
 
     # ---- 6b'. fused step loss vs the plain f32 step -----------------------
     pstate, pstep = trainer(plain)
@@ -975,8 +1013,215 @@ def train_phase(model, dev, rng) -> dict:
     out = {kind: kernel_entry(kind, cases, launches[kind], per) for kind in FLAGSHIP}
     for kind in ("K1", "K2", "K3", "K4", "K5a", "K5b"):
         out[kind]["device_ms"] = device_split(6, cases, kind)
+    out["K3"].update(thru)
+    # the K3 launches that took addends, split again with them and without
+    # (the same launches' other inputs): what the in-kernel adds cost
+    added = [c for c in cases if c["kind"] == "K3"
+             and any(d is not None for d in c["args"].get("daccs") or [])]
+    bare = [{"kind": "K3", "label": c["label"] + " no add",
+             "args": {**c["args"], "daccs": None}} for c in added]
+    split = {k: sum(device_split("6 thru", group, "K3").values())
+             for k, group in (("with addends", added), ("without", bare))}
+    print(f"[6] thru: the {len(added)} K3 launches with addends, device ms with "
+          f"them {split['with addends']:.4f}, without {split['without']:.4f}",
+          flush=True)
+    out["K3"]["thru_device_ms"] = split
     out["inputs"] = (sd0, images, masks, lr)   # phase 15's weights and batch
     return out
+
+
+def cotangent_sums(run) -> int:
+    """The surface-sized cotangent sums autograd makes in one call of
+    ``run``: the ``aten::add`` / ``aten::add_`` ops on 4-D tensors that the
+    autograd engine issues to add a gradient into another
+    (``torch.profiler``, record_shapes; each is one elementwise kernel on
+    the card), wherever the backward runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    engine = "autograd::engine::evaluate_function"
+    return sum(1 for e in prof.events()
+               if e.name in ("aten::add", "aten::add_") and e.input_shapes
+               and len(e.input_shapes[0]) == 4 and e.cpu_parent is not None
+               and e.cpu_parent.name.startswith(engine))
+
+
+def thru_phase(sd0, trainer, pre, images, masks, lr, records, launches,
+               loss1, grad1) -> dict:
+    """Phase 6's ``thru`` part. The recorded step (``thread_dx``, the
+    default) against the same step with ``thread_dx=False`` on the same
+    weights and batch: launch counts of both, loss rtol 1e-3, clipped
+    gradient cosine ≥ 0.999; the surface-sized cotangent sums of each step
+    (:func:`cotangent_sums`), fewer with threading by the inputs the
+    decoder threaded. The two steps, then the two models' forward alone
+    and forward + backward, timed in alternated pairs
+    (:func:`alternated_times`). Returns the K3 entry's ``thru`` keys."""
+    from mmr_tpu_torch.models import create_model
+
+    dev = grad1.device
+    k3 = [a for k, a, *_ in records if k == "K3"]
+    addends = sum(d is not None for a in k3 for d in (a.get("daccs") or []))
+    with_add = sum(any(d is not None for d in (a.get("daccs") or [])) for a in k3)
+    models = {}
+    for thread in (True, False):
+        m = create_model(classes=N_CLASSES, device=dev, fused=True,
+                         fused_frontend=True, thread_dx=thread)
+        m.load_state_dict(sd0)
+        models[thread] = m
+    st, step = trainer(models[False])
+    _zero_launches()
+    st, met = step(st, images, masks, lr)
+    torch.cuda.synchronize()
+    off_launches = {k: v for k, v in _launches().items() if v}
+    loss0, grad0 = float(met["loss"]), _clipped_grad(st)
+    cos = (grad1.double() @ grad0.double()
+           / (grad1.double().norm() * grad0.double().norm())).item()
+    runs, sums = {}, {}
+    images_d, masks_d = images.to(dev), masks.to(dev)
+    for thread, m in models.items():
+        st, step = trainer(m)
+        runs[thread] = functools.partial(step, st, images_d, masks_d, lr)
+        sums[thread] = cotangent_sums(runs[thread])
+    threaded = models[True].threaded_inputs
+    times = alternated_times("6 thru: step", runs)
+    img = pre(images_d[0].float() / 255.0)
+    split = {}
+    for part in ("forward", "backward"):
+        split[part] = alternated_times(
+            f"6 thru: {part} alone", {t: functools.partial(
+                fwd_bwd, m, img, masks_d[0], part) for t, m in models.items()},
+            device=False)
+    host_ops("6 thru: forward + backward", {t: functools.partial(
+        fwd_bwd, m, img, masks_d[0], "backward") for t, m in models.items()})
+    print(f"[6] thru: {with_add} of {len(k3)} K3 launches took {addends} "
+          f"addends (threaded inputs the decoder counts: {threaded}), each held "
+          f"against its plain version above; launches threaded "
+          f"{ {k: v for k, v in launches.items() if v} }, unthreaded "
+          f"{off_launches}", flush=True)
+    print(f"[6] thru: loss threaded {loss1:.6f}, unthreaded {loss0:.6f}; clipped "
+          f"gradient cosine {cos:.6f}; surface-sized cotangent sums a step: "
+          f"threaded {sums[True]}, unthreaded {sums[False]} (fewer by "
+          f"{sums[False] - sums[True]})", flush=True)
+    check(threaded == addends and models[False].threaded_inputs == 0,
+          "the decoder's threaded inputs differ from the K3 addends")
+    check(off_launches == {k: v for k, v in launches.items() if v},
+          "threading changed the launch counts")
+    check(abs(loss1 - loss0) <= 1e-3 * abs(loss0) and cos >= 0.999,
+          "the threaded step disagrees with the unthreaded one")
+    check(sums[False] - sums[True] == threaded,
+          "threading did not remove one cotangent sum per threaded input")
+    return {"thru_addends": addends, "thru_launches": with_add,
+            "cotangent_sums": {"threaded": sums[True], "unthreaded": sums[False]},
+            "step_ms": {("threaded" if t else "unthreaded"): v
+                        for t, v in times.items()},
+            "host_issue_ms": {part: {("threaded" if t else "unthreaded"): v["issue"]
+                                     for t, v in d.items()}
+                              for part, d in split.items()}}
+
+
+THRU_PAIRS = 16   # alternated threaded / unthreaded pairs a comparison
+
+
+def _spread(v: list) -> dict:
+    v = sorted(v)
+    return {"median": v[len(v) // 2], "min": v[0], "max": v[-1]}
+
+
+def alternated_times(tag: str, runs: dict, pairs: int = THRU_PAIRS,
+                     device: bool = True) -> dict:
+    """Two versions of one call (``runs``: {True: threaded, False:
+    unthreaded}) timed in ``pairs`` pairs after one warm call each; the
+    version that runs first swaps from pair to pair, so an order effect
+    falls on both. Per version the median, min and max of its host issue
+    time (call to return, the device drained before) and wall time (to the
+    device drained after) and, with ``device``, its device busy
+    (:func:`device_profile`, 3 runs); printed with the per-pair differences
+    (threaded − unthreaded) and the medians by position in the pair."""
+    wall = {t: [] for t in runs}
+    issue = {t: [] for t in runs}
+    pos = {0: [], 1: []}
+    for fn in runs.values():
+        fn()
+    for i in range(pairs):
+        for j, t in enumerate((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[t]()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            issue[t].append((t1 - t0) * 1e3)
+            wall[t].append((t2 - t0) * 1e3)
+            pos[j].append((t2 - t0) * 1e3)
+    out = {}
+    for t in runs:
+        name = "threaded" if t else "unthreaded"
+        out[t] = {"wall": _spread(wall[t]), "issue": _spread(issue[t])}
+        busy = device_profile(runs[t], 3)[0] if device else None
+        out[t]["busy"] = busy
+        w, h = out[t]["wall"], out[t]["issue"]
+        print(f"[{tag}] {name}: wall median {w['median']:.3f} ms (min "
+              f"{w['min']:.3f}, max {w['max']:.3f}), host issue median "
+              f"{h['median']:.3f} (min {h['min']:.3f}, max {h['max']:.3f})"
+              + (f", device busy {busy:.3f}" if device else ""), flush=True)
+    for what, v in (("wall", wall), ("host issue", issue)):
+        d = _spread([a - b for a, b in zip(v[True], v[False])])
+        print(f"[{tag}] threaded - unthreaded {what}, {pairs} pairs: median "
+              f"{d['median']:+.3f} ms (min {d['min']:+.3f}, max "
+              f"{d['max']:+.3f})", flush=True)
+    print(f"[{tag}] wall median by position in the pair: first "
+          f"{_spread(pos[0])['median']:.3f} ms, second "
+          f"{_spread(pos[1])['median']:.3f}", flush=True)
+    return out
+
+
+def host_ops(tag: str, runs: dict, reps: int = 3, top: int = 12):
+    """Where the host's time differs between two versions of one call
+    (``runs``: {True: threaded, False: unthreaded}): each profiled over
+    ``reps`` calls (``torch.profiler``, CPU and CUDA activity: the aten ops
+    on every thread, the autograd engine's included, and the CUDA runtime
+    calls), the ops' self host time a call; prints the ``top`` ops by the
+    size of their difference, with their calls a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = {}
+    for t in (True, False, False, True):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                runs[t]()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            ms, n = ops.setdefault(t, {}).get(e.key, (0.0, 0))
+            ops[t][e.key] = (ms + e.self_cpu_time_total / 1e3 / (2 * reps),
+                             n + e.count / (2 * reps))
+    tot = {t: sum(ms for ms, _ in v.values()) for t, v in ops.items()}
+    print(f"[{tag}] host self time a call, profiled (2 x {reps} calls each, "
+          f"order T F F T): threaded {tot[True]:.3f} ms, unthreaded "
+          f"{tot[False]:.3f}; the ops that differ most (threaded / unthreaded "
+          "ms, calls):", flush=True)
+    keys = set(ops[True]) | set(ops[False])
+    diff = lambda k: ops[True].get(k, (0, 0))[0] - ops[False].get(k, (0, 0))[0]
+    for k in sorted(keys, key=lambda k: -abs(diff(k)))[:top]:
+        (a, na), (b, nb) = ops[True].get(k, (0, 0)), ops[False].get(k, (0, 0))
+        print(f"[{tag}]   {diff(k):+8.3f} ms  {a:8.3f} / {b:8.3f}  "
+              f"x{na:.0f} / x{nb:.0f}  {k}", flush=True)
+
+
+def fwd_bwd(model, img, msk, part: str):
+    """The fused model's train-mode forward with the fused head + loss
+    (:func:`assemble_dice_ce` of its statistics) and, for ``part ==
+    "backward"``, the loss's backward too, the gradients then dropped."""
+    from mmr_tpu_torch.ops.head_loss import assemble_dice_ce
+
+    model.train()
+    res = model(img, labels=msk, with_conf=False)
+    loss, _ = assemble_dice_ce(res["stats"], res["conf"], res["n_pixels"])
+    if part == "backward":
+        loss.backward()
+        model.zero_grad(set_to_none=True)
 
 
 def stem_dx_phase(model, dev) -> dict:
@@ -2230,6 +2475,7 @@ MESH_STEPS = 5          # timed train steps a rank
 MESH_FRAMES = 12        # full-HD frames served over the ranks
 MESH_TIMEOUT = 600      # seconds a torchrun of phase 15 may take
 MESH_CLI_EPOCHS = 1
+MESH_EVAL_BATCHES, MESH_EVAL_BATCH, MESH_EVAL_SEED = 6, 4, 15   # (d)
 RANK_SCRIPT = Path(__file__).resolve()   # what torchrun runs a rank of
 
 
@@ -2433,6 +2679,35 @@ def mesh_rank(out: Path) -> None:
               f"within atol .25/rtol .05: {within}", flush=True)
         del ref
     del every
+
+    # ---- (d) Evaluate(mesh=): each rank adds its batches, the ranks' K7
+    # totals are summed when the counts are read ----------------------------
+    from mmr_tpu_torch.metrics.evaluate import Evaluate
+    from mmr_tpu_torch.ops.confusion import confusion_stats
+
+    gen = torch.Generator(device=dev).manual_seed(MESH_EVAL_SEED)
+    batches = [(torch.randint(0, N_CLASSES, (MESH_EVAL_BATCH, *PATH_A_HW),
+                              device=dev, generator=gen, dtype=torch.uint8),
+                torch.randint(0, N_CLASSES, (MESH_EVAL_BATCH, *PATH_A_HW),
+                              device=dev, generator=gen, dtype=torch.uint8))
+               for _ in range(MESH_EVAL_BATCHES)]
+    mine = batches[mesh.rank::mesh.size]
+    ev = Evaluate(N_CLASSES, mesh=mesh)
+    confusion_stats.launches = 0
+    for pred, gt in mine:
+        ev.add_batch(pred, gt)
+    counts = np.stack([ev.tp, ev.fp, ev.fn])
+    res.update(eval_counts=counts, eval_miou=ev.iou()[1],
+               eval_launches=confusion_stats.launches, eval_batches=len(mine))
+    if mesh.rank == 0:
+        one = Evaluate(N_CLASSES)
+        for pred, gt in batches:
+            one.add_batch(pred, gt)
+        res.update(eval_one_counts=np.stack([one.tp, one.fp, one.fn]),
+                   eval_one_miou=one.iou()[1])
+    print(f"[{tag}] Evaluate(mesh=): {len(mine)} of {MESH_EVAL_BATCHES} batches, "
+          f"{res['eval_launches']} K7 launches on this rank; summed counts "
+          f"{int(counts.sum())}, mean IoU {res['eval_miou']:.6f}", flush=True)
     torch.save(res, out / f"rank{mesh.rank}.pt")
     mesh.barrier()
 
@@ -2466,7 +2741,11 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
     mesh=)`` against one rank serving them all (phase 3's bounds), launches
     per rank, frames/s; (c) ``train_path_a`` under torchrun for one epoch
     on phase 11's PNG frames: exit 0, each file once, the K6a / K6b / K7
-    launches each rank's code makes. Returns {kind: launches of rank 0}."""
+    launches each rank's code makes; (d) ``Evaluate(mesh=)`` over
+    ``MESH_EVAL_BATCHES`` batches split over the ranks, each rank's K7
+    launches its own batches', the summed counts and the mean IoU equal to
+    one rank's over every batch, exactly. Returns {kind: launches of rank
+    0}."""
     import tempfile
 
     from mmr_tpu_torch.data import png
@@ -2554,6 +2833,21 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
               f"{MESH_FRAMES / r0['serve_s']:.2f} frames/s (slowest rank), one rank "
               f"{MESH_FRAMES / r0['serve_one_s']:.2f} frames/s; launches a rank "
               f"{[r['serve_launches'] for r in ranks]}; {smi}", flush=True)
+
+        # ---- (d) Evaluate(mesh=): the ranks' summed K7 totals ----------------------
+        for rank, r in enumerate(ranks):
+            check(r["eval_launches"] == r["eval_batches"]
+                  == MESH_EVAL_BATCHES // MESH_RANKS,
+                  f"rank {rank} did not count its own batches on K7")
+            check(np.array_equal(r["eval_counts"], r0["eval_one_counts"])
+                  and r["eval_miou"] == r0["eval_one_miou"],
+                  f"Evaluate(mesh=) on rank {rank} differs from one rank's counts")
+        print(f"[15] Evaluate(mesh=): {MESH_EVAL_BATCHES} batches of "
+              f"{MESH_EVAL_BATCH}x{PATH_A_HW[0]}x{PATH_A_HW[1]} uint8 ids, "
+              f"{MESH_EVAL_BATCHES // MESH_RANKS} a rank on K7; the summed (3, "
+              f"{N_CLASSES}) counts equal one rank's over every batch exactly on "
+              f"each rank ({int(r0['eval_counts'].sum())} in all), mean IoU "
+              f"{r0['eval_miou']:.9f} = {r0['eval_one_miou']:.9f}", flush=True)
 
         # ---- (c) Path A's CLI under torchrun ----------------------------------------
         root, run = out / "data", out / "run"
@@ -2844,6 +3138,159 @@ def native_data_phase(dev, seed, smi) -> dict:
     return launches
 
 
+# ------------------------------------------- 17. the fused b1 pair
+
+B1_TRAIN = {"K1": 1, "K2": 3, "K3": 1, "K4": 3}   # stem, b0_0, b1_0; b1_1
+B1_EVAL = {"K1": 1, "K2": 3}
+B1_REPS = 10                                     # timed runs of the pair
+
+
+def _b1_time(phase, name, run) -> dict:
+    """Median ms (host clock around a synchronized run), host issue and
+    device busy of ``run``."""
+    ts = []
+    for _ in range(B1_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    med = sorted(ts)[len(ts) // 2]
+    issue = host_issue_ms(run, 5)
+    busy = device_profile(run, 3)[0]
+    print(f"[{phase}] b1 pair, {name}: median {med:.3f} ms, host issue "
+          f"{issue:.3f} ms, device busy {busy:.3f} ms", flush=True)
+    return {"ms": med, "issue_ms": issue, "busy_ms": busy}
+
+
+def b1_phase(dev, seed, smi) -> list[dict]:
+    """Phase 17: the mbv3 encoder with ``fused_frontend=True, fused_b1=True``
+    (``FusedIRBlock``: b1_0's depthwise 3×3/2 at C = 72 on K2 / K4 with dx,
+    b1_1's 3×3/1 at C = 88 on the depthwise mode of K1 / K3) at B=8
+    512×640, random weights from the seed (BN perturbed), against the
+    plain encoder on the same weights: an eval forward and a train forward
+    + backward (loss Σ f3·r), every launch recorded and held against its
+    plain version at phase 6's bounds, the launch counts the code's; f3
+    within 0.04 of the plain encoder's largest value and b1's BN running
+    statistics atol 0.03 / rtol 0.1 (``test_packed_chain.py:411-477``); the
+    four new launches timed beside their bound, plain version and library
+    call and split by device kernel; the b1 pair fused against plain
+    (eval forward; train forward + backward): median, host issue, device
+    busy. Returns the new launches' kernel entries."""
+    from mmr_tpu_torch.models.encoders import get_encoder
+    from mmr_tpu_torch.models.factory import init_weights
+    from mmr_tpu_torch.models.fused_blocks import as_array
+    from mmr_tpu_torch.models.fused_encoder import fused_stem
+    from mmr_tpu_torch.models import get_preprocessing
+    from mmr_tpu_torch.models.layers import nchw, nhwc
+
+    t_phase = time.perf_counter()
+    spec = get_encoder("tu-mobilenetv3_small_100")
+    gen = torch.Generator().manual_seed(seed + 17)
+    fused = init_weights(spec.build(fused_frontend=True, fused_b1=True), gen)
+    perturb(fused, gen)
+    plain = spec.build()
+    plain.load_state_dict(fused.state_dict())
+    fused, plain = fused.to(dev), plain.to(dev)
+    pre = get_preprocessing("tu-mobilenetv3_small_100")
+    img = torch.rand(TRAIN_BATCH, *ROI, 3, generator=gen).to(dev)
+    x = nchw(pre(img).to(torch.bfloat16)).contiguous(memory_format=torch.channels_last)
+    r3 = torch.randn(TRAIN_BATCH, ROI[0] // 8, ROI[1] // 8, 24, generator=gen).to(dev)
+
+    def f3_rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    cases = []
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        fused.train(train)
+        plain.train(train)
+        with recording() as (records, recorders), torch.set_grad_enabled(train):
+            f3 = fused(x)[2]
+            if train:
+                (nhwc(f3).float() * r3).sum().backward()
+            torch.cuda.synchronize()
+        launches = {k: r.launches for k, r in recorders.items() if r.launches}
+        want = B1_TRAIN if train else B1_EVAL
+        print(f"[17] {mode}: launches {launches}", flush=True)
+        check(launches == want, f"b1 {mode}: expected {want} launches")
+        held = hold_records(17, records)
+        with torch.no_grad():
+            ref = plain(x)[2]
+        rel = f3_rel(f3, ref)
+        print(f"[17] {mode}: f3 {tuple(f3.shape)} vs the plain encoder: max |Δ| / "
+              f"max {rel:.3e}", flush=True)
+        check(rel < 0.04 and bool(torch.isfinite(f3).all()),
+              f"b1 {mode}: f3 differs from the plain encoder's")
+        if train:
+            worst = 0.0
+            for blk in ("b1_0", "b1_1"):
+                for bn in ("bn1", "bn2", "bn3"):
+                    for stat in ("running_mean", "running_var"):
+                        a = getattr(getattr(getattr(fused, blk), bn), stat)
+                        b = getattr(getattr(getattr(plain, blk), bn), stat)
+                        worst = max(worst, (a - b).abs().max().item())
+                        check(torch.allclose(a, b, atol=0.03, rtol=0.1),
+                              f"b1 {blk}.{bn}.{stat} differs from the plain encoder's")
+            grads = [q.grad for n, q in fused.named_parameters() if n.startswith("b1_")]
+            check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+                  "b1: a missing or non-finite gradient")
+            print(f"[17] train: b1's BN running statistics vs the plain encoder's: "
+                  f"worst max |Δ| {worst:.3e}; {len(grads)} b1 gradients finite",
+                  flush=True)
+            cases = held
+
+    # ---- the new launches timed; the b1 pair fused vs plain -------------------
+    new = [c for c in cases
+           if (c["kind"] in ("K2", "K4") and c["args"]["x"].c == 72)
+           or (c["kind"] in ("K1", "K3") and c["args"].get("depthwise"))]
+    check(len(new) == 4, f"{len(new)} b1 launches, expected 4")
+    time_cases(17, new)
+    names = {"K2": "fused_conv_down (depthwise C=72, b1_0)",
+             "K4": "fused_conv_down_bwd (depthwise C=72 with dx, b1_0)",
+             "K1": "fused_conv (depthwise stride 1, C=88, b1_1)",
+             "K3": "fused_conv_bwd (depthwise stride 1, C=88, b1_1)"}
+    per = (f"one launch of the b1 pair's train step (B={TRAIN_BATCH}, "
+           f"{ROI[0]}x{ROI[1]} image; fused_b1, off by default)")
+    entries = []
+    for c in new:
+        e = kernel_entry(c["kind"], [c], 1, per)
+        e["name"] = names[c["kind"]]
+        e["device_ms"] = device_split(17, [c], c["kind"])
+        entries.append(e)
+
+    fused.eval()
+    plain.eval()
+    with torch.no_grad():
+        f2 = fused.b0_0.fused(fused_stem(fused, x))
+        x2 = as_array(f2)
+    fused.train()
+    plain.train()
+    r = torch.randn(TRAIN_BATCH, ROI[0] // 8, ROI[1] // 8, 24, device=dev)
+
+    def pair(enc, train):
+        run = ((lambda: enc.b1_1.fused(enc.b1_0.fused(f2)).raw) if enc is fused
+               else (lambda: nhwc(enc.b1_1(enc.b1_0(x2)))))
+        if not train:
+            def go():
+                with torch.no_grad():
+                    run()
+            return go
+        return lambda: (run().float() * r).sum().backward()
+
+    times = {}
+    for train in (False, True):
+        for name, enc in (("fused", fused), ("plain", plain)):
+            enc.train(train)
+            key = f"{name} {'train' if train else 'eval'}"
+            times[key] = _b1_time(17, f"{key} ({smi})", pair(enc, train))
+    for e in entries:
+        e["b1_pair"] = times
+    print(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3073,6 +3520,8 @@ def main() -> int:
         kind = next((k for k in FLAGSHIP if KERNELS[k][1] == e["name"]), None)
         if kind is not None:
             e["converted_cli_launches"] = converted[kind]
+    # ---- 17. the fused b1 pair ----------------------------------------------------
+    kernels += b1_phase(dev, args.seed, smi)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

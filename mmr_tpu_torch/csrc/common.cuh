@@ -15,6 +15,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -382,6 +383,8 @@ struct WgOut {
   float* dscale;            // zeroed (c,) f32 when act != kNone
   float* dshift;
   int c, act, off;
+  const __nv_bfloat16* acc; // K3's `thru` addend (n, oh, ow, c) added in
+                            // f32 before the rounding, or null
 };
 
 template <class T>
@@ -452,6 +455,20 @@ __device__ __forceinline__ void store2(float* dst, float v0, float v1,
   }
 }
 
+// v[0] (and v[1] from src + 1 when pair) as f32: a paired load when aligned
+__device__ __forceinline__ void load2(const __nv_bfloat16* src, float* v,
+                                      bool pair, bool aligned) {
+  if (pair && aligned) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src));
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = __bfloat162float(src[0]);
+    if (pair) v[1] = __bfloat162float(src[1]);
+  }
+}
+
 // K1's A operand, staged through registers one chunk ahead: load() issues
 // the global loads of chunk ch of the pending inputs (thread t takes
 // channel half t & 1 and every (kThr/2)-th pixel of the kPix halo pixels,
@@ -516,7 +533,14 @@ struct PendingStager {
 // oi[nb] (-1: none). An output with a prologue gets its dx through the
 // prologue's backward and its (gm*x, gm) added into (s1, s2); the others
 // y + bias (ReLU), with (y, y^2) added into (s1, s2) when p.mom != null.
-template <int N, int R, class T>
+// With kAcc, an output with an addend (acc != null: the cotangent that the
+// later consumers of a K3 input summed) gets it added in f32 after all
+// that, so the sums stay this output's own share, and one rounding to T
+// follows. Without kAcc the addend is not read: the instances that never
+// take one (K1, K5b, K6a and K3's launches without addends) keep the code
+// they had without it: a runtime test of acc alone cost K6a's forward 25 %
+// on an H100.
+template <int N, int R, bool kAcc, class T>
 __device__ __forceinline__ void wg_epilogue(const WgParams<T>& p,
                                             const float (&acc)[R][N / 2],
                                             int oy, int ox0, int b, int n0,
@@ -546,6 +570,9 @@ __device__ __forceinline__ void wg_epilogue(const WgParams<T>& p,
         if (co >= o.c) continue;
         const bool pair = co + 1 < o.c;
         float v[2] = {acc[r][4 * nb + 2 * h], acc[r][4 * nb + 2 * h + 1]};
+        float add[2] = {0.f, 0.f};
+        if (kAcc && o.acc != nullptr)
+          load2(o.acc + pix * o.c + co, add, pair, o.c % 2 == 0);
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           if (k == 1 && !pair) break;
@@ -565,6 +592,7 @@ __device__ __forceinline__ void wg_epilogue(const WgParams<T>& p,
               s2[nb][k] += v[k] * v[k];
             }
           }
+          if (kAcc && o.acc != nullptr) v[k] += add[k];
         }
         store2(o.y + pix * o.c + co, v[0], v[1], pair, o.c % 2 == 0);
       }
@@ -598,7 +626,7 @@ __device__ __forceinline__ void wg_colsums(const float (&s1)[N / 8][2],
   }
 }
 
-template <int N, bool kUp2, bool kPend, class T>
+template <int N, bool kUp2, bool kPend, bool kAcc, class T>
 __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
   using G = WgTile<N, kUp2>;
   static_assert(!(kPend && kUp2), "pending inputs are staged at fine size");
@@ -713,8 +741,8 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
 #pragma unroll
   for (int nb = 0; nb < N / 8; ++nb)
     s1[nb][0] = s1[nb][1] = s2[nb][0] = s2[nb][1] = 0.f;
-  wg_epilogue<N, G::kWgRows>(p, acc, oy0 + wg * G::kWgRows, ox0, b, n0, s1,
-                             s2);
+  wg_epilogue<N, G::kWgRows, kAcc>(p, acc, oy0 + wg * G::kWgRows, ox0, b, n0,
+                                   s1, s2);
   if (sums) {
     wg_colsums<N>(s1, s2, red);
     __syncthreads();
@@ -735,23 +763,24 @@ __device__ __forceinline__ void wg_conv(const WgParams<T>& p) {
   }
 }
 
-template <int N, class T>
+// kAcc: the instance that reads the outputs' addends (K3's `thru`)
+template <int N, class T, bool kAcc>
 __global__ void __launch_bounds__(WgTile<N, false>::kThreads)
     conv_wg_kernel(const WgParams<T> p) {
-  wg_conv<N, false, false>(p);
+  wg_conv<N, false, false, kAcc>(p);
 }
 
-template <int N>
+template <int N, bool kAcc>
 __global__ void __launch_bounds__(WgTile<N, true>::kThreads)
     conv_up2_dx_kernel(const WgParams<__nv_bfloat16> p) {
-  wg_conv<N, true, false>(p);
+  wg_conv<N, true, false, kAcc>(p);
 }
 
 // two blocks a SM at N <= 32 (their 256 threads at most 128 registers)
 template <int N>
 __global__ void __launch_bounds__(WgTile<N, false>::kThreads, N < 64 ? 2 : 1)
     pending_conv_kernel(const WgParams<__nv_bfloat16> p) {
-  wg_conv<N, false, true>(p);
+  wg_conv<N, false, true, false>(p);
 }
 
 // a Hopper kernel's launch attributes: its dynamic shared memory, and the
@@ -835,16 +864,34 @@ cudaError_t launch_wg(K kernel, const WgParams<T>& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the stride-1 conv at output-channel tile ntile (16, 32 or 64)
+// whether any output of p has an addend
+template <class T>
+bool has_acc(const WgParams<T>& p) {
+  for (int o = 0; o < p.n_out; ++o)
+    if (p.out[o].acc != nullptr) return true;
+  return false;
+}
+
+template <bool kAcc, class T>
+cudaError_t launch_conv_wg_at(int ntile, const WgParams<T>& p,
+                              cudaStream_t s) {
+  switch (ntile) {
+    case 16: return launch_wg<16, false>(conv_wg_kernel<16, T, kAcc>, p, s);
+    case 32: return launch_wg<32, false>(conv_wg_kernel<32, T, kAcc>, p, s);
+    case 64: return launch_wg<64, false>(conv_wg_kernel<64, T, kAcc>, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the stride-1 conv at output-channel tile ntile (16, 32 or 64); the
+// instance that reads addends only where an output has one (bf16: K3)
 template <class T>
 cudaError_t launch_conv_wg(int ntile, const WgParams<T>& p, cudaStream_t s) {
   if (p.np % ntile != 0) return cudaErrorInvalidValue;
-  switch (ntile) {
-    case 16: return launch_wg<16, false>(conv_wg_kernel<16, T>, p, s);
-    case 32: return launch_wg<32, false>(conv_wg_kernel<32, T>, p, s);
-    case 64: return launch_wg<64, false>(conv_wg_kernel<64, T>, p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (!has_acc(p)) return launch_conv_wg_at<false>(ntile, p, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_conv_wg_at<true>(ntile, p, s);
+  return cudaErrorInvalidValue;
 }
 
 // K1's conv over pending inputs (p.in, p.n_in; p.c = 16 * their chunks;
@@ -861,16 +908,23 @@ cudaError_t launch_pending_conv(int ntile, const WgParams<T>& p,
   }
 }
 
-// the source-resolution dx of a lazily x2-upsampled input (T = bf16)
+template <bool kAcc, class T>
+cudaError_t launch_up2_dx_at(int ntile, const WgParams<T>& p, cudaStream_t s) {
+  switch (ntile) {
+    case 16: return launch_wg<16, true>(conv_up2_dx_kernel<16, kAcc>, p, s);
+    case 32: return launch_wg<32, true>(conv_up2_dx_kernel<32, kAcc>, p, s);
+    case 64: return launch_wg<64, true>(conv_up2_dx_kernel<64, kAcc>, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the source-resolution dx of a lazily x2-upsampled input (T = bf16); the
+// instance that reads the addend only where there is one
 template <class T>
 cudaError_t launch_up2_dx(int ntile, const WgParams<T>& p, cudaStream_t s) {
   if (p.np % ntile != 0) return cudaErrorInvalidValue;
-  switch (ntile) {
-    case 16: return launch_wg<16, true>(conv_up2_dx_kernel<16>, p, s);
-    case 32: return launch_wg<32, true>(conv_up2_dx_kernel<32>, p, s);
-    case 64: return launch_wg<64, true>(conv_up2_dx_kernel<64>, p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return has_acc(p) ? launch_up2_dx_at<true>(ntile, p, s)
+                    : launch_up2_dx_at<false>(ntile, p, s);
 }
 
 // ----------------------------------------------------------- weight grad

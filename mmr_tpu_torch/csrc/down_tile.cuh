@@ -1,17 +1,19 @@
 // Device code shared by the stride-2 pair K2 (fused_conv_down.cu) and K4
-// (fused_conv_down_bwd.cu): the output tiles, the source tile staged into
-// shared memory by cp.async with the prologue applied once per staged
+// (fused_conv_down_bwd.cu), whose depthwise tiles also run at stride 1 (the
+// depthwise mode of K1 and K3): the output tiles, the source tile staged
+// into shared memory by cp.async with the prologue applied once per staged
 // value, the mma.sync m16n8k16 product, and the blocks' rows of sums added
 // in a fixed order (no atomics: every result is the same from run to run).
 //
-// A tile is kDownTH output rows x TW output columns of one image. Its source
-// tile is rows 2*r0 - 1 .. 2*r0 + 2*kDownTH - 1 and columns 2*c0 - 1 ..
-// 2*c0 + 2*TW - 1 (the stride-2 windows with their one-pixel halo). In
-// NHWC each source row of the tile is one contiguous run of bytes: it is
-// copied as the 16-byte chunks that hold it ("raw", at the row's `lead`,
-// the first column's address mod 16), then the prologue pass writes the
-// bf16 prologue'd values compactly ("act", zero outside the image: the
-// padding comes after the prologue).
+// A tile is kDownTH output rows x TW output columns of one image. At stride
+// S its source tile is rows S*r0 - 1 .. S*r0 + S*(kDownTH - 1) + 1 and
+// columns S*c0 - 1 .. S*c0 + S*(TW - 1) + 1 (the windows with their
+// one-pixel halo: at stride 1 each output row reads one new source row, at
+// stride 2 two). In NHWC each source row of the tile is one contiguous run
+// of bytes: it is copied as the 16-byte chunks that hold it ("raw", at the
+// row's `lead`, the first column's address mod 16), then the prologue pass
+// writes the bf16 prologue'd values compactly ("act", zero outside the
+// image: the padding comes after the prologue).
 
 #pragma once
 
@@ -23,8 +25,10 @@ constexpr int kDownTH = 4;          // output rows of a tile
 constexpr int kDownThreads = 256;
 constexpr int kDenseTW = 64;        // output columns of a dense tile
 constexpr int kDwTW = 32;           // of a depthwise tile
+constexpr int kDwWideTW = 16;       // of a stride-2 one above 64 channels
 constexpr int kDenseMaxCin = 16;    // the dense kernels' channel limits
 constexpr int kDenseMaxCout = 32;
+constexpr int kDwMaxC = 96;         // the depthwise kernels' widest C
 constexpr int kDownMaxSmem = 227 * 1024;   // an H100 block's shared memory
 
 struct DownTile {
@@ -32,23 +36,37 @@ struct DownTile {
 };
 
 // the channels the kernels take: dense cin <= 16 and cout <= 32, depthwise
-// cin == cout in {8, 16, 32, 64}
+// cin == cout a multiple of 8 up to kDwMaxC
 inline bool down_channels_ok(int cin, int cout, int depthwise) {
   if (depthwise)
-    return cout == cin && (cin == 8 || cin == 16 || cin == 32 || cin == 64);
+    return cout == cin && cin % 8 == 0 && cin >= 8 && cin <= kDwMaxC;
   return cin >= 1 && cin <= kDenseMaxCin && cout >= 1 && cout <= kDenseMaxCout;
 }
 
-// the tile grid of an (n, h, w) input: tiles_y x tiles_x tiles an image
+// the depthwise widths whose block sums reduce by warp shuffles over the
+// lanes of a channel group (the warps' partial rows at a stride of 64
+// channels); the other widths reduce through ordered_unit_sums
+__host__ __device__ inline bool dw_warp_sums(int c) {
+  return c == 8 || c == 16 || c == 32 || c == 64;
+}
+
+// output columns of a tile: dense 64; depthwise 32, or 16 at stride 2 above
+// 64 channels (two raw tiles of 9 x 33 source pixels then fit a block)
+inline int down_tile_cols(int depthwise, int c, int stride) {
+  if (!depthwise) return kDenseTW;
+  return stride == 2 && c > 64 ? kDwWideTW : kDwTW;
+}
+
+// the tile grid of an (n, h, w) input at `stride`, tiles of tw output
+// columns: tiles_y x tiles_x tiles an image
 struct DownTiles {
   int y, x, all;
 };
 
-inline DownTiles down_tiles(int n, int h, int w, int depthwise) {
-  const int tw = depthwise ? kDwTW : kDenseTW;
+inline DownTiles down_tiles(int n, int h, int w, int tw, int stride) {
   DownTiles t;
-  t.y = ((h + 1) / 2 + kDownTH - 1) / kDownTH;
-  t.x = ((w + 1) / 2 + tw - 1) / tw;
+  t.y = ((h + stride - 1) / stride + kDownTH - 1) / kDownTH;
+  t.x = ((w + stride - 1) / stride + tw - 1) / tw;
   t.all = n * t.y * t.x;
   return t;
 }
@@ -65,9 +83,10 @@ __device__ __forceinline__ DownTile down_tile(int t, int tiles_y, int tiles_x,
   return d;
 }
 
-template <int TW>
+template <int TW, int kStride = 2>
 struct SrcTile {
-  static constexpr int kRows = 2 * kDownTH + 1, kCols = 2 * TW + 1;
+  static constexpr int kRows = kStride * (kDownTH - 1) + 3;
+  static constexpr int kCols = kStride * (TW - 1) + 3;
   // bytes of a raw row: the values, up to 15 bytes of lead and a chunk's tail
   __host__ __device__ static int raw_stride(int cin) {
     return (kCols * cin * 2 + 47) & ~15;
@@ -100,20 +119,21 @@ __device__ __forceinline__ void cp_async_n(uint32_t dst, long long src,
 // Issue the cp.async copies of tile t's source rows into `raw` (x 16-byte
 // aligned; x_end: the byte address one past x). The caller commits, waits
 // and synchronizes.
-template <int TW>
+template <int TW, int kStride = 2>
 __device__ void stage_src(const __nv_bfloat16* x, long long x_end,
                           const DownTile& t, int h, int w, int cin,
                           char* raw) {
-  using S = SrcTile<TW>;
+  using S = SrcTile<TW, kStride>;
   const int rs = S::raw_stride(cin), cpr = rs / 16;
-  const int cs = max(0, 2 * t.c0 - 1), ce = min(w, 2 * t.c0 + 2 * TW);
+  const int col0 = kStride * t.c0 - 1;
+  const int cs = max(0, col0), ce = min(w, col0 + S::kCols);
   if (cs >= ce) return;
   const uint32_t base = smem_addr(raw);
   for (int i = threadIdx.x; i < S::kRows * cpr; i += kDownThreads) {
     const int r = i / cpr, k = i - r * cpr;
-    const int iy = 2 * t.r0 - 1 + r;
+    const int iy = kStride * t.r0 - 1 + r;
     if (iy < 0 || iy >= h) continue;
-    const long long tile0 = src_addr(x, t.b, iy, 2 * t.c0 - 1, h, w, cin);
+    const long long tile0 = src_addr(x, t.b, iy, col0, h, w, cin);
     const long long a =
         (src_addr(x, t.b, iy, cs, h, w, cin) & ~15LL) + 16LL * k;
     if (a >= src_addr(x, t.b, iy, ce, h, w, cin)) continue;
@@ -126,19 +146,19 @@ __device__ void stage_src(const __nv_bfloat16* x, long long x_end,
 // act = the prologue of every in-image value of the raw tile, rounded to
 // bf16; 0 outside the image. s, t: the prologue vectors (read only when
 // act_k != kNone).
-template <int TW>
+template <int TW, int kStride = 2>
 __device__ void activate_src(const __nv_bfloat16* x, const DownTile& t,
                              int h, int w, int cin, const char* raw,
                              __nv_bfloat16* act, const float* s,
                              const float* tv, int act_k) {
-  using S = SrcTile<TW>;
+  using S = SrcTile<TW, kStride>;
   const int rs = S::raw_stride(cin), as = S::act_stride(cin);
   if (cin % 8 == 0) {   // 8-channel vectors; every row's lead is 0
     const int g = cin / 8, units = S::kCols * g;
     for (int i = threadIdx.x; i < S::kRows * units; i += kDownThreads) {
       const int r = i / units, u = i - r * units, j = u / g;
       const int c = (u - j * g) * 8;
-      const int iy = 2 * t.r0 - 1 + r, ix = 2 * t.c0 - 1 + j;
+      const int iy = kStride * t.r0 - 1 + r, ix = kStride * t.c0 - 1 + j;
       uint4 o = make_uint4(0, 0, 0, 0);
       if (iy >= 0 && iy < h && ix >= 0 && ix < w) {
         o = *reinterpret_cast<const uint4*>(raw + r * rs + (j * cin + c) * 2);
@@ -150,14 +170,14 @@ __device__ void activate_src(const __nv_bfloat16* x, const DownTile& t,
   }
   for (int i = threadIdx.x; i < S::kRows * S::kCols; i += kDownThreads) {
     const int r = i / S::kCols, j = i - r * S::kCols;
-    const int iy = 2 * t.r0 - 1 + r, ix = 2 * t.c0 - 1 + j;
+    const int iy = kStride * t.r0 - 1 + r, ix = kStride * t.c0 - 1 + j;
     __nv_bfloat16* dst = act + r * as + j * cin;
     if (iy < 0 || iy >= h || ix < 0 || ix >= w) {
       for (int ci = 0; ci < cin; ++ci) dst[ci] = __float2bfloat16_rn(0.f);
       continue;
     }
     const int lead =
-        (int)(src_addr(x, t.b, iy, 2 * t.c0 - 1, h, w, cin) & 15);
+        (int)(src_addr(x, t.b, iy, kStride * t.c0 - 1, h, w, cin) & 15);
     const __nv_bfloat16* src =
         reinterpret_cast<const __nv_bfloat16*>(raw + r * rs + lead) + j * cin;
     for (int ci = 0; ci < cin; ++ci) {

@@ -15,6 +15,15 @@
 //   dscale_j, dshift_j = sums of gm*x and gm, gm = g * act'(s*x + t)
 // with a_j the bf16 prologue'd input the forward staged and dye rounded to
 // bf16 before both products (as the TPU kernel rounds); f32 accumulation.
+// With an addend dacc_j (the `thru` dx threading of `_fused_bwd_kernel`'s
+// `thru_mask`, packed_chain.py:693-725: the cotangent that the later
+// consumers of input j's surface summed, bf16 of x_j's raw shape), dx_j =
+// prologue_bwd(...) + dacc_j in f32 before its one rounding; dscale_j and
+// dshift_j stay this consumer's own share. The dx epilogue reads it from
+// device memory as it writes dx_j: 2 bytes per raw value of x_j more, and
+// the separate pass that read two surfaces to write their sum is gone. Only
+// a dx launch with an addend runs the dx kernels' addend-reading instance
+// (kAcc); the others run the code they ran before it.
 //
 // Launches on the caller's stream, all on common.cuh's Hopper mainloops
 // (cp.async ring of 2-3 stages, wgmma m64nNk16 from shared memory):
@@ -58,7 +67,8 @@
 // inputs: their 9 flipped, transposed taps side by side, each input's
 // channels padded to 8 in input order, nps[j] and ntiles[j] that pack's), and
 // the outputs dxs (raw-shaped bf16), dscales/dshifts (zeroed (c_j,) f32,
-// null without a prologue). dy, y: (n, height, width, cout) bf16; dmom (2,
+// null without a prologue), daccs (each null or input j's addend, shaped
+// as dxs[j]). dy, y: (n, height, width, cout) bf16; dmom (2,
 // cout) f32 or null; dye: a bf16 buffer like dy (used when dmom != null);
 // dbias: zeroed (cout,) f32 or null; dw: zeroed (9, cpad, np) f32, the
 // inputs' channels one after another as its rows, each input's padded to a
@@ -69,9 +79,9 @@ extern "C" int mmr_fused_conv_bwd(
     const void* const* shifts, const int* cs, const int* acts,
     const int* ups, const void* const* wts, const int* ntiles,
     const int* nps, void* const* dxs, void* const* dscales,
-    void* const* dshifts, const void* dy, const void* y, const void* dmom,
-    void* dye, void* dbias, void* dw, int ntile, int np, int n, int height,
-    int width, int cout, void* stream) {
+    void* const* dshifts, const void* const* daccs, const void* dy,
+    const void* y, const void* dmom, void* dye, void* dbias, void* dw,
+    int ntile, int np, int n, int height, int width, int cout, void* stream) {
   if (n_in < 1 || n_in > kMaxIn) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)n * height * width * cout;
@@ -111,7 +121,8 @@ extern "C" int mmr_fused_conv_bwd(
     return WgOut<__nv_bfloat16>{
         static_cast<__nv_bfloat16*>(dxs[j]), q.in[j].x, q.in[j].scale,
         q.in[j].shift, static_cast<float*>(dscales[j]),
-        static_cast<float*>(dshifts[j]), cs[j], acts[j], col};
+        static_cast<float*>(dshifts[j]), cs[j], acts[j], col,
+        static_cast<const __nv_bfloat16*>(daccs[j])};
   };
   // the inputs that are not lazily upsampled: one launch (they convolve the
   // same dye), their taps side by side in one pack, each input's columns
@@ -163,11 +174,11 @@ int hopper_blocks(int kind) {
   if (kind == 2 && N > 32) return -1;
   using B = __nv_bfloat16;
   if (kind == 0)
-    return blocks_per_sm(conv_wg_kernel<N, B>, WgTile<N, false>::kThreads,
-                         WgTile<N, false>::kSmem);
+    return blocks_per_sm(conv_wg_kernel<N, B, false>,
+                         WgTile<N, false>::kThreads, WgTile<N, false>::kSmem);
   if (kind == 1)
-    return blocks_per_sm(conv_up2_dx_kernel<N>, WgTile<N, true>::kThreads,
-                         WgTile<N, true>::kSmem);
+    return blocks_per_sm(conv_up2_dx_kernel<N, false>,
+                         WgTile<N, true>::kThreads, WgTile<N, true>::kSmem);
   return blocks_per_sm(conv_dw_wg_kernel<N <= 32 ? N : 32, B>,
                        kDwWgThreads, DwTile<N>::kSmem);
 }

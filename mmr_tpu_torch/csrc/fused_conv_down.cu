@@ -30,18 +30,33 @@
 //   table of the patch columns' offsets, the B fragments come packed by the
 //   wrapper (`_stem_frags`). f32 products of bf16 values are exact, so only
 //   the order of the sums differs from the plain version.
-// - depthwise (b0_0, C = 16; C in {8, 16, 32, 64}), 32 output columns:
-//   CUDA-core FMAs, a thread per (output pixel, 8 channels), 16-byte loads
-//   and stores.
+// - depthwise (b0_0 at C = 16, b1_0 at C = 72; C a multiple of 8 up to
+//   96), 32 output columns (16 at stride 2 above 64 channels, so that two
+//   raw tiles and the act tile fit a block): CUDA-core FMAs, a thread per
+//   (output pixel, 8 channels), 16-byte loads and stores. Where c / 8 does
+//   not divide 256 (C = 72, 88) the block's first 256 rounded down to a
+//   multiple of c / 8 threads take the pixels, each of one channel group,
+//   and its moments are added in thread order (ordered_unit_sums); at C in
+//   {8, 16, 32, 64} the walk and the sums are bit for bit the old ones.
+// - the same depthwise tile at stride 1 (kStride = 1: each output row reads
+//   one source row, a tile 6 x 34 source pixels) is the depthwise mode of
+//   K1 (`fused_conv(..., depthwise=True)`), the mbv3 b1_1 block's 3x3 at C
+//   = 88. It replaces JAX's `fused_conv` call with the taps expanded
+//   diagonally into a dense (88 x 88) kernel (packed_encoder.py:258-266, the
+//   `pl.pallas_call` at packed_chain.py:1070): the dense mainloop would do
+//   88x the MACs, so the true per-channel conv runs here instead.
 //
 // Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): 2*9*cin*cout operations
 // per output pixel against 2*(cin*4 + cout) bytes per output pixel read
 // and written, far below the 295 op/byte ridge: bytes bound it, 0.011 ms
 // for the stem and 0.008 ms for b0_0 at B = 8 (0.019 ms in training; 0.047
-// ms for a 20-window serving batch). The design reads each source byte
-// from device memory once (a tile's halo row is the next tile's first,
-// 1/8 more through L2), writes y once, and keeps the prologue's output and
-// the moments out of device memory.
+// ms for a 20-window serving batch). The depthwise conv does 2*9 operations
+// per output value against 2 bytes read (stride 1) or 8 (stride 2) and 2
+// written: bytes bound it too (b1_0 at B = 8, 512x640: x 23.6 MB, y 5.9
+// MB, 0.0088 ms; b1_1: 7.2 + 7.2 MB, 0.0043 ms). The design reads each
+// source byte from device memory once (a tile's halo rows come again
+// through L2: 1/8 more at stride 2, 2/4 at stride 1), writes y once, and
+// keeps the prologue's output and the moments out of device memory.
 
 #include "down_tile.cuh"
 
@@ -228,10 +243,12 @@ __global__ void __launch_bounds__(kDownThreads) down_stem_kernel(
   }
 }
 
+template <int TW, int kStride>
 struct DwSmem {
-  using S = SrcTile<kDwTW>;
+  using S = SrcTile<TW, kStride>;
   // two raw tiles, act tile, weights (9, c) and prologue vectors (2, c)
-  // f32, warp moments (8, 2, 64)
+  // f32, the block's reduction: warp moments (8, 2, 64) or, where
+  // dw_warp_sums(c) is false, ordered_unit_sums' (kDownThreads, 8)
   __host__ __device__ static int act_off(int c) { return 2 * S::raw_bytes(c); }
   __host__ __device__ static int w_off(int c) {
     return act_off(c) + S::act_bytes(c);
@@ -241,15 +258,20 @@ struct DwSmem {
     return pro_off(c) + 2 * c * 4;
   }
   __host__ __device__ static int bytes(int c) {
-    return red_off(c) + 8 * 2 * 64 * 4;
+    return red_off(c) + (dw_warp_sums(c) ? 8 * 2 * 64 : 8 * kDownThreads) * 4;
   }
 };
 
-// c = cin = cout in {8, 16, 32, 64}
+// c = cin = cout, a multiple of 8 up to kDwMaxC; tiles of TW output
+// columns at stride kStride (2: K2; 1: K1's depthwise mode). A thread takes
+// 8 channels: group threadIdx.x % (c / 8) of the first kDownThreads
+// rounded down to a multiple of c / 8 threads (all 256 where c / 8 divides
+// 256: the old widths' walk), so its moments are of one group.
+template <int TW, int kStride>
 __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
     const DownParams p) {
-  using S = SrcTile<kDwTW>;
-  using M = DwSmem;
+  using S = SrcTile<TW, kStride>;
+  using M = DwSmem<TW, kStride>;
   extern __shared__ __align__(16) char down_smem[];
   char* smem = down_smem;
   const int c = p.cin;
@@ -259,8 +281,9 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
   float* red = reinterpret_cast<float*>(smem + M::red_off(c));
   const int rb = S::raw_bytes(c);
   int tile = blockIdx.x;
-  stage_src<kDwTW>(p.x, p.x_end, down_tile(tile, p.tiles_y, p.tiles_x, kDwTW),
-                   p.h, p.w, c, smem);
+  stage_src<TW, kStride>(p.x, p.x_end,
+                         down_tile(tile, p.tiles_y, p.tiles_x, TW), p.h, p.w,
+                         c, smem);
   cp_async_commit();
   for (int i = threadIdx.x; i < 9 * c; i += kDownThreads)
     wsm[i] = __bfloat162float(p.wt[i]);
@@ -269,30 +292,32 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
     pro[c + threadIdx.x] = p.shift[threadIdx.x];
   }
   const int groups = c / 8, grp = threadIdx.x % groups, c0 = grp * 8;
+  const int active = kDownThreads / groups * groups;
   const int as = S::act_stride(c);
   float s1[8] = {}, s2[8] = {}, bv[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) bv[k] = p.bias ? p.bias[c0 + k] : 0.f;
   for (int n = 0; tile < p.tiles; tile += gridDim.x, ++n) {
-    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, kDwTW);
+    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, TW);
     if (tile + gridDim.x < p.tiles)
-      stage_src<kDwTW>(p.x, p.x_end,
-                       down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, kDwTW),
-                       p.h, p.w, c, smem + ((n + 1) & 1) * rb);
+      stage_src<TW, kStride>(
+          p.x, p.x_end, down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, TW),
+          p.h, p.w, c, smem + ((n + 1) & 1) * rb);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    activate_src<kDwTW>(p.x, t, p.h, p.w, c, smem + (n & 1) * rb, act, pro,
-                        pro + c, p.act);
+    activate_src<TW, kStride>(p.x, t, p.h, p.w, c, smem + (n & 1) * rb, act,
+                              pro, pro + c, p.act);
     __syncthreads();
-    for (int it = threadIdx.x; it < kDownTH * kDwTW * groups;
-         it += kDownThreads) {
-      const int px = it / groups, oyl = px / kDwTW, oxl = px - oyl * kDwTW;
+    for (int it = threadIdx.x; threadIdx.x < active && it < kDownTH * TW * groups;
+         it += active) {
+      const int px = it / groups, oyl = px / TW, oxl = px - oyl * TW;
       float acc[8] = {};
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         float v[8];
-        load8(act + (2 * oyl + tap / 3) * as + (2 * oxl + tap % 3) * c + c0, v);
+        load8(act + (kStride * oyl + tap / 3) * as +
+                  (kStride * oxl + tap % 3) * c + c0, v);
         const float* wr = wsm + tap * c + c0;
 #pragma unroll
         for (int k = 0; k < 8; ++k) acc[k] = fmaf(v[k], wr[k], acc[k]);
@@ -314,6 +339,14 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
     }
   }
   if (p.part == nullptr) return;
+  float* row = p.part + (size_t)blockIdx.x * 2 * c;
+  if (!dw_warp_sums(c)) {
+    // the threads of a group in order (threads past `active` hold zeros
+    // and are not read)
+    ordered_unit_sums(s1, 8, groups, red, row);
+    ordered_unit_sums(s2, 8, groups, red, row + c);
+    return;
+  }
   // lanes of one channel group: lane mod groups; then the warps in order
 #pragma unroll
   for (int k = 0; k < 8; ++k)
@@ -330,7 +363,6 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
     }
   }
   __syncthreads();
-  float* row = p.part + (size_t)blockIdx.x * 2 * c;
   for (int j = threadIdx.x; j < 2 * c; j += kDownThreads) {
     const int stat = j / c, ch = j - stat * c;
     float s = 0.f;
@@ -341,13 +373,28 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_fwd_kernel(
 
 using DownKernel = void (*)(const DownParams);
 
-// the kernel of a launch and its dynamic shared memory; false outside the
-// kernels' channels
-bool down_fwd_kernel(int cin, int cout, int depthwise, DownKernel* k,
-                     int* smem) {
-  if (!down_channels_ok(cin, cout, depthwise)) return false;
-  *k = depthwise ? &down_dw_fwd_kernel : &down_stem_kernel;
-  *smem = depthwise ? DwSmem::bytes(cin) : StemSmem::bytes(cin);
+// the kernel of a launch, its dynamic shared memory and its tiles' output
+// columns; false outside the kernels' channels and strides (stride 1:
+// depthwise only)
+bool down_fwd_kernel(int cin, int cout, int depthwise, int stride,
+                     DownKernel* k, int* smem, int* tw) {
+  if (!down_channels_ok(cin, cout, depthwise) || (stride != 1 && stride != 2) ||
+      (stride == 1 && !depthwise))
+    return false;
+  *tw = down_tile_cols(depthwise, cin, stride);
+  if (!depthwise) {
+    *k = &down_stem_kernel;
+    *smem = StemSmem::bytes(cin);
+  } else if (stride == 1) {
+    *k = &down_dw_fwd_kernel<kDwTW, 1>;
+    *smem = DwSmem<kDwTW, 1>::bytes(cin);
+  } else if (*tw == kDwTW) {
+    *k = &down_dw_fwd_kernel<kDwTW, 2>;
+    *smem = DwSmem<kDwTW, 2>::bytes(cin);
+  } else {
+    *k = &down_dw_fwd_kernel<kDwWideTW, 2>;
+    *smem = DwSmem<kDwWideTW, 2>::bytes(cin);
+  }
   return true;
 }
 
@@ -357,17 +404,18 @@ bool down_fwd_kernel(int cin, int cout, int depthwise, DownKernel* k,
 // 16-byte aligned; scale, shift: (cin,) f32 or null (act 0); wt: dense, the
 // B fragments of `_stem_frags` (ks = ceil(9 cin / 16), nt = ceil(cout / 8),
 // 32, 4) bf16 (cin <= 16, cout <= 32); depthwise, (9, cin) bf16 (cout ==
-// cin in {8, 16, 32, 64}); bias: (cout,) f32 or null; y: (n, ho, wo, cout)
-// bf16; part: f32 scratch of part_rows rows of 2 * cout (one a tile is
-// always enough) and mom the (2, cout) moments, or both null. One launch of
-// a persistent grid (mmr_fused_conv_down_grid), then the moments'
-// reduction. Returns a cudaError_t.
+// cin, a multiple of 8 up to 96); bias: (cout,) f32 or null; stride: 2, or
+// 1 for a depthwise conv (K1's depthwise mode); y: (n, ceil(h / stride),
+// ceil(w / stride), cout) bf16; part: f32 scratch of part_rows rows of
+// 2 * cout (one a tile is always enough) and mom the (2, cout) moments, or
+// both null. One launch of a persistent grid (mmr_fused_conv_down_grid),
+// then the moments' reduction. Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
                                    const void* shift, int act, const void* wt,
                                    const void* bias, void* y, void* part,
                                    void* mom, int part_rows, int n, int h,
                                    int w, int cin, int cout, int depthwise,
-                                   void* stream) {
+                                   int stride, void* stream) {
   DownParams p{};
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.scale = static_cast<const float*>(scale);
@@ -382,18 +430,18 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
   p.w = w;
   p.cin = cin;
   p.cout = cout;
-  p.ho = (h + 1) / 2;
-  p.wo = (w + 1) / 2;
   p.ks = (9 * cin + 15) / 16;
   p.nt = (cout + 7) / 8;
   p.x_end = (long long)reinterpret_cast<uintptr_t>(x) +
             (long long)n * h * w * cin * 2;
   DownKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || n < 1 || h < 1 || w < 1 ||
-      !down_fwd_kernel(cin, cout, depthwise, &kernel, &smem))
+      !down_fwd_kernel(cin, cout, depthwise, stride, &kernel, &smem, &tw))
     return (int)cudaErrorInvalidValue;
-  const DownTiles tl = down_tiles(n, h, w, depthwise);
+  p.ho = (h + stride - 1) / stride;
+  p.wo = (w + stride - 1) / stride;
+  const DownTiles tl = down_tiles(n, h, w, tw, stride);
   p.tiles_y = tl.y;
   p.tiles_x = tl.x;
   p.tiles = tl.all;
@@ -413,26 +461,28 @@ extern "C" int mmr_fused_conv_down(const void* x, const void* scale,
 // {blocks, blocks a SM, SMs, dynamic shared memory}; it sets the kernel's
 // launch attributes as the launch does. Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down_grid(int n, int h, int w, int cin,
-                                        int cout, int depthwise, void* out) {
+                                        int cout, int depthwise, int stride,
+                                        void* out) {
   DownKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   if (n < 1 || h < 1 || w < 1 ||
-      !down_fwd_kernel(cin, cout, depthwise, &kernel, &smem))
+      !down_fwd_kernel(cin, cout, depthwise, stride, &kernel, &smem, &tw))
     return (int)cudaErrorInvalidValue;
-  return report_grid(kernel, smem, down_tiles(n, h, w, depthwise).all,
+  return report_grid(kernel, smem, down_tiles(n, h, w, tw, stride).all,
                      static_cast<int*>(out));
 }
 
 // Dynamic shared memory in bytes (what = 0) or resident blocks per SM at
 // the launch's attributes (what = 1) of the dense kernel at c -> 16
-// channels (kind 0) or the depthwise one at c (kind 1). Returns -1
-// otherwise.
+// channels (kind 0), the depthwise one at c channels, stride 2 (kind 1) or
+// stride 1 (kind 2). Returns -1 otherwise.
 extern "C" int mmr_fused_conv_down_info(int what, int kind, int c) {
   DownKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   int g[4];
-  if ((kind != 0 && kind != 1) ||
-      !down_fwd_kernel(c, kind ? c : 16, kind, &kernel, &smem))
+  if (kind < 0 || kind > 2 ||
+      !down_fwd_kernel(c, kind ? c : 16, kind != 0, kind == 2 ? 1 : 2,
+                       &kernel, &smem, &tw))
     return -1;
   if (!what) return smem;
   return report_grid(kernel, smem, 1 << 30, g) == 0 ? g[1] : -1;

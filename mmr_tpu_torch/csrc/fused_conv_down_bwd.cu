@@ -30,11 +30,21 @@
 //   source pixel gathers the <= 4 taps whose stride-2 window covers it
 //   (dye row/col parity; the tile's dye carries one halo row and column),
 //   then the prologue backward.
-// - depthwise (b0_0, C = 16; C in {8, 16, 32, 64}), 32 output columns
-//   (at C = 64 one raw buffer, copied after the tile: two do not fit):
-//   dW from bf16 channel pairs, a thread per (channel pair, pixel phase)
-//   with 9 x 2 register sums; dx a thread per (source pixel, 8 channels),
-//   16-byte loads and stores, the prologue backward on the staged raw x.
+// - depthwise (b0_0 at C = 16, b1_0 at C = 72; C a multiple of 8 up to
+//   96), 32 output columns (16 at stride 2 above 64 channels; at C = 64
+//   one raw buffer, copied after the tile: two do not fit): dW from bf16
+//   channel pairs, a thread per (channel pair, pixel phase) with 9 x 2
+//   register sums; dx a thread per (source pixel, 8 channels), 16-byte
+//   loads and stores, the prologue backward on the staged raw x. Where c /
+//   8 or c / 2 does not divide 256 (C = 72, 88) the first 256 rounded down
+//   to a multiple of it threads do that work and the sums are added in
+//   thread order (ordered_unit_sums, a tap at a time for dW).
+// - the same depthwise tile at stride 1 (kStride = 1; the dye tile has a
+//   halo row and column on each side, every source pixel takes its 9 taps)
+//   is K3's depthwise mode, the backward of the mbv3 b1_1 block's 3x3 at C
+//   = 88, replacing JAX's K3 over diagonal-expanded taps
+//   (packed_encoder.py:258-266; `_bwd_call`, packed_chain.py:1207). Its dW
+//   is the diagonal that JAX's dense dW reaches the parameter through.
 // Each block writes one row of sums (dW, dbias, dscale, dshift: register
 // sums, warp shuffles and the warps in order); the rows are added in block
 // order. No atomics: every output is the same from run to run.
@@ -47,7 +57,10 @@
 // dx: 52.4 MB). The dense dx adds its write: at the stem's shape x 15.7
 // MB, dy and y 21.0 MB each, dx 15.7 MB, 73.4 MB or 0.022 ms; at 16 -> 16
 // with a prologue on b0_0's input (8, 256, 320, 16) x and dx 21.0 MB each,
-// dy and y 5.2 MB each, 52.4 MB or 0.016 ms. The design moves those bytes
+// dy and y 5.2 MB each, 52.4 MB or 0.016 ms. b1_0 (C = 72, B = 8, x and
+// dx at 128x160) reads x 23.6 MB, dy and y 5.9 MB each and writes dx 23.6
+// MB: 59.0 MB or 0.018 ms; b1_1 (C = 88, stride 1, 64x80) x, dy, y and dx
+// 7.2 MB each, 28.8 MB or 0.0086 ms. The design moves those bytes
 // once (a source tile's halo row through L2) and keeps dye, the
 // prologue's output and every partial sum out of device memory except one
 // row a block.
@@ -349,14 +362,20 @@ __global__ void __launch_bounds__(kDownThreads, 2) down_stem_bwd_kernel(
   }
 }
 
+template <int TW, int kStride>
 struct DwBwdSmem {
-  using S = SrcTile<kDwTW>;
-  static constexpr int kPW = kDwTW + 1;   // dye tile columns (with the halo)
-  // raw tiles (two where they fit, else one: C = 64), act tile, dye
-  // ((kDownTH + 1) * kPW, c) bf16, weights (9, c), prologue vectors (2, c)
+  using S = SrcTile<TW, kStride>;
+  // dye tile: at stride 2 the tile's outputs with one halo row and column
+  // after them (the outputs whose windows cover its source pixels); at
+  // stride 1 one halo row and column on each side
+  static constexpr int kO = kStride == 1 ? 1 : 0;   // halo before the tile
+  static constexpr int kPH = kStride == 1 ? kDownTH + 2 : kDownTH + 1;
+  static constexpr int kPW = kStride == 1 ? TW + 2 : TW + 1;
+  // raw tiles (two where they fit, else one: C = 64 at 32 columns), act
+  // tile, dye (kPH * kPW, c) bf16, weights (9, c), prologue vectors (2, c)
   // f32; at the end the block's reductions overlay it all
   __host__ __device__ static int rest(int c) {
-    return S::act_bytes(c) + (kDownTH + 1) * kPW * c * 2 + 11 * c * 4;
+    return S::act_bytes(c) + kPH * kPW * c * 2 + 11 * c * 4;
   }
   __host__ __device__ static int nraw(int c) {
     return 2 * S::raw_bytes(c) + rest(c) <= kDownMaxSmem ? 2 : 1;
@@ -368,7 +387,7 @@ struct DwBwdSmem {
     return act_off(c) + S::act_bytes(c);
   }
   __host__ __device__ static int w_off(int c) {
-    return dye_off(c) + (kDownTH + 1) * kPW * c * 2;
+    return dye_off(c) + kPH * kPW * c * 2;
   }
   __host__ __device__ static int pro_off(int c) { return w_off(c) + 9 * c * 4; }
   __host__ __device__ static int bytes(int c) {
@@ -378,13 +397,19 @@ struct DwBwdSmem {
   }
 };
 
-// c = cin = cout in {8, 16, 32, 64}
-template <int kDx>
+// c = cin = cout, a multiple of 8 up to kDwMaxC; tiles of TW output
+// columns at stride kStride (2: K4; 1: K3's depthwise mode). The staging,
+// dbias and dx threads take 8 channels: group tid % (c / 8) of the first
+// kDownThreads rounded down to a multiple of c / 8 threads; the dW threads
+// a channel pair cp = tid % (c / 2) and a pixel phase, of the first
+// kDownThreads rounded down to a multiple of c / 2 (all 256 threads where
+// those divide 256: the old widths' walk).
+template <int TW, int kStride, int kDx>
 __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
     const DownBwdParams p) {
-  using S = SrcTile<kDwTW>;
-  using M = DwBwdSmem;
-  constexpr int kPW = M::kPW;
+  using S = SrcTile<TW, kStride>;
+  using M = DwBwdSmem<TW, kStride>;
+  constexpr int kPW = M::kPW, kO = M::kO;
   extern __shared__ __align__(16) char down_smem[];
   char* smem = down_smem;
   const int c = p.cin;
@@ -396,9 +421,11 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
   const int as = S::act_stride(c), rs = S::raw_stride(c);
   // 8-channel group of the staging and dx threads
   const int groups = c / 8, c0 = (tid % groups) * 8;
+  const bool on_g = tid < kDownThreads / groups * groups;
   // channel pair and pixel phase of the dW threads
   const int pairs = c / 2, cp = tid % pairs, ps = tid / pairs;
   const int splits = kDownThreads / pairs;
+  const bool on_p = ps < splits;
 
   for (int i = tid; i < 9 * c; i += kDownThreads)
     wsm[i] = __bfloat162float(p.wt[i]);
@@ -413,30 +440,35 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
     m0[k] = p.dmom != nullptr ? p.dmom[c0 + k] : 0.f;
     m1[k] = p.dmom != nullptr ? p.dmom[c + c0 + k] : 0.f;
   }
-  constexpr int kRowsSt = kDownTH + kDx, kColsSt = kDwTW + kDx;
+  // the dye rows and columns staged: stride 2 the tile's (and, with dx, one
+  // halo after it); stride 1 one halo on each side
+  constexpr int kRowsSt = kStride == 1 ? kDownTH + 2 : kDownTH + kDx;
+  constexpr int kColsSt = kStride == 1 ? TW + 2 : TW + kDx;
 
   // with two raw buffers the next tile's rows are copied into the other
   // one while this tile is computed; with one, after this tile is done
   const int rb = S::raw_bytes(c), two = M::nraw(c) == 2;
   int tile = blockIdx.x;
-  stage_src<kDwTW>(p.x, p.x_end, down_tile(tile, p.tiles_y, p.tiles_x, kDwTW),
-                   p.h, p.w, c, smem);
+  stage_src<TW, kStride>(p.x, p.x_end,
+                         down_tile(tile, p.tiles_y, p.tiles_x, TW), p.h, p.w,
+                         c, smem);
   cp_async_commit();
   for (int n = 0; tile < p.tiles; tile += gridDim.x, ++n) {
-    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, kDwTW);
+    const DownTile t = down_tile(tile, p.tiles_y, p.tiles_x, TW);
     const char* raw = smem + (two ? (n & 1) * rb : 0);
     const bool next = tile + gridDim.x < p.tiles;
     if (two && next)
-      stage_src<kDwTW>(p.x, p.x_end,
-                       down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, kDwTW),
-                       p.h, p.w, c, smem + ((n + 1) & 1) * rb);
+      stage_src<TW, kStride>(
+          p.x, p.x_end, down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, TW),
+          p.h, p.w, c, smem + ((n + 1) & 1) * rb);
     cp_async_commit();   // (empty with one buffer: the wait below then
                          // waits for the copy committed after the last tile)
-    for (int it = tid; it < kRowsSt * kColsSt * groups; it += kDownThreads) {
+    for (int it = tid; on_g && it < kRowsSt * kColsSt * groups;
+         it += kDownThreads / groups * groups) {
       const int pi = it / groups, oyl = pi / kColsSt, oxl = pi - oyl * kColsSt;
-      const int oy = t.r0 + oyl, ox = t.c0 + oxl;
+      const int oy = t.r0 - kO + oyl, ox = t.c0 - kO + oxl;
       float gv[8] = {};
-      if (oy < p.ho && ox < p.wo) {
+      if (oy >= 0 && ox >= 0 && oy < p.ho && ox < p.wo) {
         const size_t o = ((size_t)(t.b * p.ho + oy) * p.wo + ox) * c + c0;
         load8(p.dy + o, gv);
         if (p.dmom != nullptr) {
@@ -446,7 +478,7 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
           for (int k = 0; k < 8; ++k)
             gv[k] = gv[k] + m0[k] + 2.f * yv[k] * m1[k];
         }
-        if (oyl < kDownTH && oxl < kDwTW)
+        if (oyl >= kO && oyl < kO + kDownTH && oxl >= kO && oxl < kO + TW)
 #pragma unroll
           for (int k = 0; k < 8; ++k) db[k] += gv[k];
       }
@@ -458,43 +490,60 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
     }
     cp_async_wait<1>();
     __syncthreads();
-    activate_src<kDwTW>(p.x, t, p.h, p.w, c, raw, act, pro, pro + c, p.act);
+    activate_src<TW, kStride>(p.x, t, p.h, p.w, c, raw, act, pro, pro + c,
+                              p.act);
     __syncthreads();
 
-    for (int px = ps; px < kDownTH * kDwTW; px += splits) {
-      const int oyl = px / kDwTW, oxl = px - oyl * kDwTW;
+    for (int px = ps; on_p && px < kDownTH * TW; px += splits) {
+      const int oyl = px / TW, oxl = px - oyl * TW;
       const float2 d = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(
-              dye + (oyl * kPW + oxl) * c + 2 * cp));
+              dye + ((oyl + kO) * kPW + oxl + kO) * c + 2 * cp));
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const float2 a = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(
-                act + (2 * oyl + tap / 3) * as + (2 * oxl + tap % 3) * c +
-                2 * cp));
+                act + (kStride * oyl + tap / 3) * as +
+                (kStride * oxl + tap % 3) * c + 2 * cp));
         wacc[tap][0] = fmaf(a.x, d.x, wacc[tap][0]);
         wacc[tap][1] = fmaf(a.y, d.y, wacc[tap][1]);
       }
     }
 
     if (kDx) {
-      for (int it = tid; it < 4 * kDownTH * kDwTW * groups;
-           it += kDownThreads) {
-        const int spx = it / groups, syl = spx / (2 * kDwTW);
-        const int sxl = spx - syl * 2 * kDwTW;
-        const int sy = 2 * t.r0 + syl, sx = 2 * t.c0 + sxl;
+      // the tile's own source pixels: kStride * kDownTH rows by kStride * TW
+      constexpr int kSW = kStride * TW;
+      for (int it = tid; on_g && it < kStride * kDownTH * kSW * groups;
+           it += kDownThreads / groups * groups) {
+        const int spx = it / groups, syl = spx / kSW;
+        const int sxl = spx - syl * kSW;
+        const int sy = kStride * t.r0 + syl, sx = kStride * t.c0 + sxl;
         if (sy >= p.h || sx >= p.w) continue;
-        int ky[2], oy[2], kx[2], ox[2];
-        const int ny = covering(syl, ky, oy), nx = covering(sxl, kx, ox);
         float ga[8] = {};
-        for (int a = 0; a < ny; ++a)
-          for (int b = 0; b < nx; ++b) {
+        if constexpr (kStride == 1) {
+          // output (sy + 1 - ky, sx + 1 - kx) through tap (ky, kx): dye
+          // (syl + 2 - ky, sxl + 2 - kx) of the tile with its halo
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
             float dv[8];
-            load8(dye + (oy[a] * kPW + ox[b]) * c + c0, dv);
-            const float* wr = wsm + (ky[a] * 3 + kx[b]) * c + c0;
+            load8(dye + ((syl + 2 - tap / 3) * kPW + sxl + 2 - tap % 3) * c +
+                      c0, dv);
+            const float* wr = wsm + tap * c + c0;
 #pragma unroll
             for (int k = 0; k < 8; ++k) ga[k] = fmaf(dv[k], wr[k], ga[k]);
           }
+        } else {
+          int ky[2], oy[2], kx[2], ox[2];
+          const int ny = covering(syl, ky, oy), nx = covering(sxl, kx, ox);
+          for (int a = 0; a < ny; ++a)
+            for (int b = 0; b < nx; ++b) {
+              float dv[8];
+              load8(dye + (oy[a] * kPW + ox[b]) * c + c0, dv);
+              const float* wr = wsm + (ky[a] * 3 + kx[b]) * c + c0;
+#pragma unroll
+              for (int k = 0; k < 8; ++k) ga[k] = fmaf(dv[k], wr[k], ga[k]);
+            }
+        }
         if (p.act != kNone) {
           float xv[8];
           load8(reinterpret_cast<const __nv_bfloat16*>(raw + (syl + 1) * rs) +
@@ -519,36 +568,46 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
     }
     __syncthreads();
     if (!two && next) {
-      stage_src<kDwTW>(p.x, p.x_end,
-                       down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, kDwTW),
-                       p.h, p.w, c, smem);
+      stage_src<TW, kStride>(
+          p.x, p.x_end, down_tile(tile + gridDim.x, p.tiles_y, p.tiles_x, TW),
+          p.h, p.w, c, smem);
       cp_async_commit();
     }
   }
 
-  // the block's row: dW over the pixel phases (lanes, then warps, in order),
-  // dbias, dscale and dshift over the threads of a channel group in order
+  // the block's row: dW over the pixel phases (lanes, then warps, in order;
+  // or, where dw_warp_sums(c) is false, the threads of a channel pair in
+  // order, a tap at a time), dbias, dscale and dshift over the threads of a
+  // channel group in order
   float* red = reinterpret_cast<float*>(smem);
+  float* row = p.part + (size_t)blockIdx.x * p.len;
+  if (dw_warp_sums(c)) {
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
+    for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      for (int off = pairs; off < 32; off <<= 1)
-        wacc[tap][e] += __shfl_xor_sync(kFull, wacc[tap][e], off);
-  if (lane < pairs)
+      for (int e = 0; e < 2; ++e)
+        for (int off = pairs; off < 32; off <<= 1)
+          wacc[tap][e] += __shfl_xor_sync(kFull, wacc[tap][e], off);
+    if (lane < pairs)
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        red[(warp * 9 + tap) * c + 2 * cp] = wacc[tap][0];
+        red[(warp * 9 + tap) * c + 2 * cp + 1] = wacc[tap][1];
+      }
+    __syncthreads();
+    for (int j = tid; j < 9 * c; j += kDownThreads) {
+      float s = 0.f;
+      for (int w = 0; w < 8; ++w) s += red[w * 9 * c + j];
+      row[j] = s;
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      red[(warp * 9 + tap) * c + 2 * cp] = wacc[tap][0];
-      red[(warp * 9 + tap) * c + 2 * cp + 1] = wacc[tap][1];
+      const float v[8] = {wacc[tap][0], wacc[tap][1]};
+      ordered_unit_sums(v, 2, pairs, red, row + tap * c);
     }
-  __syncthreads();
-  float* row = p.part + (size_t)blockIdx.x * p.len;
-  for (int j = tid; j < 9 * c; j += kDownThreads) {
-    float s = 0.f;
-    for (int w = 0; w < 8; ++w) s += red[w * 9 * c + j];
-    row[j] = s;
   }
-  __syncthreads();
   ordered_unit_sums(db, 8, groups, red, row + 9 * c);
   ordered_unit_sums(dsc, 8, groups, red, row + 10 * c);
   ordered_unit_sums(dsh, 8, groups, red, row + 11 * c);
@@ -556,15 +615,25 @@ __global__ void __launch_bounds__(kDownThreads) down_dw_bwd_kernel(
 
 using DownBwdKernel = void (*)(const DownBwdParams);
 
-// the kernel of a launch and its dynamic shared memory; false outside the
-// kernels' channels
-bool down_bwd_kernel(int cin, int cout, int depthwise, int dx,
-                     DownBwdKernel* k, int* smem) {
-  if (!down_channels_ok(cin, cout, depthwise)) return false;
-  if (depthwise) {
-    *k = &down_dw_bwd_kernel<0>;
-    if (dx) *k = &down_dw_bwd_kernel<1>;
-    *smem = DwBwdSmem::bytes(cin);
+// the kernel of a launch, its dynamic shared memory and its tiles' output
+// columns; false outside the kernels' channels and strides (stride 1:
+// depthwise only)
+bool down_bwd_kernel(int cin, int cout, int depthwise, int stride, int dx,
+                     DownBwdKernel* k, int* smem, int* tw) {
+  if (!down_channels_ok(cin, cout, depthwise) || (stride != 1 && stride != 2) ||
+      (stride == 1 && !depthwise))
+    return false;
+  *tw = down_tile_cols(depthwise, cin, stride);
+  if (depthwise && stride == 1) {
+    *k = dx ? &down_dw_bwd_kernel<kDwTW, 1, 1> : &down_dw_bwd_kernel<kDwTW, 1, 0>;
+    *smem = DwBwdSmem<kDwTW, 1>::bytes(cin);
+  } else if (depthwise && *tw == kDwTW) {
+    *k = dx ? &down_dw_bwd_kernel<kDwTW, 2, 1> : &down_dw_bwd_kernel<kDwTW, 2, 0>;
+    *smem = DwBwdSmem<kDwTW, 2>::bytes(cin);
+  } else if (depthwise) {
+    *k = dx ? &down_dw_bwd_kernel<kDwWideTW, 2, 1>
+            : &down_dw_bwd_kernel<kDwWideTW, 2, 0>;
+    *smem = DwBwdSmem<kDwWideTW, 2>::bytes(cin);
   } else if (!dx) {
     *k = &down_stem_bwd_kernel<0, 1>;
     *smem = StemBwdSmem<0>::bytes(cin, cout);
@@ -581,20 +650,21 @@ bool down_bwd_kernel(int cin, int cout, int depthwise, int dx,
 
 // Host entry (plain C interface, bound with ctypes). x, scale, shift, act
 // as for mmr_fused_conv_down; wt: (9, cin, cout) bf16 (dense: cin <= 16,
-// cout <= 32) or (9, cin) (depthwise: cout == cin in {8, 16, 32, 64});
-// dy, y: (n, ho, wo, cout) bf16 (y read with dmom); dmom: (2, cout) f32 or
-// null; dx: (n, h, w, cin) bf16, or null for no dx; part: f32 scratch of
-// part_rows rows (one a tile is always enough) of len = nw + cout + 2 * cin
-// (nw = 9 * cin * cout dense, 9 * cin depthwise); out: (len,) f32, written
-// whole: dW (nw, HWIO order), dbias, dscale, dshift (zeros without dx or a
-// prologue). Every pointer 16-byte aligned. One launch of a persistent grid
-// (mmr_fused_conv_down_bwd_grid), then the reduction of its rows. Returns
-// a cudaError_t.
+// cout <= 32) or (9, cin) (depthwise: cout == cin, a multiple of 8 up to
+// 96); stride: 2, or 1 for a depthwise conv (K3's depthwise mode); dy, y:
+// (n, ceil(h / stride), ceil(w / stride), cout) bf16 (y read with dmom);
+// dmom: (2, cout) f32 or null; dx: (n, h, w, cin) bf16, or null for no dx;
+// part: f32 scratch of part_rows rows (one a tile is always enough) of len
+// = nw + cout + 2 * cin (nw = 9 * cin * cout dense, 9 * cin depthwise);
+// out: (len,) f32, written whole: dW (nw, HWIO order), dbias, dscale,
+// dshift (zeros without dx or a prologue). Every pointer 16-byte aligned.
+// One launch of a persistent grid (mmr_fused_conv_down_bwd_grid), then the
+// reduction of its rows. Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down_bwd(
     const void* x, const void* scale, const void* shift, int act,
     const void* wt, const void* dy, const void* y, const void* dmom, void* dx,
     void* part, int part_rows, void* out, int n, int h, int w, int cin,
-    int cout, int depthwise, void* stream) {
+    int cout, int depthwise, int stride, void* stream) {
   DownBwdParams p{};
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.scale = static_cast<const float*>(scale);
@@ -611,8 +681,6 @@ extern "C" int mmr_fused_conv_down_bwd(
   p.w = w;
   p.cin = cin;
   p.cout = cout;
-  p.ho = (h + 1) / 2;
-  p.wo = (w + 1) / 2;
   p.len = (depthwise ? 9 * cin : 9 * cin * cout) + cout + 2 * cin;
   p.x_end = (long long)reinterpret_cast<uintptr_t>(x) +
             (long long)n * h * w * cin * 2;
@@ -621,12 +689,15 @@ extern "C" int mmr_fused_conv_down_bwd(
                           reinterpret_cast<uintptr_t>(y) |
                           reinterpret_cast<uintptr_t>(dx);
   DownBwdKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   if (align % 16 != 0 || n < 1 || h < 1 || w < 1 ||
       (dmom != nullptr && y == nullptr) ||
-      !down_bwd_kernel(cin, cout, depthwise, dx != nullptr, &kernel, &smem))
+      !down_bwd_kernel(cin, cout, depthwise, stride, dx != nullptr, &kernel,
+                       &smem, &tw))
     return (int)cudaErrorInvalidValue;
-  const DownTiles tl = down_tiles(n, h, w, depthwise);
+  p.ho = (h + stride - 1) / stride;
+  p.wo = (w + stride - 1) / stride;
+  const DownTiles tl = down_tiles(n, h, w, tw, stride);
   p.tiles_y = tl.y;
   p.tiles_x = tl.x;
   p.tiles = tl.all;
@@ -647,26 +718,28 @@ extern "C" int mmr_fused_conv_down_bwd(
 // Returns a cudaError_t.
 extern "C" int mmr_fused_conv_down_bwd_grid(int n, int h, int w, int cin,
                                             int cout, int depthwise, int dx,
-                                            void* out) {
+                                            int stride, void* out) {
   DownBwdKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   if (n < 1 || h < 1 || w < 1 ||
-      !down_bwd_kernel(cin, cout, depthwise, dx, &kernel, &smem))
+      !down_bwd_kernel(cin, cout, depthwise, stride, dx, &kernel, &smem, &tw))
     return (int)cudaErrorInvalidValue;
-  return report_grid(kernel, smem, down_tiles(n, h, w, depthwise).all,
+  return report_grid(kernel, smem, down_tiles(n, h, w, tw, stride).all,
                      static_cast<int*>(out));
 }
 
 // Dynamic shared memory in bytes (what = 0) or resident blocks per SM at
-// the launch's attributes (what = 1) of the kernel the flagship runs: the
+// the launch's attributes (what = 1) of the kernels the flagship runs: the
 // dense one without dx at c -> 16 channels (kind 0), the depthwise one with
-// dx at c channels (kind 1). Returns -1 otherwise.
+// dx at c channels, stride 2 (kind 1) or stride 1 (kind 2). Returns -1
+// otherwise.
 extern "C" int mmr_fused_conv_down_bwd_info(int what, int kind, int c) {
   DownBwdKernel kernel;
-  int smem = 0;
+  int smem = 0, tw = 0;
   int g[4];
-  if ((kind != 0 && kind != 1) ||
-      !down_bwd_kernel(c, kind ? c : 16, kind, kind, &kernel, &smem))
+  if (kind < 0 || kind > 2 ||
+      !down_bwd_kernel(c, kind ? c : 16, kind != 0, kind == 2 ? 1 : 2,
+                       kind != 0, &kernel, &smem, &tw))
     return -1;
   if (!what) return smem;
   return report_grid(kernel, smem, 1 << 30, g) == 0 ? g[1] : -1;

@@ -804,7 +804,7 @@ __global__ void __launch_bounds__(128, 4) head_bwd_kernel(const HeadBwdParams p)
       if (ky == 0) {
 #pragma unroll
         for (int r = 0; r < G::kRows; ++r) fence_regs<N / 2>(accx[r]);
-        wg_epilogue<N, G::kRows>(p.e, accx, oy0, ox0, b, 0, s1, s2);
+        wg_epilogue<N, G::kRows, false>(p.e, accx, oy0, ox0, b, 0, s1, s2);
       }
     }
   }

@@ -22,6 +22,9 @@ returns NHWC f32 logits.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,9 +54,12 @@ class DecoderBlock(nn.Module):
             x = torch.cat(cat, dim=1)
         return self.conv2(self.conv1(x))
 
-    def fused(self, inputs: list[Pending]) -> Pending:
-        """``inputs`` in concat order: [up(x), skips...]."""
-        return self.conv2.fused([self.conv1.fused(inputs)])
+    def fused(self, inputs: list[Pending], thru: list[bool] | None = None):
+        """``inputs`` in concat order: [up(x), skips...]. Returns ``(out,
+        raws)``: conv1 threads the dx of the inputs flagged in ``thru`` and
+        hands their raws back (:meth:`FusedConvBN.fused`)."""
+        y, raws = self.conv1.fused(inputs, thru)
+        return self.conv2.fused([y])[0], raws
 
 
 def _up_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -124,7 +130,13 @@ class UnetPlusPlusModel(nn.Module):
     ``dtype`` is the compute dtype (parameters stay f32). ``fused=True``
     (bf16 only) runs the fine-resolution nodes and the head on the fused
     K1 kernel; ``fused_frontend=True`` (needs ``fused``) also runs the
-    encoder stem and b0_0 on K2. In train mode BN takes batch statistics
+    encoder stem and b0_0 on K2. ``thread_dx`` (the default, as JAX's):
+    in a differentiable train-mode forward, a surface read by several
+    nodes is handed from fused consumer to fused consumer, so that each
+    consumer's K3 adds the cotangent of the later ones in the kernel
+    (``decoders.py:395-500``); ``False`` leaves autograd to sum them.
+    ``threaded_inputs`` is the number of node inputs the last forward
+    threaded. In train mode BN takes batch statistics
     and the kernels' backward runs under autograd; ``labels`` (the (B, H,
     W) class ids; fused model only) routes the head through the fused head
     + loss kernel and ``forward`` returns ``{"stats", "conf", "n_pixels",
@@ -134,7 +146,7 @@ class UnetPlusPlusModel(nn.Module):
                  encoder_name: str = "tu-mobilenetv3_small_100",
                  decoder_channels: tuple[int, ...] = (256, 128, 64, 32, 16),
                  fused: bool = False, packed_min_hw: int = 64 * 64,
-                 fused_frontend: bool = False,
+                 fused_frontend: bool = False, thread_dx: bool = True,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if fused_frontend and not fused:
@@ -144,6 +156,8 @@ class UnetPlusPlusModel(nn.Module):
         self.num_classes = num_classes
         self.encoder_name = encoder_name
         self.fused = fused
+        self.thread_dx = thread_dx
+        self.threaded_inputs = 0
         self.packed_min_hw = packed_min_hw
         self.dtype = dtype
         spec = get_encoder(encoder_name)
@@ -190,28 +204,55 @@ class UnetPlusPlusModel(nn.Module):
         """Same topology; nodes at an output scale with H·W ≥
         ``packed_min_hw`` run as K1 launches over Pending inputs (lazy ×2
         upsample of the node input, skips consumed raw with their BN
-        pending), the rest on cuDNN over materialized inputs."""
+        pending), the rest on cuDNN over materialized inputs.
+
+        ``slots`` holds every surface once: an encoder feature ``("fr",
+        i)`` or a node's output ``("dense", d, l)``. With ``thread_dx`` in
+        a differentiable train-mode forward, the dx of multi-consumer
+        surfaces is threaded (JAX's ``remaining`` count and
+        ``thread_back``, ``decoders.py:395-500``): ``remaining`` counts,
+        ahead of the node loops, the nodes that still read a surface; a
+        fused node flags each input whose surface has later readers, its
+        conv1 hands that raw back, and the slot then holds the returned
+        raw, which every later reader consumes, so their summed cotangent
+        reaches this node's K3 as its addend."""
         h5, w5 = fr[0].shape[-2:]
-
-        def run_node(d, l, x_in, skips):
-            block = self._node(d, l)
-            if (h5 << (l + 1)) * (w5 << (l + 1)) < self.packed_min_hw:
-                return block(as_array(x_in), [as_array(s) for s in skips])
-            return block.fused([up_lazy(x_in)] + [as_pending(s) for s in skips])
-
-        dense: dict[tuple[int, int], object] = {}
+        threading = self.thread_dx and self.training and torch.is_grad_enabled()
+        keys = {}
         for layer in range(depth):
             for d in range(depth - layer):
                 l = d + layer
-                if layer == 0:
-                    x_in, skips = fr[d], [fr[d + 1]]
-                else:
-                    x_in = dense[(d, l - 1)]
-                    skips = [dense[(i, l)] for i in range(d + 1, l + 1)] \
-                        + [fr[l + 1]]
-                dense[(d, l)] = run_node(d, l, x_in, skips)
-        top = run_node(0, depth, dense[(0, depth - 1)], [])
-        return _fused_head(self.head, top, labels, with_conf)
+                keys[(d, l)] = ([("fr", d), ("fr", d + 1)] if layer == 0 else
+                                [("dense", d, l - 1)]
+                                + [("dense", i, l) for i in range(d + 1, l + 1)]
+                                + [("fr", l + 1)])
+        keys[(0, depth)] = [("dense", 0, depth - 1)]
+        remaining = collections.Counter(k for ks in keys.values() for k in ks)
+        slots = {("fr", i): f for i, f in enumerate(fr)}
+        self.threaded_inputs = 0
+
+        def run_node(d, l):
+            ks = keys[(d, l)]
+            x_in, *skips = (slots[k] for k in ks)
+            remaining.subtract(ks)
+            block = self._node(d, l)
+            if (h5 << (l + 1)) * (w5 << (l + 1)) < self.packed_min_hw:
+                out = block(as_array(x_in), [as_array(s) for s in skips])
+            else:
+                flags = [threading and remaining[k] > 0 for k in ks]
+                out, raws = block.fused(
+                    [up_lazy(x_in)] + [as_pending(s) for s in skips], flags)
+                for k, r in zip(ks, raws):
+                    if r is not None:
+                        slots[k] = dataclasses.replace(as_pending(slots[k]), raw=r)
+                        self.threaded_inputs += 1
+            slots[("dense", d, l)] = out
+            return out
+
+        for layer in range(depth):
+            for d in range(depth - layer):
+                run_node(d, d + layer)
+        return _fused_head(self.head, run_node(0, depth), labels, with_conf)
 
 
 def _fused_head(head: SegmentationHead, top, labels, with_conf: bool):
@@ -224,7 +265,7 @@ def _fused_head(head: SegmentationHead, top, labels, with_conf: bool):
             logp, stats, conf = head.fused_loss(top, labels, with_conf)
             return {"stats": stats, "conf": conf,
                     "n_pixels": labels.numel(), "logp": logp}
-        return head.fused([top]).raw.float()
+        return head.fused([top])[0].raw.float()
     if labels is not None:
         raise ValueError("the fused head + loss needs the top block fused "
                          "(its output H·W >= packed_min_hw)")
@@ -287,7 +328,8 @@ class UnetDecoderModel(nn.Module):
         for i in range(self.n_blocks):
             block, s = getattr(self, f"block{i}"), skips[i]
             if self.fused and (h5 << (i + 1)) * (w5 << (i + 1)) >= self.packed_min_hw:
-                y = block.fused([up_lazy(y)] + ([] if s is None else [as_pending(s)]))
+                y, _ = block.fused([up_lazy(y)]
+                                   + ([] if s is None else [as_pending(s)]))
             else:
                 y = block(as_array(y), None if s is None else [s])
         if self.fused:

@@ -14,7 +14,7 @@ from torch import nn
 
 from mmr_tpu_torch.models.fused_blocks import as_array
 from mmr_tpu_torch.models.layers import (Conv2d, FusedBatchNorm,
-                                         SqueezeExcite, hard_swish)
+                                         SqueezeExcite, hard_swish, nchw)
 
 _ACT = {"relu": F.relu, "hardswish": hard_swish}
 
@@ -85,20 +85,29 @@ class MobileNetV3SmallEncoder(nn.Module):
     """``fused_frontend=True`` runs the stem and b0_0's depthwise conv as K2
     launches (:mod:`mmr_tpu_torch.models.fused_encoder`) and returns f1/f2
     as :class:`Pending` (raw + pending BN) — valid only when the consumer
-    is the fused UNet++ decoder. The parameters are the same either way."""
+    is the fused UNet++ decoder. ``fused_b1=True`` (needs
+    ``fused_frontend``; JAX's ``packed_b1``, off by default as there) also
+    runs the b1 pair fused (:class:`~mmr_tpu_torch.models.fused_encoder.
+    FusedIRBlock`: b1_0's depthwise on K2 / K4, b1_1's on K1 / K3's
+    depthwise mode); f3 stays a plain tensor. A launch the kernels cannot
+    take raises. The parameters are the same either way."""
 
-    def __init__(self, fused_frontend: bool = False):
+    def __init__(self, fused_frontend: bool = False, fused_b1: bool = False):
         super().__init__()
         # fused_encoder builds on this module's blocks: import at use
-        from mmr_tpu_torch.models.fused_encoder import FusedDSBlock
+        from mmr_tpu_torch.models.fused_encoder import (FusedDSBlock,
+                                                        FusedIRBlock)
 
+        if fused_b1 and not fused_frontend:
+            raise ValueError("fused_b1 requires fused_frontend=True")
         self.fused_frontend = fused_frontend
+        self.fused_b1 = fused_b1
         self.conv_stem = Conv2d(3, 16, 3, 2, 1, bias=False)
         self.bn1 = FusedBatchNorm(16)
         self.b0_0 = FusedDSBlock(16, 16, 3, 2, True, "relu")
         ir = InvertedResidual
-        self.b1_0 = ir(16, 72, 24, 3, 2, False, "relu")
-        self.b1_1 = ir(24, 88, 24, 3, 1, False, "relu")
+        self.b1_0 = FusedIRBlock(16, 72, 24, 3, 2, False, "relu")
+        self.b1_1 = FusedIRBlock(24, 88, 24, 3, 1, False, "relu")
         self.b2_0 = ir(24, 96, 40, 5, 2, True, "hardswish")
         self.b2_1 = ir(40, 240, 40, 5, 1, True, "hardswish")
         self.b2_2 = ir(40, 240, 40, 5, 1, True, "hardswish")
@@ -122,7 +131,10 @@ class MobileNetV3SmallEncoder(nn.Module):
         else:
             f1 = hard_swish(self.bn1(self.conv_stem(x)))
             f2 = x2 = self.b0_0(f1)
-        f3 = self.b1_1(self.b1_0(x2))
+        if self.fused_b1:
+            f3 = nchw(self.b1_1.fused(self.b1_0.fused(f2)).raw)   # final
+        else:
+            f3 = self.b1_1(self.b1_0(x2))
         x = self.b2_2(self.b2_1(self.b2_0(f3)))
         f4 = self.b3_1(self.b3_0(x))
         x = self.b4_2(self.b4_1(self.b4_0(f4)))

@@ -139,8 +139,8 @@ def create_model(arch: str = "UnetPlusPlus", encoder_name: str | None = None,
     over the random init; missing on disk, a warning and the random init.
     ``kwargs`` go to the architecture (for UNet++ and the smp Unet:
     ``fused``, ``packed_min_hw``, ``decoder_channels``, for UNet++ also
-    ``fused_frontend``; for ``unet``: ``bilinear``, ``upsample_mode``; for
-    ``segnet``: ``apply_softmax``)."""
+    ``fused_frontend`` and ``thread_dx``; for ``unet``: ``bilinear``,
+    ``upsample_mode``; for ``segnet``: ``apply_softmax``)."""
     dev = resolve_device(device)
     key = arch.lower().replace("-", "").replace(" ", "")
     smp_key = key.replace("_", "")

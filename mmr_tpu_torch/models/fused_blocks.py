@@ -71,19 +71,26 @@ class FusedConvBN(ConvBN):
     (``use_bn=False``: with the conv bias, no prologue). In train mode the
     launch is differentiable and the BN takes the batch moments."""
 
-    def fused(self, inputs: list[Pending]) -> Pending:
+    def fused(self, inputs: list[Pending], thru: list[bool] | None = None):
+        """Returns ``(out, raws)``: the Pending output, and the raws that
+        :func:`fused_conv_ad` hands back for the inputs flagged in ``thru``
+        (train mode; None where not flagged), which their surfaces' later
+        consumers must read so that this launch's K3 threads their dx."""
         w = hwio(self.conv.weight)
         parts = list(torch.split(w, [p.c for p in inputs], dim=2))
         if not self.training:
-            y = fused_conv(inputs, parts, self.conv.bias)
+            if any(thru or ()):
+                raise ValueError("dx threading is a train-mode option")
+            y, raws = fused_conv(inputs, parts, self.conv.bias), [None] * len(inputs)
             if self.bn is None:
-                return Pending(y)
+                return Pending(y), raws
             s, t = self.bn.affine()
-        elif self.bn is None:
-            return Pending(fused_conv_ad(inputs, parts, self.conv.bias))
         else:
-            y, mom = fused_conv_ad(inputs, parts, self.conv.bias,
-                                   emit_moments=True)
+            out, raws = fused_conv_ad(inputs, parts, self.conv.bias,
+                                      emit_moments=self.bn is not None, thru=thru)
+            if self.bn is None:
+                return Pending(out), raws
+            y, mom = out
             s, t = self.bn.batch_affine(mom, y.shape[0] * y.shape[1] * y.shape[2])
         return Pending(y, s.contiguous(), t.contiguous(),
-                       PROLOGUE_ACT[self.act])
+                       PROLOGUE_ACT[self.act]), raws

@@ -48,10 +48,10 @@ SIGNATURES = {
     "mmr_conv3x3_dw_info": [_I, _I, _I],
     "mmr_confusion": [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P],
     "mmr_fused_conv": [_I] + [_P] * 10 + [_I] * 6 + [_P],
-    "mmr_fused_conv_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_P],
-    "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    "mmr_fused_conv_bwd": [_I] + [_P] * 19 + [_I] * 6 + [_P],
+    "mmr_fused_conv_down": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 8 + [_P],
     "mmr_fused_conv_down_bwd": ([_P] * 3 + [_I] + [_P] * 6 + [_I] + [_P]
-                                + [_I] * 6 + [_P]),
+                                + [_I] * 7 + [_P]),
     "mmr_conv3x3_narrow": [_P, _I, _I, _P, _P, _P] + [_I] * 5 + [_P],
     "mmr_conv3x3_narrow_grid": [_I] * 6 + [_P],
     "mmr_conv3x3_narrow_info": [_I, _I, _I],
@@ -66,14 +66,15 @@ SIGNATURES = {
     "mmr_head_loss_bwd_info": [_I, _I, _I],
     "mmr_fused_conv_down_info": [_I, _I, _I],
     "mmr_fused_conv_down_bwd_info": [_I, _I, _I],
-    "mmr_fused_conv_down_grid": [_I] * 6 + [_P],
-    "mmr_fused_conv_down_bwd_grid": [_I] * 7 + [_P],
+    "mmr_fused_conv_down_grid": [_I] * 7 + [_P],
+    "mmr_fused_conv_down_bwd_grid": [_I] * 8 + [_P],
 }
 # the Hopper kernels by mangled name: the entry that reports their shared
 # memory and blocks per SM, their kind there (``mmr_hopper_kernel_info``: 0
 # conv, 1 source-resolution dx, 2 K3's dW; ``mmr_conv3x3_dw_info``: the
 # modes 0 (cin <= 16), 1 (cin <= 32), 2 (64-channel chunks), each a kind;
-# the narrow tile's entries: cin <= 16 (0) or <= 32 (1)) and their
+# the narrow tile's entries: cin <= 16 (0) or <= 32 (1); the stride-2
+# pair's: dense (0), depthwise at stride 2 (1) or 1 (2)) and their
 # output-channel tiles (the stride-2 pair's: the flagship's input channels)
 HOPPER_KERNELS = {
     "conv_wg_kernel": ("mmr_hopper_kernel_info", 0, (16, 32, 64)),
@@ -85,9 +86,10 @@ HOPPER_KERNELS = {
     "pending_conv_kernel": ("mmr_fused_conv_info", 0, (16, 32, 64)),
     "head_bwd_kernel": ("mmr_head_loss_bwd_info", 0, (16, 32)),
     "down_stem_kernel": ("mmr_fused_conv_down_info", 0, (3,)),
-    "down_dw_fwd_kernel": ("mmr_fused_conv_down_info", 1, (16,)),
+    "down_dw_fwd_kernel": ("mmr_fused_conv_down_info", (1, 2), (16, 72, 88)),
     "down_stem_bwd_kernel": ("mmr_fused_conv_down_bwd_info", 0, (3,)),
-    "down_dw_bwd_kernel": ("mmr_fused_conv_down_bwd_info", 1, (16,)),
+    "down_dw_bwd_kernel": ("mmr_fused_conv_down_bwd_info", (1, 2),
+                           (16, 72, 88)),
 }
 
 

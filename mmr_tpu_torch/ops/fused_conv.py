@@ -5,10 +5,15 @@ PyTorch versions, the autograd functions that join them, and the
 :class:`Pending` tensor they consume.
 
 Counterparts of ``mmr_tpu/ops/pallas/packed_chain.py::fused_conv`` and
-``::fused_conv_down`` with their custom VJPs (BN moments included; the
-``thru`` dx threading is not ported: autograd sums a surface's cotangents).
-The TPU packing (lane blocks, baked halos, Toeplitz taps, phase splits) is
-not ported: tensors are plain NHWC bf16, and the kernels
+``::fused_conv_down`` with their custom VJPs, BN moments and the ``thru``
+dx threading included: a surface read by several fused nodes is handed
+from consumer to consumer (:func:`fused_conv_ad`'s ``thru``), and each
+consumer's K3 adds the cotangent its later consumers summed while it
+writes its own dx (``daccs``), so autograd sums none of them. K1 and K3
+also run the stride-1 depthwise conv of the mbv3 b1 block
+(``depthwise=True``) on the depthwise tile of K2 and K4. The TPU packing
+(lane blocks, baked halos, Toeplitz taps, phase splits) is not ported:
+tensors are plain NHWC bf16, and the kernels
 (``mmr_tpu_torch/csrc/fused_conv*.cu``) keep the same things out of device
 memory — the concat of a node's inputs, the BN-activated inputs and the
 ×2-upsampled inputs.
@@ -321,11 +326,16 @@ K1_TILE: dict[int, int] = {24: 16}
 
 def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
                    bias: torch.Tensor | None = None,
-                   emit_moments: bool = False, dtype: torch.dtype = BF16):
+                   emit_moments: bool = False, dtype: torch.dtype = BF16,
+                   depthwise: bool = False):
     """Plain version of :func:`fused_conv`: prologues in f32 rounded to
     ``dtype``, ×2 upsample by ``repeat_interleave``, ``torch.cat``, one f32
     ``F.conv2d`` (padding 1) over rounded weights, + bias; moments from the
-    f32 result, y rounded to ``dtype``. NHWC in, NHWC out."""
+    f32 result, y rounded to ``dtype``. NHWC in, NHWC out. ``depthwise``:
+    the grouped conv (``groups=C``) of the one input."""
+    if depthwise:
+        return fused_conv_down_ref(inputs[0], weights[0], bias, True,
+                                   emit_moments, dtype, stride=1)
     xs = [activated(p, dtype) for p in inputs]
     xs = [upsample2x(x) if p.up2x else x for x, p in zip(xs, inputs)]
     x = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
@@ -337,7 +347,8 @@ def fused_conv_ref(inputs: list[Pending], weights: list[torch.Tensor],
 
 
 def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
-               bias: torch.Tensor | None = None, emit_moments: bool = False):
+               bias: torch.Tensor | None = None, emit_moments: bool = False,
+               depthwise: bool = False):
     """y = Σ_j conv3×3_SAME(act_j(s_j·x_j + t_j) [×2-nearest if up2x_j], W_j)
     + bias: one launch for all of a node's concat inputs.
 
@@ -345,7 +356,25 @@ def fused_conv(inputs: list[Pending], weights: list[torch.Tensor],
     (3, 3, C_j, Cout) slice per input; ``bias``: (Cout,) or None. Returns
     the raw y as contiguous NHWC bf16 at the inputs' (fine) resolution, and
     with ``emit_moments`` also its (2, Cout) f32 moments [Σy, Σy²] taken
-    before the bf16 rounding. Not differentiable: see :func:`fused_conv_ad`."""
+    before the bf16 rounding. Not differentiable: see :func:`fused_conv_ad`.
+
+    ``depthwise``: one input and a (3, 3, 1, C) weight, a true per-channel
+    conv (the mbv3 b1_1 block's, ``packed_encoder.py:258-266``): the
+    stride-1 instance of the depthwise tile of ``csrc/down_tile.cuh``
+    (``fused_conv_down.cu``), C a multiple of 8 up to
+    :data:`DEPTHWISE_MAX_C` on the card."""
+    if depthwise:
+        if len(inputs) != 1 or len(weights) != 1 or inputs[0].up2x:
+            raise ValueError("the depthwise mode takes one input, not "
+                             "lazily upsampled, and one weight")
+        x = inputs[0]
+        device, _, cout = _check_down(x, weights[0], bias, True)
+        if not _launch_device(device):
+            return fused_conv_ref(inputs, weights, bias, emit_moments,
+                                  depthwise=True)
+        out = _down_fwd_launch(x, weights[0], bias, True, emit_moments, 1)
+        fused_conv.launches += 1
+        return out
     if not inputs or len(inputs) != len(weights):
         raise ValueError("one weight slice per input")
     if len(inputs) > 8:
@@ -396,18 +425,27 @@ fused_conv.launches = 0
 def fused_conv_bwd_ref(inputs: list[Pending], weights: list[torch.Tensor],
                        y: torch.Tensor | None, dy: torch.Tensor,
                        dmom: torch.Tensor | None = None,
-                       has_bias: bool = False, dtype: torch.dtype = BF16):
+                       has_bias: bool = False,
+                       daccs: list[torch.Tensor | None] | None = None,
+                       depthwise: bool = False, dtype: torch.dtype = BF16):
     """Plain version of :func:`fused_conv_bwd`, written out: dye = dy +
     dm0 + 2·y·dm1 (f32; dbias = Σdye), rounded to ``dtype``; per input the
     weight gradient ``conv2d_weight`` and the input gradient
     ``conv2d_input`` (f32) of the forward's rounded prologue'd input (×2
     upsampled for a lazy input, whose gradient is then 2×2-summed back to
-    source resolution), then the prologue backward."""
+    source resolution), then the prologue backward, then input j's addend
+    ``daccs[j]`` (f32) before the one rounding of dx_j. ``depthwise``: the
+    grouped versions (``groups=C``) of both products."""
+    if depthwise:
+        dx, dw, dpro, dbias = fused_conv_down_bwd_ref(
+            inputs[0], weights[0], y, dy, dmom, has_bias, True, True, dtype,
+            stride=1)
+        return [dx], [dw], [dpro], dbias
     g = _corrected_dy(dy, y, dmom)
     dbias = g.sum((0, 1, 2)) if has_bias else None
     g = _round(g, dtype).permute(0, 3, 1, 2)
     dxs, dws, dpros = [], [], []
-    for p, w in zip(inputs, weights):
+    for j, (p, w) in enumerate(zip(inputs, weights)):
         a = activated(p, dtype)
         if p.up2x:
             a = upsample2x(a)
@@ -419,6 +457,8 @@ def fused_conv_bwd_ref(inputs: list[Pending], weights: list[torch.Tensor],
             b, h, w2, c = ga.shape
             ga = ga.reshape(b, h // 2, 2, w2 // 2, 2, c).sum((2, 4))
         dx, dpro = _prologue_bwd(ga, p)
+        if daccs is not None and daccs[j] is not None:
+            dx = dx + daccs[j].float()
         dxs.append(dx.to(p.raw.dtype).contiguous())
         dpros.append(dpro)
     return dxs, dws, dpros, dbias
@@ -426,26 +466,50 @@ def fused_conv_bwd_ref(inputs: list[Pending], weights: list[torch.Tensor],
 
 def fused_conv_bwd(inputs: list[Pending], weights: list[torch.Tensor],
                    y: torch.Tensor | None, dy: torch.Tensor,
-                   dmom: torch.Tensor | None = None, has_bias: bool = False):
+                   dmom: torch.Tensor | None = None, has_bias: bool = False,
+                   daccs: list[torch.Tensor | None] | None = None,
+                   depthwise: bool = False):
     """K1's backward (K3): from the forward's inputs and weights, its bf16
     output ``y`` (read only with ``dmom``), the output gradient ``dy``
     (contiguous NHWC bf16) and the moments cotangent ``dmom`` (2, Cout) f32
     or None, returns ``(dxs, dws, dpros, dbias)``: per input the bf16
     gradient of the raw tensor (at source resolution for a lazy ×2 input),
     the f32 HWIO weight gradient and (d scale, d shift) f32 or None; the
-    f32 bias gradient when ``has_bias``."""
+    f32 bias gradient when ``has_bias``.
+
+    ``daccs``: per input None or its ``thru`` addend, a contiguous bf16
+    tensor of the raw input's shape (the cotangent its surface's later
+    consumers summed), added to dx_j in f32 in the kernel before dx_j's
+    rounding; d scale / d shift stay this consumer's own share
+    (``packed_chain.py:693 _fused_bwd_kernel``'s ``thru_mask``).
+    ``depthwise``: the backward of :func:`fused_conv`'s depthwise mode
+    (dx always), the stride-1 instance of K4's depthwise tile."""
     x0 = inputs[0].raw
     device, batch = x0.device, x0.shape[0]
     h, w = inputs[0].hw
     cout = weights[0].shape[3]
+    if depthwise:
+        if (len(inputs) != 1 or inputs[0].up2x
+                or (daccs is not None and daccs[0] is not None)):
+            raise ValueError("the depthwise backward takes one input, not "
+                             "lazily upsampled, and no addend")
+        _check_down(inputs[0], weights[0], None, True)
     _check_grad("dy", dy, (batch, h, w, cout), device)
     if dmom is not None:
         _check_grad("y", y, (batch, h, w, cout), device)
     _check_dmom(dmom, cout, device)
-    for p in inputs:
+    for j, p in enumerate(inputs):
         _check_pending(p, device, batch)
+        if daccs is not None and daccs[j] is not None:
+            _check_grad("dacc", daccs[j], tuple(p.raw.shape), device)
     if not _launch_device(device):
-        return fused_conv_bwd_ref(inputs, weights, y, dy, dmom, has_bias)
+        return fused_conv_bwd_ref(inputs, weights, y, dy, dmom, has_bias,
+                                  daccs, depthwise)
+    if depthwise:
+        dx, dw, dpro, dbias = _down_bwd_launch(inputs[0], weights[0], y, dy,
+                                               dmom, has_bias, True, True, 1)
+        fused_conv_bwd.launches += 1
+        return [dx], [dw], [dpro], dbias
 
     f32 = dict(dtype=torch.float32, device=device)
     ntile, np_ = _wg_tile(cout, 32)
@@ -472,6 +536,8 @@ def fused_conv_bwd(inputs: list[Pending], weights: list[torch.Tensor],
         _arr(P, [d.data_ptr() for d in dxs]),
         _arr(P, [None if d is None else d[0].data_ptr() for d in dpros]),
         _arr(P, [None if d is None else d[1].data_ptr() for d in dpros]),
+        _arr(P, [None if daccs is None else _ptr(daccs[j])
+                 for j in range(len(inputs))]),
         dy.data_ptr(), _ptr(y), _ptr(dmom_c), _ptr(dye), _ptr(dbias),
         dwp.data_ptr(), ntile, np_, batch, h, w, cout, _stream())
     _raise_on(err, "fused_conv_bwd")
@@ -490,37 +556,54 @@ def _grad_bf16(t: torch.Tensor) -> torch.Tensor:
 
 class FusedConvFn(torch.autograd.Function):
     """K1 forward, K3 backward. ``forward(ctx, spec, *tensors)`` with
-    ``spec = (n_inputs, acts, ups, has_bias, emit_moments)`` and
-    ``tensors`` = raws, scales, shifts, weights (n each; None where absent),
-    bias. Returns (y, moments or an empty tensor)."""
+    ``spec = (n_inputs, acts, ups, has_bias, emit_moments, thru,
+    depthwise)`` and ``tensors`` = raws, scales, shifts, weights (n each;
+    None where absent), bias. Returns (y, moments or an empty tensor, the
+    raw of every input flagged in ``thru``, unchanged).
+
+    A returned raw is the ``thru`` pass-through of
+    ``packed_chain.py:1235-1252``: autograd hands it back as a view with
+    this function as its source, so a later consumer that reads it (and
+    not the input) sends its cotangent here, and K3 adds it to the input's
+    dx in the kernel (``daccs``) instead of autograd summing two surfaces.
+    A raw whose cotangent never arrives (``None``: nothing read it) is not
+    threaded (``packed_chain.py:1096-1102``)."""
 
     @staticmethod
     def forward(ctx, spec, *tensors):
-        n, acts, ups, has_bias, emit = spec
+        n, acts, ups, has_bias, emit, thru, depthwise = spec
         inputs = [Pending(r, s, t, a, u) for r, s, t, a, u
                   in zip(tensors[:n], tensors[n:2 * n], tensors[2 * n:3 * n],
                          acts, ups)]
         weights, bias = list(tensors[3 * n:4 * n]), tensors[4 * n]
-        out = fused_conv(inputs, weights, bias, emit_moments=emit)
+        extra = {"depthwise": True} if depthwise else {}
+        out = fused_conv(inputs, weights, bias, emit_moments=emit, **extra)
         y, mom = out if emit else (out, None)
         ctx.spec = spec
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(*tensors[:4 * n], y)
         if mom is None:
             mom = y.new_zeros((0,), dtype=torch.float32)
             ctx.mark_non_differentiable(mom)
-        return y, mom
+        return (y, mom, *[r for r, t in zip(tensors[:n], thru) if t])
 
     @staticmethod
-    def backward(ctx, dy, dmom):
-        n, acts, ups, has_bias, emit = ctx.spec
+    def backward(ctx, dy, dmom, *dthru):
+        n, acts, ups, has_bias, emit, thru, depthwise = ctx.spec
         saved = ctx.saved_tensors
         inputs = [Pending(r, s, t, a, u) for r, s, t, a, u
                   in zip(saved[:n], saved[n:2 * n], saved[2 * n:3 * n],
                          acts, ups)]
         weights, y = list(saved[3 * n:4 * n]), saved[4 * n]
+        if dy is None:
+            dy = torch.zeros_like(y)
+        it, daccs = iter(dthru), []
+        for t in thru:
+            d = next(it) if t else None
+            daccs.append(None if d is None else _grad_bf16(d))
         dxs, dws, dpros, dbias = fused_conv_bwd(
             inputs, weights, y, _grad_bf16(dy), dmom if emit else None,
-            has_bias)
+            has_bias, daccs, depthwise)
         ds = [None if d is None else d[0] for d in dpros]
         dt = [None if d is None else d[1] for d in dpros]
         return (None, *dxs, *ds, *dt, *dws, dbias)
@@ -528,16 +611,29 @@ class FusedConvFn(torch.autograd.Function):
 
 def fused_conv_ad(inputs: list[Pending], weights: list[torch.Tensor],
                   bias: torch.Tensor | None = None,
-                  emit_moments: bool = False):
+                  emit_moments: bool = False,
+                  thru: list[bool] | None = None, depthwise: bool = False):
     """Differentiable :func:`fused_conv` (K1 forward, K3 backward): the
     gradients reach every raw input, prologue vector, weight slice and the
-    bias, the moments' cotangent included. Returns y, or (y, moments)."""
+    bias, the moments' cotangent included. Returns ``(out, raws)``: out is
+    y, or (y, moments); ``raws[j]`` is input j's raw tensor handed back
+    unchanged where ``thru[j]`` is set, else None.
+
+    ``thru[j]`` threads input j's dx (``packed_chain.py:939-946``
+    ``FusedCfg.thru``; none by default). The surface's later consumers
+    must read ``raws[j]``, never the raw they would have read, so that
+    their summed cotangent reaches this launch's K3 as its addend.
+    ``depthwise``: :func:`fused_conv`'s depthwise mode."""
+    flags = tuple(bool(t) for t in (thru or [False] * len(inputs)))
     spec = (len(inputs), tuple(p.act for p in inputs),
-            tuple(p.up2x for p in inputs), bias is not None, emit_moments)
-    y, mom = FusedConvFn.apply(
+            tuple(p.up2x for p in inputs), bias is not None, emit_moments,
+            flags, depthwise)
+    y, mom, *passed = FusedConvFn.apply(
         spec, *[p.raw for p in inputs], *[p.scale for p in inputs],
         *[p.shift for p in inputs], *weights, bias)
-    return (y, mom) if emit_moments else y
+    it = iter(passed)
+    return ((y, mom) if emit_moments else y,
+            [next(it) if t else None for t in flags])
 
 
 # ------------------------------------------------------------------- K2
@@ -545,25 +641,36 @@ def fused_conv_ad(inputs: list[Pending], weights: list[torch.Tensor],
 def fused_conv_down_ref(x: Pending, w: torch.Tensor,
                         bias: torch.Tensor | None = None,
                         depthwise: bool = False, emit_moments: bool = False,
-                        dtype: torch.dtype = BF16):
+                        dtype: torch.dtype = BF16, stride: int = 2):
     """Plain version of :func:`fused_conv_down`: prologue in f32 rounded to
     ``dtype``, one f32 ``F.conv2d`` (stride 2, padding 1, ``groups=C`` when
     depthwise) over rounded weights, + bias; moments from the f32 result,
-    y rounded to ``dtype``."""
+    y rounded to ``dtype``. ``stride=1``: the plain version of
+    :func:`fused_conv`'s depthwise mode."""
     a = activated(x, dtype).permute(0, 3, 1, 2)
     wf = _round(w, dtype).permute(3, 2, 0, 1)
-    y = F.conv2d(a, wf, None if bias is None else bias.float(), stride=2,
+    y = F.conv2d(a, wf, None if bias is None else bias.float(), stride=stride,
                  padding=1, groups=x.c if depthwise else 1).permute(0, 2, 3, 1)
     out = y.to(dtype).contiguous()
     return (out, moments(y)) if emit_moments else out
 
 
 # K2's and K4's output tiles (``csrc/down_tile.cuh``): 4 output rows by 64
-# (dense) or 32 (depthwise) output columns; the channels the kernels take
-# (the plain versions take any)
+# (dense) or 32 (depthwise) output columns — 16 for a stride-2 depthwise
+# tile above 64 channels, whose 9 × 33 source values a channel must fit
+# shared memory —; the channels the kernels take (the plain versions take
+# any): dense Cin <= 16 and Cout <= 32, depthwise C a multiple of 8 up to
+# DEPTHWISE_MAX_C, at stride 2 (K2, K4) or 1 (K1's and K3's depthwise mode)
 DOWN_TILE = {False: (4, 64), True: (4, 32)}
 DENSE_MAX_CIN, DENSE_MAX_COUT = 16, 32
-DEPTHWISE_C = (8, 16, 32, 64)
+DEPTHWISE_MAX_C = 96
+
+
+def _tile_cols(depthwise: bool, c: int = 8, stride: int = 2) -> int:
+    """Output columns of the stride-2 pair's tile for these channels."""
+    if depthwise and stride == 2 and c > 64:
+        return 16
+    return DOWN_TILE[depthwise][1]
 
 
 def _check_down(x: Pending, w: torch.Tensor, bias, depthwise: bool):
@@ -583,26 +690,32 @@ def _check_down(x: Pending, w: torch.Tensor, bias, depthwise: bool):
 
 def _check_down_kernel(cin: int, cout: int, depthwise: bool):
     """The kernels' channels (a launch; the plain versions take any)."""
-    if depthwise and cin not in DEPTHWISE_C:
-        raise ValueError(f"the depthwise stride-2 kernels take C in {DEPTHWISE_C}")
+    if depthwise and (cin % 8 or not 8 <= cin <= DEPTHWISE_MAX_C):
+        raise ValueError("the depthwise kernels take C a multiple of 8 up to "
+                         f"{DEPTHWISE_MAX_C} (got {cin})")
     if not depthwise and (cin > DENSE_MAX_CIN or cout > DENSE_MAX_COUT):
         raise ValueError("the dense stride-2 kernels take Cin <= "
                          f"{DENSE_MAX_CIN} and Cout <= {DENSE_MAX_COUT}")
 
 
-def _down_tiles(batch: int, h: int, w: int, depthwise: bool) -> int:
-    """The stride-2 kernels' tiles of a (batch, h, w) input, in (image,
-    tile row, tile column) order; block i of a grid of B blocks (B ≤ the
-    tiles) takes tiles i, i + B, ... and writes row i of the block sums."""
-    th, tw = DOWN_TILE[depthwise]
-    return batch * -(-((h + 1) // 2) // th) * -(-((w + 1) // 2) // tw)
+def _down_tiles(batch: int, h: int, w: int, depthwise: bool, c: int = 8,
+                stride: int = 2) -> int:
+    """The stride-2 pair's tiles of a (batch, h, w) input (``stride=1``:
+    the depthwise mode of K1 / K3), in (image, tile row, tile column)
+    order; block i of a grid of B blocks (B ≤ the tiles) takes tiles i,
+    i + B, ... and writes row i of the block sums."""
+    th, tw = DOWN_TILE[depthwise][0], _tile_cols(depthwise, c, stride)
+    ho, wo = -(-h // stride), -(-w // stride)
+    return batch * -(-ho // th) * -(-wo // tw)
 
 
 def down_grid(x: Pending, w: torch.Tensor, depthwise: bool = False,
-              backward: bool = False, need_dx: bool = False) -> dict:
+              backward: bool = False, need_dx: bool = False,
+              stride: int = 2) -> dict:
     """The persistent grid K2 (or K4, ``backward``) launches for these
     arguments on the current card, as its C entry sizes it: blocks, blocks
-    a SM, SMs and dynamic shared memory (bytes)."""
+    a SM, SMs and dynamic shared memory (bytes). ``stride=1``: the
+    depthwise mode of K1 (K3)."""
     n, h, wd, cin = x.raw.shape
     cout = cin if depthwise else w.shape[3]
     _check_down_kernel(cin, cout, depthwise)
@@ -610,10 +723,10 @@ def down_grid(x: Pending, w: torch.Tensor, depthwise: bool = False,
     lib = _build.library()
     err = (lib.mmr_fused_conv_down_bwd_grid(n, h, wd, cin, cout,
                                             int(depthwise), int(need_dx),
-                                            out.data_ptr())
+                                            stride, out.data_ptr())
            if backward else
            lib.mmr_fused_conv_down_grid(n, h, wd, cin, cout, int(depthwise),
-                                        out.data_ptr()))
+                                        stride, out.data_ptr()))
     _raise_on(err, "down_grid")
     return dict(zip(("blocks", "per_sm", "sms", "smem"), out.tolist()))
 
@@ -653,30 +766,20 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def fused_conv_down(x: Pending, w: torch.Tensor,
-                    bias: torch.Tensor | None = None,
-                    depthwise: bool = False, emit_moments: bool = False):
-    """3×3 stride-2 pad-(1,1) conv of ``act(s·x + t)`` (+ bias).
-
-    ``w``: HWIO (3, 3, Cin, Cout), or (3, 3, 1, C) with ``depthwise`` (a
-    true per-channel conv); the kernel takes Cin ≤ 16 and Cout ≤ 32, or C
-    in 8, 16, 32, 64 (the plain version any). Returns raw y as contiguous NHWC bf16 at ((H+1)//2, (W+1)//2), and with
-    ``emit_moments`` its (2, Cout) f32 moments (the blocks' sums added in a
-    fixed order: the same on every run). Not differentiable: see
-    :func:`fused_conv_down_ad`."""
-    device, batch, cout = _check_down(x, w, bias, depthwise)
-    if not _launch_device(device):
-        return fused_conv_down_ref(x, w, bias, depthwise, emit_moments)
-
+def _down_fwd_launch(x: Pending, w: torch.Tensor, bias, depthwise: bool,
+                     emit_moments: bool, stride: int):
+    """One launch of ``csrc/fused_conv_down.cu`` on checked CUDA tensors:
+    K2 (stride 2) or K1's depthwise mode (stride 1)."""
+    batch, h, wd, cout = (*x.raw.shape[:3], x.c if depthwise else w.shape[3])
     _check_down_kernel(x.c, cout, depthwise)
-    h, wd = x.raw.shape[1], x.raw.shape[2]
+    device = x.raw.device
     raw = _aligned(x.raw)
     wt = (_cached_pack(("down", True), [w], lambda: _down_weights(w))
           if depthwise else
           _cached_pack(("K2 frags",), [w], lambda: _stem_frags(w)))
     bias_f = None if bias is None else bias.float().contiguous()
-    rows = _down_tiles(batch, h, wd, depthwise)
-    y = torch.empty((batch, (h + 1) // 2, (wd + 1) // 2, cout),
+    rows = _down_tiles(batch, h, wd, depthwise, x.c, stride)
+    y = torch.empty((batch, -(-h // stride), -(-wd // stride), cout),
                     dtype=BF16, device=device)
     part = mom = None
     if emit_moments:
@@ -687,10 +790,29 @@ def fused_conv_down(x: Pending, w: torch.Tensor,
     err = _build.library().mmr_fused_conv_down(
         raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
         _ptr(bias_f), y.data_ptr(), _ptr(part), _ptr(mom), rows, batch, h,
-        wd, x.c, cout, int(depthwise), _stream())
-    _raise_on(err, "fused_conv_down")
-    fused_conv_down.launches += 1
+        wd, x.c, cout, int(depthwise), stride, _stream())
+    _raise_on(err, "fused_conv" if stride == 1 else "fused_conv_down")
     return (y, mom) if emit_moments else y
+
+
+def fused_conv_down(x: Pending, w: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    depthwise: bool = False, emit_moments: bool = False):
+    """3×3 stride-2 pad-(1,1) conv of ``act(s·x + t)`` (+ bias).
+
+    ``w``: HWIO (3, 3, Cin, Cout), or (3, 3, 1, C) with ``depthwise`` (a
+    true per-channel conv); the kernel takes Cin ≤ 16 and Cout ≤ 32, or C a
+    multiple of 8 up to 96 (the plain version any). Returns raw y as
+    contiguous NHWC bf16 at ((H+1)//2, (W+1)//2), and with
+    ``emit_moments`` its (2, Cout) f32 moments (the blocks' sums added in a
+    fixed order: the same on every run). Not differentiable: see
+    :func:`fused_conv_down_ad`."""
+    device, _, _ = _check_down(x, w, bias, depthwise)
+    if not _launch_device(device):
+        return fused_conv_down_ref(x, w, bias, depthwise, emit_moments)
+    out = _down_fwd_launch(x, w, bias, depthwise, emit_moments, 2)
+    fused_conv_down.launches += 1
+    return out
 
 
 fused_conv_down.launches = 0
@@ -702,26 +824,61 @@ def fused_conv_down_bwd_ref(x: Pending, w: torch.Tensor,
                             y: torch.Tensor | None, dy: torch.Tensor,
                             dmom: torch.Tensor | None = None,
                             has_bias: bool = False, depthwise: bool = False,
-                            need_dx: bool = True, dtype: torch.dtype = BF16):
+                            need_dx: bool = True, dtype: torch.dtype = BF16,
+                            stride: int = 2):
     """Plain version of :func:`fused_conv_down_bwd`, written out: dye (f32;
     dbias = Σdye) rounded to ``dtype``; ``conv2d_weight`` and
     ``conv2d_input`` (stride 2, padding 1, grouped when depthwise) of the
-    rounded prologue'd input; the prologue backward."""
+    rounded prologue'd input; the prologue backward. ``stride=1``: the
+    plain backward of :func:`fused_conv`'s depthwise mode."""
     g = _corrected_dy(dy, y, dmom)
     dbias = g.sum((0, 1, 2)) if has_bias else None
     g = _round(g, dtype).permute(0, 3, 1, 2)
     a = activated(x, dtype).permute(0, 3, 1, 2)
     wr = _round(w, dtype).permute(3, 2, 0, 1)
     groups = x.c if depthwise else 1
-    dw = conv2d_weight(a, wr.shape, g, stride=2, padding=1,
+    dw = conv2d_weight(a, wr.shape, g, stride=stride, padding=1,
                        groups=groups).permute(2, 3, 1, 0)
     dx = dpro = None
     if need_dx:
-        ga = conv2d_input(a.shape, wr, g, stride=2, padding=1,
+        ga = conv2d_input(a.shape, wr, g, stride=stride, padding=1,
                           groups=groups).permute(0, 2, 3, 1)
         dx, dpro = _prologue_bwd(ga, x)
         dx = dx.to(x.raw.dtype).contiguous()
     return dx, dw, dpro, dbias
+
+
+def _down_bwd_launch(x: Pending, w: torch.Tensor, y, dy, dmom, has_bias: bool,
+                     depthwise: bool, need_dx: bool, stride: int):
+    """One launch of ``csrc/fused_conv_down_bwd.cu`` on checked CUDA
+    tensors: K4 (stride 2) or K3's depthwise mode (stride 1)."""
+    batch, h, wd, c = x.raw.shape
+    cout = c if depthwise else w.shape[3]
+    _check_down_kernel(c, cout, depthwise)
+    device = x.raw.device
+    f32 = dict(dtype=torch.float32, device=device)
+    wt = _cached_pack(("down", depthwise), [w], lambda: _down_weights(w))
+    nw = w.numel()
+    length = nw + cout + 2 * c
+    rows = _down_tiles(batch, h, wd, depthwise, c, stride)
+    part = torch.empty((rows, length), **f32)
+    out = torch.empty(length, **f32)
+    dx = torch.empty_like(x.raw) if need_dx else None
+    # the aligned inputs and dmom stay referenced until the launch
+    raw, dy = _aligned(x.raw), _aligned(dy)
+    y = None if dmom is None else _aligned(y)
+    dmom = None if dmom is None else dmom.contiguous()
+    act = 0 if x.scale is None else ACTS[x.act]
+    err = _build.library().mmr_fused_conv_down_bwd(
+        raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
+        dy.data_ptr(), _ptr(y), _ptr(dmom), _ptr(dx), part.data_ptr(), rows,
+        out.data_ptr(), batch, h, wd, c, cout, int(depthwise), stride,
+        _stream())
+    _raise_on(err, "fused_conv_bwd" if stride == 1 else "fused_conv_down_bwd")
+    dpro = ((out[nw + cout:nw + cout + c], out[nw + cout + c:])
+            if need_dx and x.scale is not None else None)
+    dbias = out[nw:nw + cout] if has_bias else None
+    return dx, out[:nw].view(w.shape), dpro, dbias
 
 
 def fused_conv_down_bwd(x: Pending, w: torch.Tensor, y: torch.Tensor | None,
@@ -742,31 +899,9 @@ def fused_conv_down_bwd(x: Pending, w: torch.Tensor, y: torch.Tensor | None,
     if not _launch_device(device):
         return fused_conv_down_bwd_ref(x, w, y, dy, dmom, has_bias,
                                        depthwise, need_dx)
-
-    _check_down_kernel(x.c, cout, depthwise)
-    f32 = dict(dtype=torch.float32, device=device)
-    wt = _cached_pack(("down", depthwise), [w], lambda: _down_weights(w))
-    nw, c = w.numel(), x.c
-    length = nw + cout + 2 * c
-    rows = _down_tiles(batch, h, wd, depthwise)
-    part = torch.empty((rows, length), **f32)
-    out = torch.empty(length, **f32)
-    dx = torch.empty_like(x.raw) if need_dx else None
-    # the aligned inputs and dmom stay referenced until the launch
-    raw, dy = _aligned(x.raw), _aligned(dy)
-    y = None if dmom is None else _aligned(y)
-    dmom = None if dmom is None else dmom.contiguous()
-    act = 0 if x.scale is None else ACTS[x.act]
-    err = _build.library().mmr_fused_conv_down_bwd(
-        raw.data_ptr(), _ptr(x.scale), _ptr(x.shift), act, wt.data_ptr(),
-        dy.data_ptr(), _ptr(y), _ptr(dmom), _ptr(dx), part.data_ptr(), rows,
-        out.data_ptr(), batch, h, wd, c, cout, int(depthwise), _stream())
-    _raise_on(err, "fused_conv_down_bwd")
+    out = _down_bwd_launch(x, w, y, dy, dmom, has_bias, depthwise, need_dx, 2)
     fused_conv_down_bwd.launches += 1
-    dpro = ((out[nw + cout:nw + cout + c], out[nw + cout + c:])
-            if need_dx and x.scale is not None else None)
-    dbias = out[nw:nw + cout] if has_bias else None
-    return dx, out[:nw].view(w.shape), dpro, dbias
+    return out
 
 
 fused_conv_down_bwd.launches = 0

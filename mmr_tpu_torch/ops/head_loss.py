@@ -183,7 +183,7 @@ def head_loss_bwd_ref(x: Pending, w: torch.Tensor, logp: torch.Tensor,
     with a bias."""
     dy = dlogits_ref(logp, labels, dstats)
     dxs, dws, dpros, dbias = fused_conv_bwd_ref([x], [w], None, dy, None,
-                                                True, dtype)
+                                                True, dtype=dtype)
     return dxs[0], dws[0], dpros[0], dbias
 
 

@@ -235,6 +235,156 @@ def test_k1_moments_and_k3(dev, spec, cout, hw, batch):
     _grad_close("dbias", got[3], want[3])
 
 
+@pytest.mark.parametrize("spec,cout,hw,batch", [TRAIN_CONVS[i] for i in (0, 2, 6)])
+def test_k3_thru_addend(dev, spec, cout, hw, batch):
+    """K3 with a ``thru`` addend on every input (a lazy ×2 input's at its
+    source resolution): dx against the plain version with the same
+    addend; d scale / d shift and dW equal the launch without addends
+    (the addend is no part of this consumer's share)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    H, W = hw
+    ins, ws = [], []
+    for j, (c, up) in enumerate(spec):
+        h, w = (H // 2, W // 2) if up else (H, W)
+        x = _rand(g, dev, batch, h, w, c, dtype=torch.bfloat16)
+        s = torch.rand(c, device=dev, generator=g) + 0.5
+        ins.append(Pending(x, s, _rand(g, dev, c, scale=0.3), "relu", up))
+        ws.append(_rand(g, dev, 3, 3, c, cout, scale=0.1))
+    y = fused_conv(ins, ws)
+    dy = _rand(g, dev, batch, H, W, cout, dtype=torch.bfloat16)
+    daccs = [_rand(g, dev, *p.raw.shape, dtype=torch.bfloat16) for p in ins]
+    before = fused_conv_bwd.launches
+    got = fused_conv_bwd(ins, ws, y, dy, None, False, daccs)
+    assert fused_conv_bwd.launches == before + 1
+    want = fused_conv_bwd_ref(ins, ws, y, dy, None, False, daccs)
+    plain = fused_conv_bwd(ins, ws, y, dy)
+    for j in range(len(ins)):
+        _grad_close(f"dx{j}", got[0][j], want[0][j])
+        _grad_close(f"dw{j}", got[1][j], plain[1][j])
+        for a, b in zip(got[2][j], plain[2][j]):
+            _grad_close(f"dpro{j}", a, b)
+
+
+# the depthwise mode of K1 / K3 (the stride-1 depthwise tile): the mbv3
+# b1_1's C = 88 at its B=8 512x640 shape, ragged H and W, and other C
+# (16: the warp-shuffle sums; 24, 96)
+@pytest.mark.parametrize("c,act,bias,hw,batch", [
+    (88, "relu", False, (64, 80), 8),
+    (88, "relu", True, (33, 65), 2),
+    (16, "hswish", True, (34, 66), 2),
+    (24, "linear", False, (1, 70), 2),
+    (96, "relu", True, (130, 258), 2),
+])
+def test_depthwise_k1_k3(dev, c, act, bias, hw, batch):
+    """K1's and K3's depthwise mode vs their plain versions (the grouped
+    stride-1 conv): y and its moments, dx, dW, d scale / d shift, dbias; the
+    launches counted under ``fused_conv`` / ``fused_conv_bwd``; a second
+    launch bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = _rand(g, dev, batch, *hw, c, dtype=torch.bfloat16)
+    s = torch.rand(c, device=dev, generator=g) + 0.5
+    p = Pending(x, s, _rand(g, dev, c, scale=0.3), act)
+    w = _rand(g, dev, 3, 3, 1, c, scale=0.3)
+    b = _rand(g, dev, c, scale=0.5) if bias else None
+    before = fused_conv.launches
+    y, mom = fused_conv([p], [w], b, emit_moments=True, depthwise=True)
+    assert fused_conv.launches == before + 1 and y.shape == (batch, *hw, c)
+    y_ref, mom_ref = fused_conv_ref([p], [w], b, emit_moments=True,
+                                    depthwise=True)
+    _close(y, y_ref)
+    _mom_close(mom, mom_ref)
+    y2, mom2 = fused_conv([p], [w], b, emit_moments=True, depthwise=True)
+    assert torch.equal(y, y2) and torch.equal(mom, mom2)
+    dy = _rand(g, dev, *y.shape, dtype=torch.bfloat16)
+    dmom = _rand(g, dev, 2, c, scale=1e-3)
+    args = ([p], [w], y, dy, dmom, bias, None, True)
+    before = fused_conv_bwd.launches
+    got = fused_conv_bwd(*args)
+    assert fused_conv_bwd.launches == before + 1
+    want = fused_conv_bwd_ref(*args)
+    again = fused_conv_bwd(*args)
+    _grad_close("dx", got[0][0], want[0][0])
+    _grad_close("dw", got[1][0], want[1][0])
+    for a, r in zip(got[2][0], want[2][0]):
+        _grad_close("dpro", a, r)
+    if bias:
+        _grad_close("dbias", got[3], want[3])
+    assert torch.equal(got[0][0], again[0][0]) and torch.equal(got[1][0],
+                                                               again[1][0])
+    with pytest.raises(ValueError):          # wider than the kernels take
+        wide = Pending(_rand(g, dev, 1, 4, 8, 104, dtype=torch.bfloat16))
+        fused_conv([wide], [_rand(g, dev, 3, 3, 1, 104)], depthwise=True)
+
+
+def test_fused_b1_encoder_on_card(dev):
+    """The encoder with ``fused_b1`` at 2 × 128 × 256 against the plain
+    encoder on the same weights: f3 within 0.04 of its largest value in
+    eval and train mode; one K2 + K4 (b0_0, b1_0), one depthwise K1 + K3
+    (b1_1) more than the fused front-end alone; finite gradients."""
+    from mmr_tpu_torch.models.encoders import get_encoder
+    from mmr_tpu_torch.models.layers import nchw
+
+    spec = get_encoder("tu-mobilenetv3_small_100")
+    g = torch.Generator().manual_seed(19)
+    plain = spec.build().to(dev)
+    fused = spec.build(fused_frontend=True, fused_b1=True).to(dev)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 128, 256, 3, generator=g).to(dev)
+    x = nchw(x.to(torch.bfloat16)).contiguous(memory_format=torch.channels_last)
+    for train in (False, True):
+        plain.train(train)
+        fused.train(train)
+        counts = [f.launches for f in (fused_conv, fused_conv_bwd,
+                                       fused_conv_down, fused_conv_down_bwd)]
+        with torch.set_grad_enabled(train):
+            want = plain(x)[2].float()
+            got = fused(x)[2]
+            if train:
+                got.float().square().sum().backward()
+        now = [f.launches for f in (fused_conv, fused_conv_bwd,
+                                    fused_conv_down, fused_conv_down_bwd)]
+        assert [b - a for a, b in zip(counts, now)] == (
+            [1, 1, 3, 3] if train else [1, 0, 3, 0])
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        assert rel < 0.04, (train, rel)
+    grads = [p.grad for n, p in fused.named_parameters() if n.startswith("b1_")]
+    assert grads and all(gr is not None and bool(torch.isfinite(gr).all())
+                         for gr in grads)
+
+
+def test_threaded_step_matches_unthreaded_on_card(dev):
+    """The fused model's train-mode gradients with ``thread_dx`` on and off
+    (2 × 128 × 256, every node fused: 16 threaded inputs), two runs of each:
+    losses within 1e-3, and the threaded gradient's cosine to the
+    unthreaded one no further below 1 than the runs' own (less 0.005). A
+    run does not repeat itself: K1 adds its moments and K3 its dW by f32
+    atomics, and train-mode BN over the coarse nodes' 64 values a channel
+    amplifies that to a cosine of 0.994 between two identical runs on an
+    H100; at the flagship's 512×640 B=8 it is 0.9997."""
+    from mmr_tpu_torch.losses import dice_ce_loss
+    from mmr_tpu_torch.models import create_model
+
+    g = torch.Generator().manual_seed(20)
+    x = torch.rand(2, 128, 256, 3, generator=g).to(dev)
+    labels = torch.randint(0, 10, (2, 128, 256), generator=g).to(dev)
+    runs = {}
+    for thread in (True, False, True, False):
+        m = create_model(classes=10, device=dev, fused=True, fused_frontend=True,
+                         packed_min_hw=0, thread_dx=thread)
+        m.train()
+        loss = dice_ce_loss(m(x), labels)
+        loss.backward()
+        assert m.threaded_inputs == (16 if thread else 0)
+        runs.setdefault(thread, []).append(
+            (loss.item(), torch.cat([q.grad.flatten() for q in m.parameters()])))
+    cos = lambda a, b: (a.double() @ b.double()
+                        / (a.double().norm() * b.double().norm())).item()
+    (lt, t1), (_, t2) = runs[True]
+    (lu, u1), (_, u2) = runs[False]
+    assert abs(lt - lu) <= 1e-3 * abs(lu)
+    assert cos(t1, u1) >= min(cos(t1, t2), cos(u1, u2)) - 0.005
+
+
 # the smp Unet over tu-convnextv2_tiny, B=8 512x640 (chip_smoke.py phase
 # 13): the fused blocks' conv1 — block 1's lazy x2 256 beside the raw
 # 192-channel skip (448 in, the widest concat a K1 launch meets), block 2's
@@ -332,6 +482,14 @@ def test_k1_tiles_agree(dev, ntile, monkeypatch):
     (True, 64, 64, "linear", True, (130, 258), 8),
     (False, 16, 32, "hswish", True, (130, 258), 8),
     (False, 3, 32, None, False, (66, 130), 2),
+    # C where c / 8 does not divide the block's threads: the mbv3 b1_0's
+    # 72 at its B=8 512x640 shape (16-column tiles above 64 channels), 72
+    # and 88 ragged, 24 (one raw buffer never needed) and 96, the widest
+    (True, 72, 72, "relu", False, (128, 160), 8),
+    (True, 72, 72, "relu", True, (33, 65), 2),
+    (True, 88, 88, "hswish", True, (130, 258), 2),
+    (True, 24, 24, "linear", False, (34, 66), 2),
+    (True, 96, 96, "relu", True, (66, 130), 2),
 ])
 def test_k2_moments_and_k4(dev, depthwise, cin, cout, act, bias, hw, batch):
     """K2 with moments and K4 (dense: dW alone as the stem, then with dx;
@@ -379,7 +537,8 @@ def test_k2_k4_launch_in_any_order(dev):
     for depthwise, cin, cout in [(False, 16, 16), (False, 4, 16),
                                  (False, 16, 32), (True, 32, 32),
                                  (True, 16, 16), (True, 32, 32),
-                                 (True, 64, 64), (True, 16, 16)]:
+                                 (True, 64, 64), (True, 16, 16),
+                                 (True, 72, 72), (True, 16, 16)]:
         x = _rand(g, dev, 2, 18, 34, cin, dtype=torch.bfloat16)
         s = torch.rand(cin, device=dev, generator=g) + 0.5
         p = Pending(x, s, _rand(g, dev, cin, scale=0.3), "relu")

@@ -38,6 +38,7 @@ import mmr_tpu.ops.pallas.packed_chain as pc
 from mmr_tpu_torch.ops.conv3x3_packed import conv3x3_dw_ref, conv3x3_ref
 from mmr_tpu_torch.ops.fused_conv import (BF16, DOWN_TILE, Pending,
                                           _cached_pack, _concat_taps,
+                                          _tile_cols,
                                           _corrected_dy, _down_tiles,
                                           _dx_packs, _dx_taps, _narrow_frags,
                                           _pack_taps, _prologue_bwd,
@@ -593,20 +594,23 @@ def test_pack_cache_follows_weight_versions(rng):
 
 # ------------------------------------------------------------ K2 + K4
 
-def _down_tile_list(n, h, w, depthwise):
-    """The stride-2 kernels' output tiles (b, r0, c0), in block order."""
-    th, tw = DOWN_TILE[depthwise]
-    return [(b, r, c) for b in range(n) for r in range(0, (h + 1) // 2, th)
-            for c in range(0, (w + 1) // 2, tw)]
+def _down_tile_list(n, h, w, depthwise, tw=None, stride=2):
+    """The stride-2 kernels' output tiles (b, r0, c0), in block order (at
+    ``stride`` 1: the depthwise mode of K1 / K3; ``tw`` output columns)."""
+    th, tw = DOWN_TILE[depthwise][0], tw or DOWN_TILE[depthwise][1]
+    return [(b, r, c) for b in range(n) for r in range(0, -(-h // stride), th)
+            for c in range(0, -(-w // stride), tw)]
 
 
-def _src_tile(a, b, r0, c0, tw):
-    """A tile's staged source values: rows 2·r0 − 1 .. 2·r0 + 7, columns
-    2·c0 − 1 .. 2·c0 + 2·tw − 1 of ``a``, zero outside the image."""
+def _src_tile(a, b, r0, c0, tw, stride=2):
+    """A tile's staged source values: at stride 2 rows 2·r0 − 1 .. 2·r0 + 7,
+    columns 2·c0 − 1 .. 2·c0 + 2·tw − 1 of ``a`` (stride 1: rows r0 − 1 ..
+    r0 + 4, columns c0 − 1 .. c0 + tw), zero outside the image."""
     h, w = a.shape[1:3]
-    t = torch.zeros(9, 2 * tw + 1, a.shape[3], dtype=a.dtype)
-    y0, x0 = 2 * r0 - 1, 2 * c0 - 1
-    ys, xs = slice(max(0, y0), min(h, y0 + 9)), slice(max(0, x0), min(w, x0 + 2 * tw + 1))
+    nr, nc = 3 * stride + 3, stride * (tw - 1) + 3
+    t = torch.zeros(nr, nc, a.shape[3], dtype=a.dtype)
+    y0, x0 = stride * r0 - 1, stride * c0 - 1
+    ys, xs = slice(max(0, y0), min(h, y0 + nr)), slice(max(0, x0), min(w, x0 + nc))
     t[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0] = a[b, ys, xs]
     return t
 
@@ -763,4 +767,86 @@ def test_k4_block_sums_reduce_to_plain(rng, depthwise, cin, cout):
         x, wt, y, dy, dmom, True, depthwise, True)
     for g, want in zip(got, [dw_r, db_r, ds_r, dt_r]):
         assert _rel(g, want)[0] < 1e-5
+    assert _within_bf16(dx.to(BF16), dx_r)
+
+
+@pytest.mark.parametrize("c,stride", [(72, 2), (24, 1), (88, 1)])
+def test_depthwise_tiles_at_other_widths_and_strides(rng, c, stride):
+    """The depthwise tile at C = 72 (stride 2: 16-column tiles above 64
+    channels) and at stride 1 (the depthwise mode of K1 / K3; 6 source rows
+    a 4-row tile), emulated on a ragged image (H 9, W 150): K2's / K1's
+    per-tile products + bias give the plain grouped conv (1e-5 of the
+    largest) and the blocks' rows (block i of 3 takes tiles i, i + 3, ...)
+    its moments; K4's / K3's block rows — dW from the staged prologue'd
+    source and the tile's dye (at stride 1 with a halo row and column on
+    each side), dbias, and over the tile's own source pixels dx through the
+    9 taps (stride 1) or the covering ones (stride 2) with the prologue's
+    backward — reduce to the plain backward's dW, dbias, dscale, dshift
+    (1e-5) and dx (one bf16 rounding); ``_down_tiles`` counts the tiles."""
+    n, h, w = 2, 9, 150
+    x, wt, bias = _down_case(rng, n, h, w, c, c, True)
+    tw = _tile_cols(True, c, stride)
+    tiles = _down_tile_list(n, h, w, True, tw, stride)
+    assert len(tiles) == _down_tiles(n, h, w, True, c, stride) > 3
+    assert tw == (16 if stride == 2 and c > 64 else 32)
+    a, wd = activated(x).double(), wt.double()
+    ho, wo = -(-h // stride), -(-w // stride)
+    y = torch.zeros(n, ho, wo, c, dtype=torch.float64)
+    rows = torch.zeros(3, 2 * c, dtype=torch.float64)
+    for i, (b, r0, c0) in enumerate(tiles):
+        src = _src_tile(a, b, r0, c0, tw, stride)
+        out = sum(src[ky:ky + 4 * stride:stride, kx:kx + tw * stride:stride]
+                  * wd[ky, kx, 0] for ky in range(3) for kx in range(3))
+        out = (out + bias.double())[:min(4, ho - r0), :min(tw, wo - c0)]
+        y[b, r0:r0 + out.shape[0], c0:c0 + out.shape[1]] = out
+        rows[i % 3] += torch.cat([out.sum((0, 1)), (out * out).sum((0, 1))])
+    want = F.conv2d(activated(x).permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1),
+                    bias, stride=stride, padding=1, groups=c).permute(0, 2, 3, 1)
+    assert _rel(y.float(), want)[0] < 1e-5
+    assert _rel(rows.sum(0).float().reshape(2, c), moments(want))[0] < 1e-5
+
+    y16 = fused_conv_down_ref(x, wt, depthwise=True, stride=stride)
+    dy = torch.from_numpy(rng.randn(*y16.shape)).to(BF16)
+    dmom = torch.from_numpy(rng.randn(2, c).astype(np.float32) * 1e-2)
+    g = _corrected_dy(dy, y16, dmom).double()
+    gb, xr = g.to(BF16).double(), x.raw.double()
+    sc, sh = x.scale.double(), x.shift.double()
+    k = 1 if stride == 1 else 0          # the dye tile's halo before it
+    brows = torch.zeros(3, 12 * c, dtype=torch.float64)
+    dx = torch.zeros(n, h, w, c, dtype=torch.float64)
+    for i, (b, r0, c0) in enumerate(tiles):
+        row = brows[i % 3]
+        d = torch.zeros(4 + 1 + k, tw + 1 + k, c, dtype=torch.float64)
+        ya, xa = r0 - k, c0 - k
+        part = gb[b, max(0, ya):r0 + 5, max(0, xa):c0 + tw + 1]
+        d[max(0, ya) - ya:max(0, ya) - ya + part.shape[0],
+          max(0, xa) - xa:max(0, xa) - xa + part.shape[1]] = part
+        src = _src_tile(a, b, r0, c0, tw, stride)
+        for tap in range(9):
+            at = src[tap // 3:tap // 3 + 4 * stride:stride,
+                     tap % 3:tap % 3 + tw * stride:stride]
+            row[tap * c:(tap + 1) * c] += (at * d[k:k + 4, k:k + tw]).sum((0, 1))
+        row[9 * c:10 * c] += g[b, r0:r0 + 4, c0:c0 + tw].sum((0, 1))
+        for syl in range(min(4 * stride, h - stride * r0)):
+            for sxl in range(min(tw * stride, w - stride * c0)):
+                if stride == 1:
+                    ga = sum(d[syl + 2 - ky, sxl + 2 - kx] * wd[ky, kx, 0]
+                             for ky in range(3) for kx in range(3))
+                else:
+                    ga = sum(d[oy, ox] * wd[ky, kx, 0]
+                             for ky, oy in _covering(syl)
+                             for kx, ox in _covering(sxl))
+                sy, sx = stride * r0 + syl, stride * c0 + sxl
+                v = xr[b, sy, sx]
+                gm = ga * act_grad(v * sc + sh, x.act).double()
+                dx[b, sy, sx] = gm * sc
+                row[10 * c:11 * c] += gm * v
+                row[11 * c:] += gm
+    total = brows.sum(0).float()
+    dx_r, dw_r, (ds_r, dt_r), db_r = fused_conv_down_bwd_ref(
+        x, wt, y16, dy, dmom, True, True, True, stride=stride)
+    for got, ref in zip([total[:9 * c].view(wt.shape), total[9 * c:10 * c],
+                         total[10 * c:11 * c], total[11 * c:]],
+                        [dw_r, db_r, ds_r, dt_r]):
+        assert _rel(got, ref)[0] < 1e-5
     assert _within_bf16(dx.to(BF16), dx_r)

@@ -126,7 +126,7 @@ class TestFusedConvTrainVsJax:
         leaves = [_bf16_leaf(xs), _bf16_leaf(xk), _t(w_up, True),
                   _t(w_sk, True), _t(s, True), _t(t, True)]
         xst, xkt, wut, wst, st, tt = leaves
-        y, mom = fused_conv_ad(
+        (y, mom), _ = fused_conv_ad(
             [Pending(xst, st, tt, "relu", up2x=True), Pending(xkt)],
             [wut, wst], emit_moments=True)
         ((y.float() * _t(gy)).sum() + (mom * _t(q)).sum()).backward()

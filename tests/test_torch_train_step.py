@@ -164,6 +164,91 @@ def test_fused_step_matches_jax(case):
     assert cos_fused > _cosine(_flat(g16, case["grads"]), want) - 0.05
 
 
+def _cotangent_sums(loss) -> int:
+    """The surface-sized cotangent sums autograd will make backward from
+    ``loss``: over the autograd graph, every 4-D gradient buffer that more
+    than one edge feeds takes one sum a further edge."""
+    seen, stack, edges = set(), [loss.grad_fn], {}
+    while stack:
+        fn = stack.pop()
+        if fn in seen:
+            continue
+        seen.add(fn)
+        for nxt, i in fn.next_functions:
+            if nxt is not None:
+                edges[(nxt, i)] = edges.get((nxt, i), 0) + 1
+                stack.append(nxt)
+    shape = lambda fn, i: (fn.variable.shape if hasattr(fn, "variable")
+                           else fn._input_metadata[i].shape)
+    return sum(k - 1 for (fn, i), k in edges.items()
+               if k > 1 and len(shape(fn, i)) == 4)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_thread_dx_grads_match_unthreaded(case, storage, monkeypatch):
+    """``thread_dx`` (the default: each fused node's K3 adds the cotangent
+    of a surface's later readers in the kernel) against ``thread_dx=False``
+    (autograd sums them), every node fused (``packed_min_hw=0``: 16
+    threaded inputs), as ``test_packed_chain.py::
+    test_packed_decoder_thread_dx_grads`` holds JAX's.
+
+    ``f32``: the kernels' plain versions at f32 storage and the encoder in
+    f32 (so every threaded surface is f32), the head on K1 and DiceCE on its
+    logits: every gradient leaf within 1e-5 of its largest value (measured:
+    equal) — only where the sums happen differs; and the threaded backward
+    makes one surface-sized cotangent sum fewer per threaded input.
+    ``bf16``: the train step as ``test_fused_step_matches_jax`` runs it
+    (fused front-end, head + loss kernel), held to that test's bounds:
+    loss rtol 2e-2, IoU atol 5e-3, the head's gradients per leaf < 0.25 of
+    the leaf's largest, updated params atol 3·lr, BN statistics atol 0.05 /
+    rtol 0.1, the whole gradient's cosine within 0.05 of 1."""
+    if storage == "bf16":
+        runs = [_port_step(case, fused=True, fused_frontend=True,
+                           packed_min_hw=0, thread_dx=t) for t in (True, False)]
+        (_, m_t, g_t, v_t), (_, m_n, g_n, v_n) = runs
+        np.testing.assert_allclose(float(m_t["loss"]), float(m_n["loss"]),
+                                   rtol=2e-2)
+        np.testing.assert_allclose(float(m_t["iou"]), float(m_n["iou"]), atol=5e-3)
+        for n, g, w in _pairs(g_t["head"], g_n["head"]):
+            assert _rel_to_max(g, w) < 0.25, n
+        for n, got, want in _pairs(v_t["params"], v_n["params"]):
+            np.testing.assert_allclose(got, want, atol=3 * LR, rtol=0, err_msg=n)
+        for n, got, want in _pairs(v_t["batch_stats"], v_n["batch_stats"]):
+            np.testing.assert_allclose(got, want, atol=0.05, rtol=0.1, err_msg=n)
+        assert _cosine(_flat(g_t, g_n), _flat(g_n, g_n)) > 0.95
+        return
+
+    import mmr_tpu_torch.ops.fused_conv as fc
+
+    f32 = torch.float32
+    monkeypatch.setattr(fc, "fused_conv", lambda *a, **k:
+                        fc.fused_conv_ref(*a, **k, dtype=f32))
+    monkeypatch.setattr(fc, "fused_conv_bwd",
+                        lambda *a: fc.fused_conv_bwd_ref(*a, dtype=f32))
+    monkeypatch.setattr(fc, "_grad_bf16", lambda t: t)
+    pre = get_preprocessing("tu-mobilenetv3_small_100")
+    x = pre(torch.from_numpy(case["images"][0]).float() / 255.0)
+    labels = torch.from_numpy(case["masks"][0]).long()
+    grads, sums, threaded = [], [], []
+    for thread in (True, False):
+        model = create_model(classes=NC, device="cpu", fused=True,
+                             packed_min_hw=0, thread_dx=thread)
+        model.load_state_dict(from_jax_variables(case["variables"]))
+        model.dtype = f32   # the encoder and every surface in f32
+        model.train()
+        loss = dice_ce_loss(model(x), labels)
+        sums.append(_cotangent_sums(loss))
+        loss.backward()
+        threaded.append(model.threaded_inputs)
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert threaded == [16, 0]
+    assert sums[1] - sums[0] == 16, sums
+    errs = {n: ((g - grads[1][n]).abs().max()
+                / (grads[1][n].abs().max() + 1e-30)).item()
+            for n, g in grads[0].items()}
+    assert max(errs.values()) <= 1e-5, max(errs.items(), key=lambda kv: kv[1])
+
+
 def test_fused_frontend_grads_match_jax(case, rng):
     """``TestPackedFrontend::test_grads_match`` for the port: the stem and
     b0_0 gradients (conv_stem, bn1, b0_0's dw / SE / pw / BNs) through a
@@ -270,8 +355,8 @@ def test_fused_block_wiring_matches_jax(rng, monkeypatch):
     block.train()
     raws = [torch.from_numpy(a).requires_grad_() for a in (x, skip)]
     vecs = [[torch.from_numpy(v).requires_grad_() for v in p] for p in pro]
-    out = block.fused([up_lazy(Pending(raws[0], *vecs[0], "relu")),
-                       Pending(raws[1], *vecs[1], "relu")])
+    out, _ = block.fused([up_lazy(Pending(raws[0], *vecs[0], "relu")),
+                          Pending(raws[1], *vecs[1], "relu")])
     (nhwc(as_array(out)) * torch.from_numpy(r)).sum().backward()
 
     grads = to_jax_variables({n: p.grad for n, p in block.named_parameters()})
