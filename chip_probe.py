@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K5a, K7 and K8a of the port found under a tree, on one NVIDIA card.
 
-    python3 chip_probe.py TREE [--only K5a|K7|K8a|eval|K2bits|epilogue ...] [--no-hold]
+    python3 chip_probe.py TREE [--only K5a|K7|K8a|eval|K2bits|epilogue|conv_table ...]
+                          [--no-hold] [--write] [--commit SHA]
 
 TREE holds an ``mmr_tpu_torch`` package: this checkout (``.``) or another
 version of it unpacked beside (``git archive <commit> mmr_tpu_torch``), so
@@ -41,6 +42,26 @@ directory. Measured:
   (``conv3x3``, forward) at four of ``smp_UNet++``'s decoder shapes (B=8,
   64² to 256², 128 → 64 down to 32 → 16 channels), so that two trees
   show what a change to the epilogue costs them.
+
+- ``conv_table`` (asked for by name only): the tuner of K6's per-shape
+  dispatch (``mmr_tpu_torch/ops/dispatch.py``). At every key of
+  ``chip_smoke.py``'s ``k6_table_keys`` (both directions of every bf16
+  ``Conv3x3`` shape the smoke phases run, and of JAX's
+  ``bench_conv_kernel.py`` shapes) it times what a ``Conv3x3`` runs there
+  with ReLU on, at B = 8: the forward (no grad) and the forward +
+  backward (dx, dW, dbias), with ``conv3x3_packed._FORCE`` True (K6a /
+  K6b) and False (the library conv). Each sample is the CUDA-event time of
+  ``TUNE_REPS`` calls, wrapper included; the two routes are timed in
+  ``TUNE_PAIRS`` pairs whose first call alternates. Each entry keeps the
+  medians, the forward + backward gain (the median over the pairs of the
+  library's sample less the kernel's), its spread (the interquartile range
+  of those differences) and ``kernel_wins``: the kernel's forward +
+  backward median below the library's, and the gain above its spread, so
+  that a difference the pairs cannot tell from noise keeps the library
+  conv. ``--write`` merges the entries into
+  ``ops/conv_table.json`` with the card's name and power limit and
+  ``--commit``, and lists the keys whose verdict differs from the table
+  it replaces.
 
 ``--only`` picks what is timed (the first four by default).
 
@@ -192,14 +213,115 @@ def epilogue_probe(cs, tree, dev, x, wt, bias, labels):
     cs.device_split("K6a", cases, "K6a")
 
 
+TUNE_BATCH, TUNE_PAIRS, TUNE_REPS = 8, 16, 5
+
+
+def tune_key(cs, dev, gen, h, w, cin, cout) -> dict:
+    """One table entry: what a ``Conv3x3`` runs (``conv3x3_layer``, ReLU
+    on) on both routes, forward and forward + backward, over alternated
+    pairs (ms a call, wrapper included): the medians, the forward +
+    backward gain and its spread, and the verdict."""
+    import torch
+
+    from mmr_tpu_torch.ops import conv3x3_packed as k6
+
+    bf16 = torch.bfloat16
+    x = torch.randn(TUNE_BATCH, h, w, cin, device=dev, generator=gen).to(bf16)
+    x.requires_grad_()
+    wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) / (9 * cin) ** 0.5
+    wt.requires_grad_()
+    b = torch.zeros(cout, device=dev, requires_grad=True)
+    gy = torch.randn(TUNE_BATCH, h, w, cout, device=dev, generator=gen).to(bf16)
+
+    def fwd():
+        with torch.no_grad():
+            k6.conv3x3_layer(x, wt, b, True)
+
+    def fwdbwd():
+        torch.autograd.grad(k6.conv3x3_layer(x, wt, b, True), (x, wt, b), gy)
+
+    times = {(r, p): [] for r in ("kernel", "library") for p in ("fwd", "fwdbwd")}
+    try:
+        for force in (True, False):
+            k6._FORCE = force
+            for _ in range(2):
+                fwd(), fwdbwd()
+        for i in range(TUNE_PAIRS):
+            for part, fn in (("fwd", fwd), ("fwdbwd", fwdbwd)):
+                for force in (True, False) if i % 2 == 0 else (False, True):
+                    k6._FORCE = force
+                    route = "kernel" if force else "library"
+                    times[route, part].append(cs.cuda_ms(fn, TUNE_REPS, warmup=0))
+    finally:
+        k6._FORCE = None
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    diff = sorted(lib - ker for ker, lib in zip(times["kernel", "fwdbwd"],
+                                                times["library", "fwdbwd"]))
+    gain = diff[len(diff) // 2]
+    spread = diff[3 * len(diff) // 4] - diff[len(diff) // 4]
+    entry = {"batch": TUNE_BATCH, "pairs": TUNE_PAIRS, "reps": TUNE_REPS}
+    for (route, part), t in med.items():
+        entry[f"{route}_{part}_ms"] = round(t, 5)
+    entry["fwdbwd_gain_ms"] = round(gain, 5)
+    entry["fwdbwd_spread_ms"] = round(spread, 5)
+    entry["kernel_wins"] = (med["kernel", "fwdbwd"] < med["library", "fwdbwd"]
+                            and gain > spread)
+    return entry
+
+
+def conv_table(cs, dev, smi, write, commit):
+    """The ``conv_table`` tuner (module docstring)."""
+    import torch
+
+    from mmr_tpu_torch.ops import dispatch
+
+    t0 = time.time()
+    keys = cs.k6_table_keys(dev)
+    print(f"[conv_table] {len(keys)} keys in {time.time() - t0:.1f} s", flush=True)
+    old = dispatch.table()["shapes"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    results = {}
+    for (h, w, cin, cout), where in sorted(keys.items()):
+        key = dispatch.shape_key(h, w, cin, cout)
+        entry = tune_key(cs, dev, gen, h, w, cin, cout)
+        entry["where"] = where
+        results[key] = entry
+        print(f"[conv_table] {key}: kernel fwd {entry['kernel_fwd_ms']:.4f} ms, "
+              f"fwd+bwd {entry['kernel_fwdbwd_ms']:.4f}; library fwd "
+              f"{entry['library_fwd_ms']:.4f}, fwd+bwd "
+              f"{entry['library_fwdbwd_ms']:.4f}; fwd+bwd gain "
+              f"{entry['fwdbwd_gain_ms']:.4f} (spread "
+              f"{entry['fwdbwd_spread_ms']:.4f}); kernel_wins "
+              f"{entry['kernel_wins']} ({', '.join(where)})", flush=True)
+        torch.cuda.empty_cache()
+    flipped = sorted(k for k, e in results.items()
+                     if k in old and old[k]["kernel_wins"] != e["kernel_wins"])
+    wins = sorted(k for k, e in results.items() if e["kernel_wins"])
+    print(f"[conv_table] {smi}: kernel wins at {len(wins)} of {len(results)} "
+          f"keys: {wins}", flush=True)
+    print(f"[conv_table] verdicts that differ from the table replaced "
+          f"({len(flipped)}): {flipped}", flush=True)
+    print(f"[conv_table] tuned in {time.time() - t0:.1f} s", flush=True)
+    if write:
+        dispatch.record(results, card=smi, commit=commit,
+                        measured_by="chip_probe.py --only conv_table",
+                        flipped_from_previous=flipped)
+        print(f"[conv_table] written to {dispatch.TABLE_PATH}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="directory holding the mmr_tpu_torch package")
     ap.add_argument("--only", nargs="+",
-                    choices=("K5a", "K7", "K8a", "eval", "K2bits", "epilogue"),
+                    choices=("K5a", "K7", "K8a", "eval", "K2bits", "epilogue",
+                             "conv_table"),
                     default=("K5a", "K7", "K8a", "eval"), help="what to time")
     ap.add_argument("--no-hold", action="store_true",
                     help="time without holding against the plain version")
+    ap.add_argument("--write", action="store_true",
+                    help="conv_table: merge the entries into ops/conv_table.json")
+    ap.add_argument("--commit", default="not given",
+                    help="conv_table: the commit measured, kept in the table")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -224,14 +346,17 @@ def main() -> int:
         cs.persistent_grid = lambda kind, a: None
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+                         text=True).stdout.strip()
+    print(smi, flush=True)
     t0 = time.time()
     _build.library()
     print(f"[{tree}] built in {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda")
+    if "conv_table" in args.only:
+        conv_table(cs, dev, smi, args.write, args.commit)
     g = torch.Generator(device=dev).manual_seed(3)
     b, h, w, c, nc = cs.TRAIN_BATCH, *cs.ROI, 16, cs.N_CLASSES
     x = Pending(torch.randn(b, h, w, c, device=dev, generator=g).to(torch.bfloat16),

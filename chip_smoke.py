@@ -74,19 +74,26 @@ front-end and head + loss).
    ResNet-18, 10 classes, full width, random weights from ``--seed``, BN
    perturbed) through ``make_train_step`` at 256×256, B=8, Adam lr 1e-3
    with coupled L2 1e-5, the blended CE + Dice loss (0.5), StepLR epoch 0
-   and the Path-A augmentation. One recorded step: every K6a launch
-   (``conv3x3``: the 16 decoder convs and the head at H·W ≥ 4096, forward
-   and again for dx) and every K6b (``conv3x3_dw``, dW) held against its
-   plain version (forward atol = rtol = 2e-2, dx and dW at ``GRAD_REL``);
-   34 K6a + 17 K6b launches; the step vs the plain f32 step on the same
-   weights, batch and augmentation draws (loss rtol 2e-2); five steps (the
-   loss falls); step median, host issue, device busy, top device events.
+   and the Path-A augmentation. One recorded step under the committed
+   dispatch table (``ops/conv_table.json``): the K6 launches it asks
+   (``k6_expected``: each Conv3x3's forward and backward at their own
+   keys); then, from the same weights and a fresh optimizer, one recorded
+   step with every bf16 Conv3x3 on K6 (``conv3x3_packed._FORCE``): 23 K6a
+   forward + 23 dx (``conv3x3``) and 23 K6b (``conv3x3_dw``) launches; every
+   launch of both held against its plain version (forward atol = rtol =
+   2e-2, dx and dW at ``GRAD_REL``); both steps vs the plain f32 step on
+   the same weights, batch and augmentation draws (loss rtol 2e-2); four
+   more steps (the loss falls); step median, host issue, device busy, top
+   device events, under the table and under ``_FORCE``. The kernels line's
+   K6a / K6b numbers are those of the first run under the table that
+   launches them (this step's, else phase 13's), the ``_FORCE`` step's
+   beside them as ``forced_*``.
 8. Path-A evaluation: ``evaluate_checkpoint`` of that model over three
    synthetic 4×256×256 batches (uint8 masks): every K7 launch
    (``confusion_stats``, adding into ``Evaluate``'s running total) equals
-   its plain version exactly, every K6a launch within 2e-2 (17 per
-   forward); the returned mean IoU equals the one from the plain K7 on the
-   same id maps. 8b. K7 alone at a full-HD uint8 / int64 pair, int32
+   its plain version exactly, every K6a launch (the table's, per forward)
+   within 2e-2; the returned mean IoU equals the one from the plain K7 on
+   the same id maps. 8b. K7 alone at a full-HD uint8 / int64 pair, int32
    maps, 128 classes with ids outside [0, nc) and views one byte into
    their storage: exact, f32 stats and running totals, bit-equal on a
    second launch.
@@ -96,9 +103,9 @@ front-end and head + loss).
    ``smp_MANet``, ``unet``, ``segnet``, ``resnet18`` (ResNet-UNet), each
    trained as in phase 7 (256×256, B=8, Adam, blended loss, augmentation,
    bf16; dropout drawn from the step's generator). One recorded step: every
-   K6a / K6b launch held as in phase 7, the counts those of the code (K6a
-   per forward: 7, 0, 8, 12, 0, 0; a dx for each but UNet's first conv,
-   which reads the image); three steps (the loss falls); step median, host
+   K6a / K6b launch held as in phase 7, the counts the table's (a dx
+   for each but UNet's first conv, which reads the image); three steps (the
+   loss falls); step median, host
    issue, device busy and idle share; then one ``evaluate_checkpoint``
    batch of 4×256×256 with its K6a and K7 launches held, and its time.
 10. K8 (``ops/conv3x3.py::conv3x3_bias_act`` under ``_FORCE = True``) at
@@ -108,12 +115,15 @@ front-end and head + loss).
     beside their bound, plain and library calls; then an f32-storage case
     and one with H not a multiple of 16, held and timed; each K8a launch
     (forward, dx) split by device kernel with its persistent grid.
-11. Path A through its two CLIs: 16 train and 8 val 256×256 synthetic
-    frames written as PNGs by ``data/png.py``; ``cli.train_path_a.main``
-    for 2 epochs (``smp_UNet++``, batches 8 / 4), ``cli.eval_path_a.main``
-    on its ``best_f1`` checkpoint: exit codes, the log, checkpoint, curves
-    and triptychs, launch counts (the trainer's K6a / K6b, one K7 a val
-    batch), the mean IoU against the plain K7's, the evaluator's model
+11. Path A through its two CLIs: 13 train and 8 val 256×256 synthetic
+    frames written as PNGs by ``data/png.py`` and, in the train split, the
+    committed 16-bit, Adam7-interlaced and grey + alpha PNG frames of
+    ``tests/torch_fixtures/png`` (each first read in both modes to cv2's
+    recorded pixels); ``cli.train_path_a.main`` for 2 epochs
+    (``smp_UNet++``, batches 8 / 4), ``cli.eval_path_a.main`` on its
+    ``best_f1`` checkpoint: exit codes, the log, checkpoint, curves and
+    triptychs, launch counts (the trainer's K6a / K6b, the table's; one K7
+    a val batch), the mean IoU against the plain K7's, the evaluator's model
     against its checkpoint; the evaluation's images/s, host issue and
     device busy.
 12. Path B's ``Trainer`` at the default config (``trainer_phase``): two
@@ -121,13 +131,16 @@ front-end and head + loss).
 13. The reference's best published models (``published_phase``): the smp
     Unet over ``tu-convnextv2_tiny`` with the fused decoder (31,976,426
     parameters; K1 ×8 + K3 ×8, K5a + K5b a train step, K1 ×9 a forward)
-    and Segformer over ``mit_b2`` (24,745,162; its 3×3 head on K6a, K6a dx
-    and K6b), at B=8 512×640 and on 6 full-HD frames: eval logits of the
+    and Segformer over ``mit_b2`` (24,745,162; its 3×3 head at 128×160
+    where the table sends it: the forward to cuDNN, dx and dW to K6a / K6b),
+    at B=8 512×640 and on 6 full-HD frames: eval logits of the
     kernel path vs the plain bf16 path, one recorded train step held
     launch by launch, the loss over five steps, step and serving times,
     each launch timed and split; ``tu-convnext_tiny`` (UNet++) and
     ``mit_b0`` (Segformer) at B=2 256×256; a weight store loaded through
-    ``create_model(encoder_weights="imagenet")`` bit-equal.
+    ``create_model(encoder_weights="imagenet")`` bit-equal;
+    ``mmr_torch_export_weights --state_dict`` on a seeded torchvision
+    ResNet-18 ``.pth``: a store ``verify_store`` accepts.
 14. Path B end to end from Zarr stores on disk (``zarr_phase``): a
     synthetic dataset of 3 videos × 8 full-HD frames (9 tool classes,
     512×640 chunks, uint8) and one float32 store of 8 frames written by
@@ -137,8 +150,10 @@ front-end and head + loss).
     batches, then ``-c`` for a third (launch counts the code's, files,
     finite losses, the resume at epoch 3); ``mmr_torch_infer`` on the
     saved test split (21 K1 + 2 K2 a frame; frames/s and the share of the
-    time spent reading frames); ``mmr_torch_visualize`` on one frame (a
-    triptych the PNG reader decodes).
+    time spent reading frames); ``mmr_torch_visualize --legend
+    --architecture`` on one frame (a triptych, ``class_legend.png`` with
+    its 10 bars and ``architecture_diagram.png`` with its 6 boxes and 5
+    arrows, all decoded by the PNG reader; the layer summary printed).
 15. Data parallelism over two ranks under torchrun (``mesh_phase``): NCCL
     with a card a rank where two cards are visible, else gloo with both
     ranks on the one card. (a) The flagship's fused train step on phase
@@ -174,6 +189,12 @@ front-end and head + loss).
     K3 at C = 88), the launch counts the code's, f3 and b1's BN statistics
     within ``test_packed_chain.py``'s bounds; the four new launches timed
     and split; the b1 pair fused vs plain (median, host issue, busy).
+18. K6's per-shape dispatch table (``k6_table_phase``): the committed
+    ``ops/conv_table.json`` holds both directions of every bf16 Conv3x3
+    shape phases 2–17 run and of JAX's ``bench_conv_kernel.py`` shapes; a
+    line a key with its route and the table's alternated-pair medians,
+    gain and spread, and K6a's forward and dx and K6b under ``_FORCE`` at
+    that key (B=2) held against their plain versions at phase 7's bounds.
 
 Times of every new kernel beside its plain version, its bound and one
 library call (``F.conv2d`` for K6a and K8a, ``convolution_backward`` for
@@ -881,16 +902,126 @@ FLAGSHIP = ("K1", "K2", "K3", "K4", "K5a", "K5b")
 
 
 @contextlib.contextmanager
-def library_conv3x3():
-    """Every ``Conv3x3`` on the library conv (K6 off): the plain-bf16
-    yardstick of phases 5 and 6, as measured before K6 existed."""
+def conv3x3_forced(on: bool):
+    """Every bf16 ``Conv3x3`` on K6a / K6b in both directions (``on``) or on
+    the library conv (not ``on``: the plain-bf16 yardstick of phases 5 and
+    6, as measured before K6 existed), whatever the table says
+    (``conv3x3_packed._FORCE``)."""
     from mmr_tpu_torch.ops import conv3x3_packed
 
-    old, conv3x3_packed._FORCE = conv3x3_packed._FORCE, False
+    old, conv3x3_packed._FORCE = conv3x3_packed._FORCE, on
     try:
         yield
     finally:
         conv3x3_packed._FORCE = old
+
+
+def conv3x3_shapes(model, hw) -> list[tuple]:
+    """(h, w, cin, cout, needs_dx) of every bf16 ``Conv3x3`` that a forward
+    of ``model`` on (B, *hw, 3) inputs runs, in order: one batch-1 forward
+    on the model's own device in eval mode with grad on (the shapes of a
+    train step's forward), every Conv3x3 on the library conv; the model's
+    mode and every wrapper's launch count are restored."""
+    from mmr_tpu_torch.models.layers import Conv3x3
+
+    seen = []
+
+    def hook(mod, args):
+        x = args[0]
+        if x.dtype == torch.bfloat16:
+            seen.append((x.shape[2], x.shape[3], mod.in_channels,
+                         mod.out_channels, x.requires_grad))
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, Conv3x3)]
+    counts = {k: wrapper(k).launches for k in KERNELS}
+    training = model.training
+    try:
+        model.eval()
+        with conv3x3_forced(False), torch.enable_grad():
+            model(torch.zeros(1, *hw, 3, device=next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(training)
+        for k, n in counts.items():
+            wrapper(k).launches = n
+    return seen
+
+
+def k6_expected(model, hw) -> dict:
+    """The K6 launches the committed dispatch table asks of ``model`` at
+    ``hw``: ``fwd`` K6a launches a forward, ``dx`` K6a and ``dw`` K6b
+    launches a train step's backward (each Conv3x3's forward asked at (h,
+    w, cin, cout), its backward at (h, w, cout, cin); a dx only where its
+    input needs a gradient)."""
+    from mmr_tpu_torch.ops.conv3x3_packed import use_kernel
+
+    n = {"fwd": 0, "dx": 0, "dw": 0}
+    for h, w, cin, cout, needs_dx in conv3x3_shapes(model, hw):
+        bwd = use_kernel(torch.bfloat16, h, w, cout, cin)
+        n["fwd"] += use_kernel(torch.bfloat16, h, w, cin, cout)
+        n["dw"] += bwd
+        n["dx"] += bwd and needs_dx
+    return n
+
+
+def k6_step(n: dict, steps: int = 1, forwards: int = 0) -> dict:
+    """Launches of ``steps`` train steps and ``forwards`` eval forwards of a
+    model whose ``k6_expected`` is ``n``."""
+    return {"K6a": steps * (n["fwd"] + n["dx"]) + forwards * n["fwd"],
+            "K6b": steps * n["dw"]}
+
+
+def flagship_counts(model) -> None:
+    """Fold the K6 launches the table asks of the flagship (``model``, at
+    ``ROI``) into ``TRAIN_COUNTS`` and ``EVAL_COUNTS``: its coarse decoder
+    nodes, below ``packed_min_hw``, are plain Conv3x3s."""
+    n = k6_expected(model, ROI)
+    TRAIN_COUNTS.update(k6_step(n))
+    EVAL_COUNTS.update(k6_step(n, 0, 1))
+
+
+def forward_counts(frames: int) -> dict:
+    """Launches of ``frames`` flagship eval forwards."""
+    return {k: frames * EVAL_COUNTS.get(k, 0) for k in KERNELS}
+
+
+def k6_models() -> list[tuple]:
+    """(phases, ``create_model`` arguments, input H×W) of every model whose
+    bf16 Conv3x3s the phases run."""
+    return ([("7, 8, 11, 15", {"arch": "smp_UNet++"}, PATH_A_HW)]
+            + [("9", {"arch": zoo}, PATH_A_HW) for zoo in ZOO]
+            + [("2-6, 12, 14-16", {"fused": True, "fused_frontend": True}, ROI),
+               ("13", {"arch": PUB_UNET[0], "encoder_name": PUB_UNET[1],
+                       "fused": True}, ROI),
+               ("13", {"arch": PUB_SEG[0], "encoder_name": PUB_SEG[1]}, ROI)]
+            + [("13", {"arch": a, "encoder_name": e}, PUB_SMALL_HW)
+               for a, e in PUB_SMALL])
+
+
+def k6_table_keys(dev) -> dict:
+    """{(h, w, cin, cout): where} of both directions of every bf16
+    Conv3x3 shape the phases run (``k6_models``, built on ``dev``) and of
+    every shape of JAX's ``bench_conv_kernel.py`` (``dispatch.BENCH_SHAPES``)."""
+    from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.ops.dispatch import BENCH_SHAPES
+
+    keys = {}
+
+    def add(shape, where):
+        h, w, cin, cout = shape
+        for key in ((h, w, cin, cout), (h, w, cout, cin)):
+            keys.setdefault(key, [])
+            if where not in keys[key]:
+                keys[key].append(where)
+    for hw, cin, cout in BENCH_SHAPES:
+        add((hw, hw, cin, cout), "bench_conv_kernel.py")
+    for phases, kw, hw in k6_models():
+        model = create_model(classes=N_CLASSES, device=dev, **kw)
+        for shape in conv3x3_shapes(model, hw):
+            add(shape[:4], f"phase {phases}")
+        del model
+    return keys
 
 
 def train_phase(model, dev, rng) -> dict:
@@ -930,7 +1061,7 @@ def train_phase(model, dev, rng) -> dict:
     for m in (fused, plain, plain16):
         m.load_state_dict(sd0)
         m.train()
-    with torch.no_grad(), library_conv3x3():
+    with torch.no_grad(), conv3x3_forced(False):
         img = pre(images[0].to(dev).float() / 255.0)
         want = plain(img).argmax(-1)
         agree, agree16 = ((m(img).argmax(-1) == want).float().mean().item()
@@ -1269,9 +1400,6 @@ def stem_dx_phase(model, dev) -> dict:
 PATH_A_HW, PATH_A_BATCH = (256, 256), 8   # train_sarrarp50.sh: 256x256, B=8
 PATH_A_LR, PATH_A_WD, PATH_A_EPOCHS = 1e-3, 1e-5, 20   # Adam, StepLR(lr_steps 2)
 EVAL_BATCHES, EVAL_BATCH = 3, 4
-K6_PER_FORWARD = 17   # 16 decoder convs + the head at output H·W >= 4096
-
-
 def _counts(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in KERNELS}
 
@@ -1309,7 +1437,10 @@ def _timed_steps(phase, run, n):
 
 
 def path_a_train_phase(dev, seed):
-    """Phase 7; returns (the trained model, {K6a, K6b: kernel entry})."""
+    """Phase 7; returns (the trained model, {K6a, K6b: kernel entry}: the
+    step under the table's numbers where it launched the kernel, the
+    ``_FORCE`` step's as ``forced_*``; the K6 launches the table asks of a
+    forward and a step)."""
     from mmr_tpu_torch.data.augment import augment_path_a_batch
     from mmr_tpu_torch.losses import blended_ce_dice_loss
     from mmr_tpu_torch.models import create_model
@@ -1328,44 +1459,60 @@ def path_a_train_phase(dev, seed):
     loss_fn = functools.partial(blended_ce_dice_loss, dice_loss_factor=0.5)
     lr = step_lr(PATH_A_LR, PATH_A_EPOCHS, 2, 0.1)(0)
     draws = lambda: torch.Generator(device=dev).manual_seed(seed)
+    shapes = conv3x3_shapes(model, PATH_A_HW)
+    n = k6_expected(model, PATH_A_HW)
+    forced = {"fwd": len(shapes), "dx": sum(s[4] for s in shapes), "dw": len(shapes)}
 
     def trainer(m):
         opt = build_optimizer("adam", weight_decay=PATH_A_WD)
         return TrainState.create(m, opt), make_train_step(
             m, opt, loss_fn, N_CLASSES, augment=augment_path_a_batch, device=dev)
 
-    # ---- 7a. one recorded step: every launch vs its plain version ----------
-    state, step = trainer(model)
-    with recording() as (records, recorders):
-        state, met = step(state, images, masks, lr, draws())
-        torch.cuda.synchronize()
-    launches = {k: r.launches for k, r in recorders.items()}
-    print(f"[7] smp_UNet++ / resnet18: {n_params} parameters; launches in one "
-          f"train step: {launches}", flush=True)
-    n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
-    print(f"[7] K6a: {launches['K6a'] - n_dx} forward + {n_dx} dx launches, "
-          f"K6b: {launches['K6b']} dW launches", flush=True)
-    check(launches == _counts(K6a=2 * K6_PER_FORWARD, K6b=K6_PER_FORWARD)
-          and n_dx == K6_PER_FORWARD, "unexpected launch counts")
-    cases = hold_records(7, records)
-    loss1 = float(met["loss"])
+    def recorded_step(tag, want):
+        nonlocal state
+        with recording() as (records, recorders):
+            state, met = step(state, images, masks, lr, draws())
+            torch.cuda.synchronize()
+        launches = {k: r.launches for k, r in recorders.items()}
+        n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
+        print(f"[7] {tag}: K6a {launches['K6a'] - n_dx} forward + {n_dx} dx "
+              f"launches, K6b {launches['K6b']} dW launches", flush=True)
+        check(launches == _counts(**k6_step(want)) and n_dx == want["dx"],
+              f"{tag}: launch counts are not the table's ({want})")
+        return float(met["loss"]), float(met["iou"]), launches, hold_records(7, records)
 
-    # ---- 7b. the step vs the plain f32 step (same weights, batch, draws) -----
+    # ---- 7a. one recorded step under the table; one with K6 forced, from the
+    # same weights with a fresh optimizer ---------------------------------------
+    print(f"[7] smp_UNet++ / resnet18: {n_params} parameters; {len(shapes)} bf16 "
+          f"Conv3x3s; the table sends {n['fwd']} forwards and {n['dw']} "
+          f"backwards to K6", flush=True)
+    state, step = trainer(model)
+    loss1, iou1, table_launches, table_cases = recorded_step(
+        "train step under the table", n)
+    model.load_state_dict(sd0)
+    state, step = trainer(model)
+    with conv3x3_forced(True):
+        floss, fiou, launches, cases = recorded_step("train step under _FORCE", forced)
+
+    # ---- 7b. both steps vs the plain f32 step (same weights, batch, draws) ---
     plain = create_model("smp_UNet++", classes=N_CLASSES, device=dev,
                          dtype=torch.float32)
     plain.load_state_dict(sd0)
     pstate, pstep = trainer(plain)
     pstate, pmet = pstep(pstate, images, masks, lr, draws())
     ploss = float(pmet["loss"])
-    print(f"[7] step 1 loss: bf16 with K6 {loss1:.5f} (IoU {float(met['iou']):.4f}), "
-          f"plain f32 {ploss:.5f} (IoU {float(pmet['iou']):.4f})", flush=True)
-    check(abs(loss1 - ploss) <= 2e-2 * abs(ploss), "Path-A loss disagrees with plain f32")
+    print(f"[7] step 1 loss: bf16 under the table {loss1:.5f} (IoU {iou1:.4f}), "
+          f"under _FORCE {floss:.5f} (IoU {fiou:.4f}), plain f32 {ploss:.5f} "
+          f"(IoU {float(pmet['iou']):.4f})", flush=True)
+    for tag, loss in (("under the table", loss1), ("under _FORCE", floss)):
+        check(abs(loss - ploss) <= 2e-2 * abs(ploss),
+              f"Path-A loss {tag} disagrees with plain f32")
     del plain, pstate, pstep
 
-    # ---- 7c. five steps: the loss falls --------------------------------------
+    # ---- 7c. four more steps: the loss falls ----------------------------------
     images_d, masks_d = images.to(dev), masks.to(dev)
     g = draws()
-    losses = [loss1]
+    losses = [floss]
     for _ in range(4):
         state, met = step(state, images_d, masks_d, lr, g)
         losses.append(float(met["loss"]))
@@ -1373,22 +1520,68 @@ def path_a_train_phase(dev, seed):
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           "the loss did not fall over five steps")
 
-    # ---- 7d. times -------------------------------------------------------------
-    print(f"[7] Path-A train step (B={PATH_A_BATCH}, {PATH_A_HW[0]}x{PATH_A_HW[1]}, "
-          f"bf16, augmentation on):", flush=True)
-    med = _timed_steps(7, lambda: step(state, images_d, masks_d, lr, g), TRAIN_STEPS)
-    print(f"[7] {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
-    time_cases(7, cases)
-    per = (f"sum over the launches of one Path-A train step (B={PATH_A_BATCH}, "
-           f"{PATH_A_HW[0]}x{PATH_A_HW[1]}): forward and dx for K6a")
-    out = {k: kernel_entry(k, cases, launches[k], per) for k in ("K6a", "K6b")}
+    # ---- 7d. times: the step under the table and under _FORCE -------------------
+    for tag, ctx in (("the table", contextlib.nullcontext()),
+                     ("_FORCE", conv3x3_forced(True))):
+        print(f"[7] Path-A train step (B={PATH_A_BATCH}, {PATH_A_HW[0]}x"
+              f"{PATH_A_HW[1]}, bf16, augmentation on) under {tag}:", flush=True)
+        with ctx:
+            med = _timed_steps(7, lambda: step(state, images_d, masks_d, lr, g),
+                               TRAIN_STEPS)
+        print(f"[7] under {tag}: {PATH_A_BATCH * 1e3 / med:.2f} images/s", flush=True)
+    time_cases(7, cases + table_cases)
+    run = f"one Path-A train step (B={PATH_A_BATCH}, {PATH_A_HW[0]}x{PATH_A_HW[1]})"
+    forced_e = k6_entries(7, cases, launches, f"sum over the launches of {run} "
+                          "with every Conv3x3 on K6 (conv3x3_packed._FORCE = "
+                          "True): forward and dx for K6a")
+    table_e = k6_entries(7, table_cases, table_launches,
+                         f"sum over the launches of {run} under the table")
+    out = {}
     for k in ("K6a", "K6b"):
-        out[k]["device_ms"] = device_split(7, cases, k)
-    return model, out
+        out[k] = {f: forced_e[k][f] for f in ("name", "route", "source", "replaces")}
+        out[k].update(table_e.get(k, {}))
+        out[k].update({f"forced_{f}": forced_e[k][f] for f in K6_FIELDS})
+    return model, out, n
 
 
-def path_a_eval_phase(model, dev, seed) -> dict:
-    """Phase 8; returns {K6a, K7: kernel entry}."""
+K6_FIELDS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "per", "device_ms")
+
+
+def k6_entries(phase, cases, launches, per) -> dict:
+    """{kind: kernel entry with its ``device_ms``} of K6a and K6b over one
+    recorded run's timed ``cases``, for each of the two that it ran."""
+    return {k: {**kernel_entry(k, cases, launches[k], per),
+                "device_ms": device_split(phase, cases, k)}
+            for k in ("K6a", "K6b") if any(c["kind"] == k for c in cases)}
+
+
+def k6_main_path(entries, published) -> None:
+    """Fill the kernels line's K6a / K6b numbers (``K6_FIELDS``) from the
+    first run under the dispatch table that launched each: phase 7's
+    ``smp_UNet++`` step (already in ``entries``), else phase 13's published
+    models' steps. Where the table sent no conv of those runs to the
+    kernel, its launches are 0 and its times those of phase 7's ``_FORCE``
+    step, as ``per`` says."""
+    for k, e in entries.items():
+        if "launches" in e:
+            continue
+        pub = next((p[k] for p in published.values() if k in p), None)
+        if pub is not None:
+            e.update({f: pub[f] for f in K6_FIELDS})
+        else:
+            e.update({f: e[f"forced_{f}"] for f in K6_FIELDS})
+            e["launches"] = 0
+            e["per"] = ("no run under the table launched it; times of "
+                        + e["forced_per"])
+        print(f"[13] {k} in the kernels line: {e['launches']} launches, "
+              f"{e['ms']:.4f} ms ({e['per']})", flush=True)
+
+
+def path_a_eval_phase(model, dev, seed, n) -> dict:
+    """Phase 8 (``n``: the K6 launches the table asks of a forward);
+    returns {K7, and K6a where the table sends forwards to it: kernel
+    entry}."""
     from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
     from mmr_tpu_torch.losses import blended_ce_dice_loss
 
@@ -1402,8 +1595,8 @@ def path_a_eval_phase(model, dev, seed) -> dict:
     launches = {k: r.launches for k, r in recorders.items()}
     print(f"[8] launches in evaluate_checkpoint over {EVAL_BATCHES} batches of "
           f"{EVAL_BATCH}x{PATH_A_HW[0]}x{PATH_A_HW[1]}: {launches}", flush=True)
-    check(launches == _counts(K6a=K6_PER_FORWARD * EVAL_BATCHES, K7=EVAL_BATCHES),
-          "unexpected launch counts")
+    check(launches == _counts(K6a=n["fwd"] * EVAL_BATCHES, K7=EVAL_BATCHES),
+          "launch counts are not the table's")
     cases = hold_records(8, records)
 
     miou = plain_k7_miou(records)
@@ -1420,12 +1613,13 @@ def path_a_eval_phase(model, dev, seed) -> dict:
     print(f"[8] evaluate_checkpoint of one {EVAL_BATCH}x{PATH_A_HW[0]}x"
           f"{PATH_A_HW[1]} batch: median {med:.3f} ms "
           f"({EVAL_BATCH * 1e3 / med:.2f} images/s)", flush=True)
-    first = cases[:K6_PER_FORWARD] + [c for c in cases if c["kind"] == "K7"][:1]
+    first = cases[:n["fwd"]] + [c for c in cases if c["kind"] == "K7"][:1]
     time_cases(8, first)
     per = (f"sum over the launches of one eval batch ({EVAL_BATCH}x{PATH_A_HW[0]}x"
            f"{PATH_A_HW[1]}); launches over {EVAL_BATCHES} batches")
-    out = {k: kernel_entry(k, first, launches[k], per) for k in ("K6a", "K7")}
-    for k in ("K6a", "K7"):
+    kinds = ("K6a", "K7") if n["fwd"] else ("K7",)
+    out = {k: kernel_entry(k, first, launches[k], per) for k in kinds}
+    for k in kinds:
         out[k]["device_ms"] = device_split(8, first, k)
     return out
 
@@ -1486,11 +1680,9 @@ def k7_hold_phase(dev, seed):
 
 # ------------------------------------------------------------- the zoo
 
-# Path-A zoo string -> Conv3x3s at output H·W >= 4096 in one 256x256 forward
-# (K6a forward launches; K6b per train step), and how many of them need a
-# dx (UNet's inc.conv1 reads the image, which needs no gradient)
-ZOO = {"smp_unet18": (7, 7), "smp_DeepLabV3+": (0, 0), "smp_MANet": (8, 8),
-       "unet": (12, 11), "segnet": (0, 0), "resnet18": (0, 0)}
+# the rest of the Path-A zoo; each one's K6 launches come from the table
+# (``k6_expected``: UNet's inc.conv1 reads the image and needs no dx)
+ZOO = ("smp_unet18", "smp_DeepLabV3+", "smp_MANet", "unet", "segnet", "resnet18")
 ZOO_STEPS, ZOO_TIMED = 3, 5
 
 
@@ -1512,10 +1704,11 @@ def zoo_phase(dev, seed) -> dict:
     images, masks = images[None].to(dev), masks.long()[None].to(dev)
     batch = _path_a_batch(np.random.RandomState(seed + 4), EVAL_BATCH)
     out = {}
-    for i, (zoo, (k6, dx)) in enumerate(ZOO.items()):
+    for i, zoo in enumerate(ZOO):
         gen = torch.Generator().manual_seed(seed + 10 + i)
         model = create_model(zoo, classes=N_CLASSES, device=dev, generator=gen)
         perturb(model, gen)
+        n = k6_expected(model, PATH_A_HW)
         n_params = sum(p.numel() for p in model.parameters())
         opt = build_optimizer("adam", weight_decay=PATH_A_WD)
         state = TrainState.create(model, opt)
@@ -1530,8 +1723,8 @@ def zoo_phase(dev, seed) -> dict:
         print(f"[9] {zoo}: {type(model).__name__}, {n_params} parameters; "
               f"launches in one train step: K6a {launches['K6a'] - n_dx} forward "
               f"+ {n_dx} dx, K6b {launches['K6b']}", flush=True)
-        check(launches == _counts(K6a=k6 + dx, K6b=k6) and n_dx == dx,
-              f"{zoo}: unexpected launch counts {launches}")
+        check(launches == _counts(**k6_step(n)) and n_dx == n["dx"],
+              f"{zoo}: launch counts {launches} are not the table's ({n})")
         k6b = [c for c in hold_records(9, records) if c["kind"] == "K6b"]
         del records
         if k6b:
@@ -1560,8 +1753,8 @@ def zoo_phase(dev, seed) -> dict:
               f"{PATH_A_HW[0]}x{PATH_A_HW[1]} batch: K6a {eval_launches['K6a']}, "
               f"K7 {eval_launches['K7']}; mean IoU {report['mean_iou']:.6f}, "
               f"loss {report['loss']:.5f}", flush=True)
-        check(eval_launches == _counts(K6a=k6, K7=1),
-              f"{zoo}: unexpected eval launch counts {eval_launches}")
+        check(eval_launches == _counts(K6a=n["fwd"], K7=1),
+              f"{zoo}: eval launch counts {eval_launches} are not the table's")
         check(np.isfinite(report["loss"]) and np.isfinite(report["mean_iou"]),
               f"{zoo}: non-finite eval metrics")
         hold_records(9, records)
@@ -1647,15 +1840,54 @@ def k8_phase(dev, seed) -> dict:
 CLI_TRAIN, CLI_VAL, CLI_EPOCHS, CLI_BATCH, CLI_VAL_BATCH = 16, 8, 2, 8, 4
 
 
-def path_a_cli_phase(dev, seed) -> None:
-    """Phase 11: Path A end to end through its two CLIs. 16 train and 8 val
-    256×256 frames rendered by ``data/synthetic.py`` and written as PNGs
-    by ``data/png.py``; ``cli.train_path_a.main`` for 2 epochs
-    (``smp_UNet++``, batches 8 / 4), then ``cli.eval_path_a.main`` on its
-    ``best_f1`` checkpoint with ``--save_dir``. Checks: both exit 0; the
-    log, the checkpoint, the curves and the triptychs exist and decode;
-    the trainer's K6a / K6b launches are the code's (34 K6a + 17 K6b a
-    step, 17 K6a a validation, heavy-metric and sample forward), the
+PNG_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / "png"
+
+
+def write_path_a_pngs(root, seed) -> list[str]:
+    """Phase 11's PNG folder under ``root``: ``CLI_TRAIN`` train and
+    ``CLI_VAL`` val frames, 256×256, rendered by ``data/synthetic.py`` and
+    written by ``data/png.py``, the train split's last ones the committed
+    fixtures of ``tests/torch_fixtures/png`` (a 16-bit, an Adam7-interlaced
+    and a grey + alpha image with 16-bit, interlaced and 4-bit masks; 64×64,
+    resized by the dataset). Each fixture is first read in both modes and
+    held against the sha256 of cv2's decode in ``records.json``. Returns the
+    fixtures' names."""
+    import hashlib
+    import shutil
+
+    from mmr_tpu_torch.data import png
+    from mmr_tpu_torch.data.synthetic import render_frame
+
+    records = json.loads((PNG_FIXTURES / "records.json").read_text())
+    for name, rec in records.items():
+        for mode, want in rec.items():
+            a = png.read(PNG_FIXTURES / name, unchanged=mode == "unchanged")
+            check(hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"],
+                  f"{name} ({mode}) does not decode to cv2's pixels")
+    fixtures = sorted(p.name for p in (PNG_FIXTURES / "images").glob("*.png"))
+    rng = np.random.RandomState(seed + 6)
+    for split, n in (("train", CLI_TRAIN - len(fixtures)), ("val", CLI_VAL)):
+        for i in range(n):
+            img, mask = render_frame(rng, *PATH_A_HW, N_CLASSES - 1)
+            png.write(f"{root}/{split}/images/f{i:03d}.png",
+                      (img * 255.0 + 0.5).astype(np.uint8))
+            png.write(f"{root}/{split}/groundtruth/f{i:03d}.png", mask)
+    for part in ("images", "groundtruth"):
+        for name in fixtures:
+            shutil.copy(PNG_FIXTURES / part / name, f"{root}/train/{part}/{name}")
+    return fixtures
+
+
+def path_a_cli_phase(dev, seed, n) -> None:
+    """Phase 11: Path A end to end through its two CLIs on
+    ``write_path_a_pngs``' folder (16 train frames, 3 of them the PNG
+    fixtures, and 8 val); ``cli.train_path_a.main`` for 2 epochs
+    (``smp_UNet++``, batches 8 / 4: every train frame is read each epoch),
+    then ``cli.eval_path_a.main`` on its ``best_f1`` checkpoint with
+    ``--save_dir``. Checks: both exit 0; the log, the checkpoint, the
+    curves and the triptychs exist and decode; the trainer's K6a / K6b
+    launches are the table's (``n``: a step's and a forward's, for every
+    step and every validation, heavy-metric and sample forward), the
     evaluator's one K7 a val batch; the evaluator's mean IoU equals the
     plain K7's on the recorded maps; its model gives the logits of the
     checkpoint loaded into a fresh bf16 model (phase 8's 2e-2). Prints the
@@ -1665,19 +1897,14 @@ def path_a_cli_phase(dev, seed) -> None:
     from mmr_tpu_torch.cli import eval_path_a, train_path_a
     from mmr_tpu_torch.data import png
     from mmr_tpu_torch.data.png_dataset import PngFolderDataset
-    from mmr_tpu_torch.data.synthetic import render_frame
     from mmr_tpu_torch.infer.evaluator import evaluate_checkpoint
     from mmr_tpu_torch.models import create_model
 
-    rng = np.random.RandomState(seed + 6)
     with tempfile.TemporaryDirectory() as tmp:
         root, run, out = (f"{tmp}/{d}" for d in ("data", "run", "eval"))
-        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
-            for i in range(n):
-                img, mask = render_frame(rng, *PATH_A_HW, N_CLASSES - 1)
-                png.write(f"{root}/{split}/images/f{i:03d}.png",
-                          (img * 255.0 + 0.5).astype(np.uint8))
-                png.write(f"{root}/{split}/groundtruth/f{i:03d}.png", mask)
+        fixtures = write_path_a_pngs(root, seed)
+        print(f"[11] PNG fixtures {fixtures} decode to cv2's pixels in both modes; "
+              f"{CLI_TRAIN} train frames with them, {CLI_VAL} val", flush=True)
         hw = ["--resizedHeight", str(PATH_A_HW[0]), "--resizedWidth", str(PATH_A_HW[1]),
               "--device", str(dev)]
         for kind in KERNELS:
@@ -1695,9 +1922,8 @@ def path_a_cli_phase(dev, seed) -> None:
         print(f"[11] train_path_a: exit {rc} in {dt:.1f} s ({steps} steps, "
               f"{forwards} eval forwards); launches {launches}", flush=True)
         check(rc == 0, "train_path_a did not exit 0")
-        check(launches == _counts(K6a=K6_PER_FORWARD * (2 * steps + forwards),
-                                  K6b=K6_PER_FORWARD * steps),
-              "train_path_a's launch counts are not the code's")
+        check(launches == _counts(**k6_step(n, steps, forwards)),
+              "train_path_a's launch counts are not the table's")
         log = open(f"{run}/train.log").read()
         check(f"epoch {CLI_EPOCHS}/{CLI_EPOCHS}" in log and "heavy metrics" in log,
               "train.log lacks the epochs' lines")
@@ -1732,8 +1958,8 @@ def path_a_cli_phase(dev, seed) -> None:
         print(f"[11] eval_path_a: exit {rc} in {dt:.1f} s; launches {launches}",
               flush=True)
         check(rc == 0, "eval_path_a did not exit 0")
-        check(launches == _counts(K6a=K6_PER_FORWARD * (val_batches + 1), K7=val_batches),
-              "eval_path_a's launch counts: not one K7 a val batch")
+        check(launches == _counts(K6a=n["fwd"] * (val_batches + 1), K7=val_batches),
+              "eval_path_a's launch counts: not the table's K6a and one K7 a val batch")
         hold_records(11, records)
         report = json.loads(open(f"{out}/eval_report.json").read())
         miou = plain_k7_miou(records)
@@ -1940,7 +2166,7 @@ def trainer_phase(dev, seed, smi) -> dict:
                                    preprocess=again.preprocess, device=dev)
         torch.cuda.synchronize()
         served = {k: wrapper(k).launches for k in KERNELS}
-        check(served == _counts(K1=21 * VIDEO_FRAMES, K2=2 * VIDEO_FRAMES),
+        check(served == forward_counts(VIDEO_FRAMES),
               "run_inference's launches are not 21 K1 + 2 K2 a frame")
         out = res / "test_plots_0"
         check(read_config(out / "config.yaml") == again.config,
@@ -1997,9 +2223,10 @@ def trainer_phase(dev, seed, smi) -> dict:
 PUB_UNET = ("Unet", "tu-convnextv2_tiny")   # PKG-INFO Example 3, 83.55 % mIoU
 PUB_SEG = ("Segformer", "mit_b2")           # PKG-INFO Example 2, 82.38 % mIoU
 PUB_PARAMS = {PUB_UNET: 31_976_426, PUB_SEG: 24_745_162}
+# launches other than K6's (the table decides those: ``k6_expected``)
 PUB_TRAIN = {PUB_UNET: _counts(K1=8, K3=8, K5a=1, K5b=1),   # blocks 1-4, head
-             PUB_SEG: _counts(K6a=2, K6b=1)}                # head: fwd, dx, dW
-PUB_EVAL = {PUB_UNET: _counts(K1=9), PUB_SEG: _counts(K6a=1)}   # a forward
+             PUB_SEG: _counts()}
+PUB_EVAL = {PUB_UNET: _counts(K1=9), PUB_SEG: _counts()}   # a forward
 PUB_SMALL = (("UnetPlusPlus", "tu-convnext_tiny"), ("Segformer", "mit_b0"))
 PUB_SMALL_HW, PUB_SMALL_BATCH = (256, 256), 2
 
@@ -2037,6 +2264,23 @@ def _flat_tree(tree, prefix=""):
     return out
 
 
+def torchvision_resnet18(seed: int) -> dict:
+    """A ResNet-18 ``state_dict`` in torchvision's names (``layer1.0.conv1``,
+    ``layer2.0.downsample.0``), normal values from ``seed``: the port's
+    encoder's names mapped back."""
+    import re
+
+    from mmr_tpu_torch.models.encoders import get_encoder
+
+    with torch.device("meta"):
+        names = get_encoder("resnet18").build().state_dict()
+    g = torch.Generator().manual_seed(seed)
+    return {re.sub(r"^layer(\d)_(\d+)\.", r"layer\1.\2.", k)
+            .replace("downsample_conv.", "downsample.0.")
+            .replace("downsample_bn.", "downsample.1."): torch.randn(v.shape, generator=g)
+            for k, v in names.items()}
+
+
 def published_phase(dev, seed, smi) -> dict:
     """Phase 13: the reference's best published models at full width, 10
     classes, bf16, random weights from the seed (BN, LayerNorm and GRN
@@ -2062,12 +2306,14 @@ def published_phase(dev, seed, smi) -> dict:
     import os
     import tempfile
 
+    from mmr_tpu_torch.cli import export_weights
     from mmr_tpu_torch.data.synthetic import render_frame
     from mmr_tpu_torch.infer.evaluator import run_inference
     from mmr_tpu_torch.losses import dice_ce_loss
     from mmr_tpu_torch.models import create_model, get_preprocessing
     from mmr_tpu_torch.models.convert import jax_leaf, to_jax_variables
     from mmr_tpu_torch.models.pretrained import save_weight_store
+    from mmr_tpu_torch.models.weight_manifest import verify_store
     from mmr_tpu_torch.train.optim import build_optimizer
     from mmr_tpu_torch.train.schedules import build_lr_schedule
     from mmr_tpu_torch.train.state import TrainState
@@ -2099,6 +2345,9 @@ def published_phase(dev, seed, smi) -> dict:
         perturb(model, gen)
         n_params = sum(p.numel() for p in model.parameters())
         check(n_params == PUB_PARAMS[key], f"{name}: {n_params} parameters")
+        n = k6_expected(model, ROI)
+        want_train = {**PUB_TRAIN[key], **k6_step(n)}
+        want_eval = {**PUB_EVAL[key], **k6_step(n, 0, 1)}
         pre = get_preprocessing(enc)
         x = pre(images_d[0].float() / 255.0)
 
@@ -2110,12 +2359,12 @@ def published_phase(dev, seed, smi) -> dict:
             got = model(x)
             torch.cuda.synchronize()
             launches = _launches()
-            with library_conv3x3():
+            with conv3x3_forced(False):
                 want = plain(x)
         del plain
         print(f"[13] {name}: {n_params} parameters; launches of an eval forward "
               f"(B={TRAIN_BATCH}): {launches}", flush=True)
-        check(launches == PUB_EVAL[key], f"{name}: expected {PUB_EVAL[key]} launches")
+        check(launches == want_eval, f"{name}: expected {want_eval} launches")
         _logits_agree(13, f"{name} eval, kernels vs plain bf16", got, want, smi)
         del got, want
 
@@ -2129,11 +2378,10 @@ def published_phase(dev, seed, smi) -> dict:
             torch.cuda.synchronize()
         launches = {k: r.launches for k, r in recorders.items()}
         print(f"[13] {name}: launches in one train step: {launches}", flush=True)
-        check(launches == PUB_TRAIN[key], f"{name}: expected {PUB_TRAIN[key]} "
+        check(launches == want_train, f"{name}: expected {want_train} "
               "launches in a train step")
-        if arch == "Segformer":
-            n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
-            check(n_dx == 1, f"{name}: {n_dx} K6a dx launches, expected 1")
+        n_dx = sum(1 for k, *_, bwd in records if k == "K6a" and bwd)
+        check(n_dx == n["dx"], f"{name}: {n_dx} K6a dx launches, expected {n['dx']}")
         cases = hold_records(13, records)
         del records
 
@@ -2161,9 +2409,9 @@ def published_phase(dev, seed, smi) -> dict:
                                    preprocess=pre, save_plots=False, device=dev)
         torch.cuda.synchronize()
         served = _launches()
-        want = {k: VIDEO_FRAMES * n for k, n in PUB_EVAL[key].items()}
+        want = {k: VIDEO_FRAMES * c for k, c in want_eval.items()}
         check(served == want, f"{name}: run_inference's launches are not "
-              f"{PUB_EVAL[key]} a frame")
+              f"{want_eval} a frame")
         check(np.isfinite(report["overall_mean_iou"]), f"{name}: non-finite IoU")
         print(f"[13] {smi}: {name} run_inference on {VIDEO_FRAMES} full-HD frames "
               f"(roi {ROI[0]}x{ROI[1]}, overlap 0.5, Gaussian, 20 windows a frame): "
@@ -2172,7 +2420,7 @@ def published_phase(dev, seed, smi) -> dict:
         time_cases(13, cases)
         per = (f"sum over the launches of one {name} train step (B={TRAIN_BATCH}, "
                f"{ROI[0]}x{ROI[1]})")
-        kinds = [k for k, n in PUB_TRAIN[key].items() if n]
+        kinds = [k for k, c in want_train.items() if c]
         out[name] = {k: kernel_entry(k, cases, launches[k], per) for k in kinds}
         for k in kinds:
             out[name][k]["device_ms"] = device_split(13, cases, k)
@@ -2226,6 +2474,19 @@ def published_phase(dev, seed, smi) -> dict:
                   f"loaded by create_model(encoder_weights='imagenet') on the card: "
                   "bit-equal", flush=True)
             del model, meta
+            # ---- 13g. mmr_torch_export_weights on a seeded torchvision .pth ------
+            pth = os.path.join(tmp, "resnet18.pth")
+            torch.save(torchvision_resnet18(seed + 16), pth)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = export_weights.main(["--encoder", "resnet18", "--state_dict", pth])
+            line = json.loads(printed.getvalue().strip().splitlines()[-1])
+            check(rc == 0 and verify_store("resnet18", line["store"]) == {
+                "sha256": line["sha256"], "n_leaves": line["n_leaves"]},
+                "mmr_torch_export_weights wrote a store verify_store refuses")
+            print(f"[13] mmr_torch_export_weights --encoder resnet18 --state_dict "
+                  f"<seeded torchvision .pth>: exit {rc}, {line['n_leaves']} leaves, "
+                  "accepted by verify_store against weights_manifest.json", flush=True)
         finally:
             if old is None:
                 os.environ.pop("MMR_TPU_WEIGHTS_DIR", None)
@@ -2431,7 +2692,7 @@ def zarr_phase(dev, seed, smi, trained) -> dict:
         check(rc == 0 and sorted(report["videos"]) == sorted(split["test"])
               and np.isfinite(report["overall_mean_iou"]),
               "mmr_torch_infer did not report the test split")
-        check(served == _counts(K1=21 * n_frames, K2=2 * n_frames),
+        check(served == forward_counts(n_frames),
               "mmr_torch_infer's launches are not 21 K1 + 2 K2 a frame")
         for v, r in report["videos"].items():
             print(f"[14] {smi}: {v}: {r['fps']:.2f} frames/s (reads included), mean IoU "
@@ -2446,17 +2707,28 @@ def zarr_phase(dev, seed, smi, trained) -> dict:
         vis_forwards = -(-n_win // config["sw_batch_size"])
         store = ds / "data" / f"{split['test'][0]}.zarr"
         _zero_launches()
-        with contextlib.redirect_stdout(io.StringIO()):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
             rc = visualize.main([run, str(store), "--frames", "3", "--out", f"{tmp}/vis",
-                                 "--device", str(dev)])
+                                 "--legend", "--architecture", "--device", str(dev)])
         torch.cuda.synchronize()
         shown = _launches()
         img = png.read(f"{tmp}/vis/prediction_triptychs.png")
-        print(f"[14] mmr_torch_visualize: exit {rc}; triptych {img.shape}; "
-              f"launches {shown}", flush=True)
+        legend = png.read(f"{tmp}/vis/class_legend.png")
+        diagram = png.read(f"{tmp}/vis/architecture_diagram.png")
+        bars = json.loads(png.read_text(f"{tmp}/vis/class_legend.png")["legend"])
+        boxes = json.loads(png.read_text(f"{tmp}/vis/architecture_diagram.png")["diagram"])
+        print(f"[14] mmr_torch_visualize --legend --architecture: exit {rc}; triptych "
+              f"{img.shape}, class_legend.png {legend.shape} ({len(bars['classes'])} "
+              f"bars), architecture_diagram.png {diagram.shape} "
+              f"({boxes['boxes'][5]['label']}); launches {shown}", flush=True)
         check(rc == 0 and img.shape == (FRAME[0], 3 * FRAME[1] + 2 * 4, 3),
               "mmr_torch_visualize wrote no triptych of one frame")
-        check(shown == _counts(K1=21 * vis_forwards, K2=2 * vis_forwards),
+        check(len(bars["classes"]) == N_CLASSES and len(boxes["boxes"]) == 6
+              and len(boxes["arrows"]) == 5
+              and "Model Architecture Summary:" in printed.getvalue(),
+              "mmr_torch_visualize's legend or diagram is not whole")
+        check(shown == forward_counts(vis_forwards),
               "mmr_torch_visualize's launches are not its forwards'")
     wall = time.perf_counter() - t_phase
     print(f"[14] {smi}: sampler {rates['uint8']:.1f} (uint8) / {rates['float32']:.1f} "
@@ -2590,6 +2862,7 @@ def mesh_rank(out: Path) -> None:
     images, masks = shard_batch(mesh, (inp["images"], inp["masks"]), axis=1)
     fused = create_model(classes=N_CLASSES, device=dev, fused=True, fused_frontend=True)
     fused.load_state_dict(inp["weights"])
+    flagship_counts(fused)
     state, step = _mesh_steps(fused, mesh, pre)
     with recording() as (records, recorders), collectives() as calls:
         state, met = step(state, images, masks, inp["lr"])
@@ -2728,7 +3001,7 @@ def cli_rank(out: Path, args: list[str]) -> None:
         {"rc": rc, "launches": {k: wrapper(k).launches for k in KERNELS}}))
 
 
-def mesh_phase(dev, seed, smi, inputs) -> dict:
+def mesh_phase(dev, seed, smi, inputs, path_a_k6) -> dict:
     """Phase 15: data parallelism over ``MESH_RANKS`` ranks (NCCL, one card
     each, where there are cards enough; else gloo, the ranks sharing the
     card). (a) The flagship's fused train step on phase 6's weights and
@@ -2741,14 +3014,14 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
     mesh=)`` against one rank serving them all (phase 3's bounds), launches
     per rank, frames/s; (c) ``train_path_a`` under torchrun for one epoch
     on phase 11's PNG frames: exit 0, each file once, the K6a / K6b / K7
-    launches each rank's code makes; (d) ``Evaluate(mesh=)`` over
+    launches each rank's table makes (``path_a_k6``: phase 7's
+    ``k6_expected``); (d) ``Evaluate(mesh=)`` over
     ``MESH_EVAL_BATCHES`` batches split over the ranks, each rank's K7
     launches its own batches', the summed counts and the mean IoU equal to
     one rank's over every batch, exactly. Returns {kind: launches of rank
     0}."""
     import tempfile
 
-    from mmr_tpu_torch.data import png
     from mmr_tpu_torch.data.synthetic import render_frame
     from mmr_tpu_torch.models import create_model, get_preprocessing
 
@@ -2851,13 +3124,7 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
 
         # ---- (c) Path A's CLI under torchrun ----------------------------------------
         root, run = out / "data", out / "run"
-        rng = np.random.RandomState(seed + 6)   # phase 11's frames
-        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
-            for i in range(n):
-                img, mask = render_frame(rng, *PATH_A_HW, N_CLASSES - 1)
-                png.write(root / split / "images" / f"f{i:03d}.png",
-                          (img * 255.0 + 0.5).astype(np.uint8))
-                png.write(root / split / "groundtruth" / f"f{i:03d}.png", mask)
+        write_path_a_pngs(root, seed)   # phase 11's frames
         t0 = time.perf_counter()
         torchrun(15, ["--cli-rank", str(out), "--",
                       "--data_dir", str(root), "--model", "smp_UNet++",
@@ -2873,8 +3140,7 @@ def mesh_phase(dev, seed, smi, inputs) -> dict:
         forwards = (MESH_CLI_EPOCHS + 1) * (CLI_VAL // CLI_VAL_BATCH)   # val, heavy metrics
         for rank, c in enumerate(cli):
             sample = 1 if rank == 0 else 0   # rank 0 predicts the triptych's batch
-            want = _counts(K6a=K6_PER_FORWARD * (2 * steps + forwards + sample),
-                           K6b=K6_PER_FORWARD * steps)
+            want = _counts(**k6_step(path_a_k6, steps, forwards + sample))
             print(f"[15] train_path_a rank {rank}: exit {c['rc']}, launches "
                   f"{c['launches']}", flush=True)
             check(c["rc"] == 0 and c["launches"] == want,
@@ -3131,7 +3397,7 @@ def native_data_phase(dev, seed, smi) -> dict:
         check(rc == 0 and sorted(report["videos"]) == sorted(split["test"])
               and np.isfinite(report["overall_mean_iou"]),
               "mmr_torch_infer on the converted stores did not report the test split")
-        check(served == _counts(K1=21 * n_frames, K2=2 * n_frames),
+        check(served == forward_counts(n_frames),
               "mmr_torch_infer's launches are not 21 K1 + 2 K2 a frame")
     print(f"[16] {smi}: phase 16 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
@@ -3291,6 +3557,75 @@ def b1_phase(dev, seed, smi) -> list[dict]:
     return entries
 
 
+# ------------------------------------------------------ 18. K6's dispatch table
+
+K6_HOLD_BATCH = 2   # images a key is held at
+
+
+def k6_table_phase(dev, seed) -> dict:
+    """Phase 18: K6's per-shape dispatch table (``ops/conv_table.json``).
+    It must hold both directions of every bf16 Conv3x3 shape the phases run
+    and of JAX's bench shapes (``k6_table_keys``). One line a key: its
+    route, the table's alternated-pair medians, gain and spread, and K6a's
+    forward and dx and K6b under ``_FORCE`` on B=2 inputs, held against
+    their plain versions at phase 7's bounds (max|Δ| / max|ref| printed).
+    Returns
+    {"keys", "kernel_keys", "held"}."""
+    from mmr_tpu_torch.ops import conv3x3_packed as k6
+    from mmr_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    table = dispatch.table()
+    entries = table["shapes"]
+    keys = k6_table_keys(dev)
+    missing = sorted(dispatch.shape_key(*k) for k in keys
+                     if dispatch.shape_key(*k) not in entries)
+    print(f"[18] conv_table.json: {len(entries)} keys, measured on {table['card']} "
+          f"at {table['commit']} by {table['measured_by']}; the phases and JAX's "
+          f"bench shapes need {len(keys)}, missing {missing}", flush=True)
+    check(not missing, "the committed table lacks keys that the phases run")
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    bf16, held = torch.bfloat16, 0
+    for (h, w, cin, cout), where in sorted(keys.items()):
+        key = dispatch.shape_key(h, w, cin, cout)
+        x = torch.randn(K6_HOLD_BATCH, h, w, cin, device=dev, generator=g).to(bf16)
+        wt = torch.randn(3, 3, cin, cout, device=dev, generator=g) / (9 * cin) ** 0.5
+        b = 0.5 * torch.randn(cout, device=dev, generator=g)
+        gy = torch.randn(K6_HOLD_BATCH, h, w, cout, device=dev, generator=g).to(bf16)
+        for t in (x, wt, b):
+            t.requires_grad_()
+        with conv3x3_forced(True), recording() as (records, recorders):
+            y = k6.conv3x3p_bias_act(x, wt, b, False, *k6.routes(x, cout))
+            y.backward(gy)
+            torch.cuda.synchronize()
+        launches = {k: r.launches for k, r in recorders.items()}
+        check(launches == _counts(K6a=2, K6b=1), f"{key}: launches {launches} "
+              "under _FORCE, not a K6a forward and dx and a K6b")
+        rels = []
+        for kind, args, out, backward in records:
+            with torch.no_grad():
+                rels.append(_hold(kind, out, plain(kind)(**args), backward)[1])
+        held += len(records)
+        e = entries[key]
+        print(f"[18] {key} ({'; '.join(where)}): route "
+              f"{'K6a / K6b' if e['kernel_wins'] else 'library'}; medians of "
+              f"{e['pairs']} alternated pairs at B={e['batch']}: kernel fwd "
+              f"{e['kernel_fwd_ms']:.4f} ms, fwd+bwd {e['kernel_fwdbwd_ms']:.4f}; "
+              f"library fwd {e['library_fwd_ms']:.4f}, fwd+bwd "
+              f"{e['library_fwdbwd_ms']:.4f}; fwd+bwd gain "
+              f"{e['fwdbwd_gain_ms']:.4f}, spread {e['fwdbwd_spread_ms']:.4f}; "
+              f"under _FORCE at B={K6_HOLD_BATCH} "
+              f"K6a fwd / K6a dx / K6b rel-to-max "
+              f"{' / '.join(f'{r:.2e}' for r in rels)} ok", flush=True)
+        del records, x, wt, b, gy, y
+    kernel_keys = sorted(k for k, e in entries.items() if e["kernel_wins"])
+    print(f"[18] {len(keys)} keys held ({held} launches); the table sends "
+          f"{len(kernel_keys)} to K6a / K6b: {kernel_keys}; phase 18 wall time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"keys": len(keys), "kernel_keys": kernel_keys, "held": held}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3348,6 +3683,10 @@ def main() -> int:
     model = create_model(classes=N_CLASSES, device=dev, generator=gen,
                          fused=True, fused_frontend=True)
     perturb(model, gen)
+    flagship_counts(model)
+    print(f"[1] the table's K6 launches of the flagship: a train step "
+          f"{ {k: TRAIN_COUNTS[k] for k in ('K6a', 'K6b')} }, a forward "
+          f"{ {k: EVAL_COUNTS[k] for k in ('K6a', 'K6b')} }", flush=True)
     plain32 = create_model(classes=N_CLASSES, device=dev, dtype=torch.float32)
     plain32.load_state_dict(model.state_dict())
     plain16 = create_model(classes=N_CLASSES, device=dev)
@@ -3368,7 +3707,7 @@ def main() -> int:
         torch.cuda.synchronize()
     launches = {k: r.launches for k, r in recorders.items()}
     print(f"[3] launches per window-batch forward: {launches}", flush=True)
-    want = {k: {"K1": 21, "K2": 2}.get(k, 0) for k in KERNELS}
+    want = forward_counts(1)
     check(launches == want, f"expected {want} launches")
     labels = {"K1": iter(k1_labels(model.packed_min_hw)),
               "K2": iter(["stem", "b0_0.conv_dw"])}
@@ -3438,7 +3777,7 @@ def main() -> int:
     # ---- 5. times ----------------------------------------------------------
     time_cases(5, cases)
     k1_tile_ab(5, cases)
-    with torch.inference_mode(), library_conv3x3():
+    with torch.inference_mode(), conv3x3_forced(False):
         for name, m in (("fused", model), ("plain bf16 cuDNN", plain16)):
             ts = sorted(cuda_ms(lambda: m(windows), 1, warmup=0 if i else 2)
                         for i in range(REPS))
@@ -3468,12 +3807,11 @@ def main() -> int:
     kernels += [train[k] for k in ("K3", "K4", "K5a", "K5b")]
     kernels.insert(-2, stem_dx_phase(model, dev))
     # ---- 7. Path-A training, 8. Path-A evaluation ------------------------
-    path_a, entries = path_a_train_phase(dev, args.seed)
-    evals = path_a_eval_phase(path_a, dev, args.seed)
+    path_a, entries, path_a_k6 = path_a_train_phase(dev, args.seed)
+    evals = path_a_eval_phase(path_a, dev, args.seed, path_a_k6)
     k7_hold_phase(dev, args.seed)
-    entries["K6a"].update({f"eval_{k}": evals["K6a"][k] for k in
-                           ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "per", "device_ms")})
+    if "K6a" in evals:
+        entries["K6a"].update({f"eval_{k}": evals["K6a"][k] for k in K6_FIELDS})
     kernels += [entries["K6a"], entries["K6b"], evals["K7"]]
     # ---- 9. the rest of the Path-A zoo, 10. K8 ------------------------------
     zoo = zoo_phase(dev, args.seed)
@@ -3484,7 +3822,7 @@ def main() -> int:
     k8 = k8_phase(dev, args.seed)
     kernels += [k8["K8a"], k8["K8b"]]
     # ---- 11. Path A through its CLIs ----------------------------------------
-    path_a_cli_phase(dev, args.seed)
+    path_a_cli_phase(dev, args.seed, path_a_k6)
     # ---- 12. Path B's Trainer ------------------------------------------------
     trained = trainer_phase(dev, args.seed, smi)
     for e in kernels:
@@ -3495,11 +3833,12 @@ def main() -> int:
     published = published_phase(dev, args.seed, smi)
     for e in kernels:
         kind = next((k for k in KERNELS if KERNELS[k][1] == e["name"]), None)
-        for name, entries in published.items():
-            if kind in entries and "(dense dx)" not in e["name"]:
+        for name, pub in published.items():
+            if kind in pub and "(dense dx)" not in e["name"]:
                 e.setdefault("published", {})[name] = {
-                    k: v for k, v in entries[kind].items()
+                    k: v for k, v in pub[kind].items()
                     if k not in ("name", "route", "source", "replaces")}
+    k6_main_path(entries, published)
     # ---- 14. Path B from Zarr stores through its CLIs ----------------------------
     zarr = zarr_phase(dev, args.seed, smi, trained)
     for e in kernels:
@@ -3507,7 +3846,7 @@ def main() -> int:
         if kind is not None:
             e["zarr_cli_launches"] = zarr[kind]
     # ---- 15. data parallelism over two ranks -------------------------------------
-    meshed = mesh_phase(dev, args.seed, smi, train["inputs"])
+    meshed = mesh_phase(dev, args.seed, smi, train["inputs"], path_a_k6)
     for e in kernels:
         kind = next((k for k in KERNELS if KERNELS[k][1] == e["name"]), None)
         if kind in FLAGSHIP:
@@ -3522,6 +3861,11 @@ def main() -> int:
             e["converted_cli_launches"] = converted[kind]
     # ---- 17. the fused b1 pair ----------------------------------------------------
     kernels += b1_phase(dev, args.seed, smi)
+    # ---- 18. K6's dispatch table -------------------------------------------------
+    table = k6_table_phase(dev, args.seed)
+    for kind in ("K6a", "K6b"):
+        entries[kind]["table_keys_held"] = table["keys"]
+        entries[kind]["table_kernel_keys"] = table["kernel_keys"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

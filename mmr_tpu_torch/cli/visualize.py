@@ -4,14 +4,16 @@ video store (the notebooks' ``CustomVisualizer``, overlap 0.25) written
 as [image | ground truth | prediction] triptychs
 (``MMR_Seg_Unet/Visualization_Segment_Prediction.py``), on one device.
 
-The port's plots are drawn with numpy and cannot render text, so the
-class legend (``--legend``) and the architecture diagram
-(``--architecture``) raise ``NotImplementedError``. A compact store's
-uint8 frames are shown divided by 255.
+``--legend`` writes ``class_legend.png`` (a bar a class in matplotlib's
+``hot`` colours, labelled ``"{i}: {name}"``), ``--architecture`` prints
+``model_summary`` and writes ``architecture_diagram.png`` (JAX's six boxes
+and five arrows with the parameter count), both drawn by
+:mod:`mmr_tpu_torch.monitor.plots` with its bitmap font. A compact
+store's uint8 frames are shown divided by 255.
 
 Usage:
     python -m mmr_tpu_torch.cli.visualize <results_path> <zarr_store_or_dataset> \\
-        [--frames 0 5 10] [--overlap 0.25] [--device cuda]
+        [--frames 0 5 10] [--overlap 0.25] [--legend] [--architecture] [--device cuda]
 """
 
 from __future__ import annotations
@@ -32,17 +34,14 @@ def main(argv=None):
     p.add_argument("--overlap", type=float, default=0.25)
     p.add_argument("--which", type=str, default="best_model")
     p.add_argument("--legend", action="store_true",
-                   help="the class-colour legend (not available in the port)")
+                   help="also write class_legend.png, the class colours")
     p.add_argument("--architecture", action="store_true",
-                   help="the block diagram (not available in the port)")
+                   help="also print the layer summary and write "
+                        "architecture_diagram.png")
     p.add_argument("--out", type=str, default="")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    for flag in ("legend", "architecture"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} draws text, which the port's numpy plots cannot render")
     dev = resolve_device(args.device)
 
     import numpy as np
@@ -51,7 +50,10 @@ def main(argv=None):
     from mmr_tpu_torch.data.video_dataset import VideoFrameDataset
     from mmr_tpu_torch.data.zarr_io import list_dataset_stores
     from mmr_tpu_torch.infer.sliding_window import make_sliding_window_fn
-    from mmr_tpu_torch.monitor.plots import save_triptychs
+    from mmr_tpu_torch.data.classes import sarrarp50_names
+    from mmr_tpu_torch.monitor import model_summary
+    from mmr_tpu_torch.monitor.plots import (save_architecture_diagram,
+                                             save_class_legend, save_triptychs)
     from mmr_tpu_torch.train.engine import Trainer
 
     results = Path(args.results_path)
@@ -83,6 +85,19 @@ def main(argv=None):
                          out_dir / "prediction_triptychs.png",
                          max_samples=len(imgs))
     print(f"Wrote {out}")
+
+    if args.legend:
+        out = save_class_legend(sarrarp50_names()[:trainer.n_classes], out_dir)
+        print(f"Wrote {out}")
+    if args.architecture:
+        model = trainer.model
+        print("Model Architecture Summary:")
+        print("=" * 50)
+        print(model_summary(model))
+        out = save_architecture_diagram(
+            type(model).__name__, getattr(model, "encoder_name", None),
+            trainer.n_classes, sum(p.numel() for p in model.parameters()), out_dir)
+        print(f"Wrote {out}")
     return 0
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 DEFAULT_SEED = 6210   # the reference's seed of record, ModelTraining.py:150
+DEFAULT_SPLIT_SEED = 12345   # its split seed, Pre_Process.py:95,143,1123
 
 _MASK = (1 << 64) - 1
 

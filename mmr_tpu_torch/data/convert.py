@@ -249,10 +249,7 @@ def calculate_dataset_statistics(images_dir: str | Path,
         paths = [paths[i] for i in rng.choice(len(paths), max_images, replace=False)]
     acc = np.zeros(3), np.zeros(3)
     for p in paths:
-        img = png.read(p)
-        if img.ndim == 2:   # cv2.imread gives a grey file three equal channels
-            img = np.repeat(img[..., None], 3, -1)
-        img = img / 255.0
+        img = png.read(p) / 255.0
         acc = acc[0] + img.mean((0, 1)), acc[1] + (img ** 2).mean((0, 1))
     mean = acc[0] / len(paths)
     std = np.sqrt(np.maximum(acc[1] / len(paths) - mean ** 2, 0))

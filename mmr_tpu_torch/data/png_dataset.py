@@ -7,9 +7,13 @@ matching filenames (``:39-41,117-127``). Per item:
 
 - image: PNG → RGB float32 [0, 1], resized bilinear to the CLI's
   ``resizedHeight/Width``;
-- mask: greyscale id-coded PNG (SAR-RARP50: pixel value = class id,
-  clamped to [0, n_classes-1], ``:172-176``) or RGB colour-coded (matched
-  against the class key, ``:178-183``), resized nearest;
+- mask: read unchanged (``cv2.IMREAD_UNCHANGED``): a greyscale id-coded
+  PNG of 8 or 16 bits (SAR-RARP50: pixel value = class id, clamped to [0,
+  n_classes-1], ``:172-176``) or RGB colour-coded (matched against the
+  class key, ``:178-183``), resized nearest. A mask with alpha (grey +
+  alpha, RGBA, or ``tRNS``) reads as four channels, which the JAX class
+  compares with the three-channel key and fails on (numpy cannot
+  broadcast them); the port raises ``ValueError`` naming the file;
 - optional in-RAM caching (the ``SegNetDataLoaderV2`` capability, a flag).
 
 PNGs are decoded by :mod:`mmr_tpu_torch.data.png` and resized on the host
@@ -130,12 +134,13 @@ class PngFolderDataset:
             return self._random_crop(*self._cache[i], crop_rng)
         name = self.files[i]
         img = png.read(self.img_dir / name)
-        if img.ndim == 2:   # a grey image, read as colour
-            img = np.repeat(img[..., None], 3, axis=-1)
         gt_path = self.gt_dir / name
         if not gt_path.exists():
             raise FileNotFoundError(str(gt_path))
-        gt = png.read(gt_path)
+        gt = png.read(gt_path, unchanged=True)
+        if gt.ndim == 3 and gt.shape[2] != 3:
+            raise ValueError(f"{gt_path}: a mask of {gt.shape[2]} channels "
+                             "(alpha) cannot be matched against the RGB class key")
         if random_crop:
             # resize to the fixed train size, then random-crop to target
             # (cropSize == -1 semantics, SegNetDataLoaderV1_SAR.py:210-213)

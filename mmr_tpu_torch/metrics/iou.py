@@ -34,3 +34,21 @@ def iou_score(tp, fp, fn, tn, reduction=None, zero_division=1.0):
     """tp / (tp + fp + fn), ``zero_division`` where the denominator is 0."""
     return _reduce(lambda tp, fp, fn, tn, zd: _safe_divide(tp, tp + fp + fn, zd),
                    tp, fp, fn, tn, reduction, zero_division)
+
+
+def f1_score(tp, fp, fn, tn, reduction=None, zero_division=1.0):
+    """2·tp / (2·tp + fp + fn), ``zero_division`` where the denominator is 0."""
+    return _reduce(lambda tp, fp, fn, tn, zd: _safe_divide(2 * tp, 2 * tp + fp + fn, zd),
+                   tp, fp, fn, tn, reduction, zero_division)
+
+
+def precision(tp, fp, fn, tn, reduction=None, zero_division=1.0):
+    """tp / (tp + fp), ``zero_division`` where the denominator is 0."""
+    return _reduce(lambda tp, fp, fn, tn, zd: _safe_divide(tp, tp + fp, zd),
+                   tp, fp, fn, tn, reduction, zero_division)
+
+
+def recall(tp, fp, fn, tn, reduction=None, zero_division=1.0):
+    """tp / (tp + fn), ``zero_division`` where the denominator is 0."""
+    return _reduce(lambda tp, fp, fn, tn, zd: _safe_divide(tp, tp + fn, zd),
+                   tp, fp, fn, tn, reduction, zero_division)

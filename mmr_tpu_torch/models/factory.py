@@ -94,6 +94,15 @@ class Preprocessing:
         return (x - mean) / std
 
 
+def list_models() -> dict[str, list[str]]:
+    """The smp arches, the Path-A zoo strings and the encoders that
+    :func:`create_model` takes (``factory.py:88``)."""
+    from mmr_tpu_torch.models.encoders import ENCODERS
+
+    return {"archs": sorted(_ARCHES), "path_a": sorted(_PATH_A_ZOO),
+            "encoders": sorted(ENCODERS)}
+
+
 def get_preprocessing(encoder_name: str | None = None) -> Preprocessing:
     if encoder_name is None:
         return Preprocessing(IMAGENET_MEAN, IMAGENET_STD)

@@ -102,23 +102,20 @@ class LayerNorm(nn.Module):
 
 class Conv3x3(Conv2d):
     """3×3 stride-1 SAME conv (JAX ``Conv3x3``) with ``nn.Conv2d``'s
-    parameters. A bf16 input whose H·W ≥ 64·64 runs through
-    :func:`~mmr_tpu_torch.ops.conv3x3_packed.conv3x3p_bias_act` (the
-    standalone kernel K6a forward; K6a dx and K6b dW backward), as JAX's
-    ``conv3x3p_bias_act`` dispatches to its Pallas kernel; smaller or f32
-    convs stay on the library conv (``conv3x3_packed.use_kernel``). The
+    parameters. A bf16 conv runs through
+    :func:`~mmr_tpu_torch.ops.conv3x3_packed.conv3x3p_bias_act` when its
+    forward or its backward takes the standalone kernels (K6a forward; K6a
+    dx and K6b dW backward), each direction as the per-shape table says
+    (``conv3x3_packed.conv3x3_layer``), as JAX's ``conv3x3p_bias_act``
+    dispatches to its Pallas kernel; a conv that takes them in neither
+    direction, and every f32 conv, stays on the library conv. The
     flagship's fused nodes never reach this module."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True):
         super().__init__(cin, cout, 3, 1, 1, bias=bias)
 
     def forward(self, x):
-        xh = nhwc(x)
-        if not k6.use_kernel(xh):
-            return super().forward(x)
-        y = k6.conv3x3p_bias_act(xh.contiguous(), self.weight.permute(2, 3, 1, 0),
-                                 self.bias)
-        return nchw(y)
+        return nchw(k6.conv3x3_layer(nhwc(x), self.weight, self.bias))
 
 
 # flax convention: running = MOMENTUM·running + (1 − MOMENTUM)·batch

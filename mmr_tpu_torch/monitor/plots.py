@@ -1,7 +1,11 @@
 """Plot files of a training run, counterpart of ``mmr_tpu/monitor/plots.py``
 (``save_losses``, ``save_accuracy_curves``, ``save_dashboard``,
-``save_triptychs``), drawn with numpy into RGB arrays and written by
-:mod:`mmr_tpu_torch.data.png`.
+``save_triptychs``) and of the visualizer's ``--legend`` and
+``--architecture`` (:func:`save_class_legend`,
+:func:`save_architecture_diagram`; ``mmr_tpu/cli/visualize.py``), drawn
+with numpy into RGB arrays and written by :mod:`mmr_tpu_torch.data.png`.
+Text is drawn from :data:`FONT`, a 5×7 bitmap font of printable ASCII
+written out below.
 
 Pixel equality with matplotlib is not a goal. A curve plot is a raster
 line plot: white ground, the plot box, each series a line with a 5×5
@@ -11,7 +15,8 @@ plot box (left, top, width, height in pixels) and the y range, so a
 reader gets the numbers back and finds each point at
 :func:`point_pixel`. A triptych has one row per sample: the image, the
 mask and the prediction, the two id maps coloured by the class key,
-``GAP`` white pixels between panels.
+``GAP`` white pixels between panels. The legend and the diagram keep,
+as JSON in a ``tEXt`` chunk, where each bar, box and arrow lies.
 """
 
 from __future__ import annotations
@@ -154,3 +159,238 @@ def save_triptychs(images, masks, preds, out_path: str | Path,
             img[r:r + h, j * (w + GAP):j * (w + GAP) + w] = p
     meta = {"rows": n, "panels": ["input", "ground truth", "prediction"], "gap": GAP}
     return png.write(out_path, img, {"triptych": json.dumps(meta)})
+
+
+# ------------------------------------------------------------------- text
+
+# 5×7 glyphs of printable ASCII, rows top to bottom, "#" a lit pixel
+FONT = {
+    " ": "..... ..... ..... ..... ..... ..... .....",
+    "!": "..#.. ..#.. ..#.. ..#.. ..#.. ..... ..#..",
+    '"': ".#.#. .#.#. ..... ..... ..... ..... .....",
+    "#": ".#.#. .#.#. ##### .#.#. ##### .#.#. .#.#.",
+    "$": "..#.. .#### #.#.. .###. ..#.# ####. ..#..",
+    "%": "##... ##..# ...#. ..#.. .#... #..## ...##",
+    "&": ".##.. #..#. #.#.. .#... #.#.# #..#. .##.#",
+    "'": "..#.. ..#.. ..... ..... ..... ..... .....",
+    "(": "...#. ..#.. .#... .#... .#... ..#.. ...#.",
+    ")": ".#... ..#.. ...#. ...#. ...#. ..#.. .#...",
+    "*": "..... ..#.. #.#.# .###. #.#.# ..#.. .....",
+    "+": "..... ..#.. ..#.. ##### ..#.. ..#.. .....",
+    ",": "..... ..... ..... ..... .##.. ..#.. .#...",
+    "-": "..... ..... ..... ##### ..... ..... .....",
+    ".": "..... ..... ..... ..... ..... .##.. .##..",
+    "/": "..... ....# ...#. ..#.. .#... #.... .....",
+    "0": ".###. #...# #..## #.#.# ##..# #...# .###.",
+    "1": "..#.. .##.. ..#.. ..#.. ..#.. ..#.. .###.",
+    "2": ".###. #...# ....# ...#. ..#.. .#... #####",
+    "3": "##### ...#. ..#.. ...#. ....# #...# .###.",
+    "4": "...#. ..##. .#.#. #..#. ##### ...#. ...#.",
+    "5": "##### #.... ####. ....# ....# #...# .###.",
+    "6": "..##. .#... #.... ####. #...# #...# .###.",
+    "7": "##### ....# ...#. ..#.. .#... .#... .#...",
+    "8": ".###. #...# #...# .###. #...# #...# .###.",
+    "9": ".###. #...# #...# .#### ....# ...#. .##..",
+    ":": "..... .##.. .##.. ..... .##.. .##.. .....",
+    ";": "..... .##.. .##.. ..... .##.. ..#.. .#...",
+    "<": "...#. ..#.. .#... #.... .#... ..#.. ...#.",
+    "=": "..... ..... ##### ..... ##### ..... .....",
+    ">": ".#... ..#.. ...#. ....# ...#. ..#.. .#...",
+    "?": ".###. #...# ....# ...#. ..#.. ..... ..#..",
+    "@": ".###. #...# ....# .##.# #.#.# #.#.# .###.",
+    "A": ".###. #...# #...# ##### #...# #...# #...#",
+    "B": "####. #...# #...# ####. #...# #...# ####.",
+    "C": ".###. #...# #.... #.... #.... #...# .###.",
+    "D": "###.. #..#. #...# #...# #...# #..#. ###..",
+    "E": "##### #.... #.... ####. #.... #.... #####",
+    "F": "##### #.... #.... ####. #.... #.... #....",
+    "G": ".###. #...# #.... #.### #...# #...# .####",
+    "H": "#...# #...# #...# ##### #...# #...# #...#",
+    "I": ".###. ..#.. ..#.. ..#.. ..#.. ..#.. .###.",
+    "J": "..### ...#. ...#. ...#. ...#. #..#. .##..",
+    "K": "#...# #..#. #.#.. ##... #.#.. #..#. #...#",
+    "L": "#.... #.... #.... #.... #.... #.... #####",
+    "M": "#...# ##.## #.#.# #.#.# #...# #...# #...#",
+    "N": "#...# #...# ##..# #.#.# #..## #...# #...#",
+    "O": ".###. #...# #...# #...# #...# #...# .###.",
+    "P": "####. #...# #...# ####. #.... #.... #....",
+    "Q": ".###. #...# #...# #...# #.#.# #..#. .##.#",
+    "R": "####. #...# #...# ####. #.#.. #..#. #...#",
+    "S": ".#### #.... #.... .###. ....# ....# ####.",
+    "T": "##### ..#.. ..#.. ..#.. ..#.. ..#.. ..#..",
+    "U": "#...# #...# #...# #...# #...# #...# .###.",
+    "V": "#...# #...# #...# #...# #...# .#.#. ..#..",
+    "W": "#...# #...# #...# #.#.# #.#.# #.#.# .#.#.",
+    "X": "#...# #...# .#.#. ..#.. .#.#. #...# #...#",
+    "Y": "#...# #...# .#.#. ..#.. ..#.. ..#.. ..#..",
+    "Z": "##### ....# ...#. ..#.. .#... #.... #####",
+    "[": ".###. .#... .#... .#... .#... .#... .###.",
+    "\\": "..... #.... .#... ..#.. ...#. ....# .....",
+    "]": ".###. ...#. ...#. ...#. ...#. ...#. .###.",
+    "^": "..#.. .#.#. #...# ..... ..... ..... .....",
+    "_": "..... ..... ..... ..... ..... ..... #####",
+    "`": ".#... ..#.. ..... ..... ..... ..... .....",
+    "a": "..... ..... .###. ....# .#### #...# .####",
+    "b": "#.... #.... #.##. ##..# #...# #...# ####.",
+    "c": "..... ..... .###. #.... #.... #...# .###.",
+    "d": "....# ....# .##.# #..## #...# #...# .####",
+    "e": "..... ..... .###. #...# ##### #.... .###.",
+    "f": "..##. .#..# .#... ###.. .#... .#... .#...",
+    "g": "..... .#### #...# #...# .#### ....# .###.",
+    "h": "#.... #.... #.##. ##..# #...# #...# #...#",
+    "i": "..#.. ..... .##.. ..#.. ..#.. ..#.. .###.",
+    "j": "...#. ..... ..##. ...#. ...#. #..#. .##..",
+    "k": "#.... #.... #..#. #.#.. ##... #.#.. #..#.",
+    "l": ".##.. ..#.. ..#.. ..#.. ..#.. ..#.. .###.",
+    "m": "..... ..... ##.#. #.#.# #.#.# #...# #...#",
+    "n": "..... ..... #.##. ##..# #...# #...# #...#",
+    "o": "..... ..... .###. #...# #...# #...# .###.",
+    "p": "..... ..... ####. #...# ####. #.... #....",
+    "q": "..... ..... .##.# #..## .#### ....# ....#",
+    "r": "..... ..... #.##. ##..# #.... #.... #....",
+    "s": "..... ..... .###. #.... .###. ....# ####.",
+    "t": ".#... .#... ###.. .#... .#... .#..# ..##.",
+    "u": "..... ..... #...# #...# #...# #..## .##.#",
+    "v": "..... ..... #...# #...# #...# .#.#. ..#..",
+    "w": "..... ..... #...# #...# #.#.# #.#.# .#.#.",
+    "x": "..... ..... #...# .#.#. ..#.. .#.#. #...#",
+    "y": "..... ..... #...# #...# .#### ....# .###.",
+    "z": "..... ..... ##### ...#. ..#.. .#... #####",
+    "{": "...#. ..#.. ..#.. .#... ..#.. ..#.. ...#.",
+    "|": "..#.. ..#.. ..#.. ..#.. ..#.. ..#.. ..#..",
+    "}": ".#... ..#.. ..#.. ...#. ..#.. ..#.. .#...",
+    "~": "..... ..... .#... #.#.# ...#. ..... .....",
+}
+GLYPH_W, GLYPH_H, ADVANCE = 5, 7, 6   # pixels at scale 1
+
+
+def _glyph(ch: str) -> np.ndarray:
+    rows = FONT.get(ch, FONT["?"]).split()
+    return np.array([[c == "#" for c in r] for r in rows])
+
+
+def text_size(text: str, scale: int = 1) -> tuple[int, int]:
+    """(height, width) in pixels of one line of ``text``."""
+    return GLYPH_H * scale, max(len(text) * ADVANCE - 1, 0) * scale
+
+
+def draw_text(img: np.ndarray, text: str, top: int, left: int,
+              colour=(0, 0, 0), scale: int = 1) -> None:
+    """Draw one line of ``text`` into the RGB array ``img`` with its top
+    left at (``top``, ``left``), each font pixel a ``scale`` × ``scale``
+    square; characters outside :data:`FONT` draw as "?", pixels outside
+    ``img`` are dropped."""
+    for i, ch in enumerate(text):
+        g = np.kron(_glyph(ch), np.ones((scale, scale), bool))
+        r0, c0 = top, left + i * ADVANCE * scale
+        rs, cs = np.nonzero(g)
+        keep = ((rs + r0 >= 0) & (rs + r0 < img.shape[0])
+                & (cs + c0 >= 0) & (cs + c0 < img.shape[1]))
+        img[rs[keep] + r0, cs[keep] + c0] = colour
+
+
+def _text_centred(img, lines: list[str], row: int, col: int, scale: int) -> None:
+    """Lines of text centred on (row, col), 3 scaled pixels between lines."""
+    h = len(lines) * (GLYPH_H + 3) * scale - 3 * scale
+    for k, line in enumerate(lines):
+        w = text_size(line, scale)[1]
+        draw_text(img, line, row - h // 2 + k * (GLYPH_H + 3) * scale,
+                  col - w // 2, scale=scale)
+
+
+# ----------------------------------------------------------------- legend
+
+# matplotlib's ``hot`` colour map (``_cm.py::_hot_data``): per channel the
+# (x, value) points it interpolates between
+_HOT = {"red": ((0.0, 0.0416), (0.365079, 1.0), (1.0, 1.0)),
+        "green": ((0.0, 0.0), (0.365079, 0.0), (0.746032, 1.0), (1.0, 1.0)),
+        "blue": ((0.0, 0.0), (0.746032, 0.0), (1.0, 1.0))}
+
+
+def hot(x: float) -> tuple[int, int, int]:
+    """``matplotlib.cm.hot(x)`` as uint8 RGB: the map's 256-entry table,
+    each entry its channels interpolated at ``k / 255``, indexed by
+    ``min(int(x · 256), 255)``; each channel rounded to 0-255."""
+    k = min(max(int(x * 256), 0), 255)
+    return tuple(int(np.floor(np.interp(k / 255, *zip(*_HOT[c])) * 255 + 0.5))
+                 for c in ("red", "green", "blue"))
+
+
+LEGEND_BAND, LEGEND_W = 60, 480   # pixels a class, legend width
+
+
+def save_class_legend(names: list[str], out_dir: str | Path) -> Path:
+    """``<out_dir>/class_legend.png`` (``cli/visualize.py:78-100``): a bar
+    per class, class 0 at the bottom, in ``cm.hot(i / (n − 1))``, with
+    ``"{i}: {name}"`` to its right. Its ``tEXt`` chunk ``legend`` holds
+    each class's label, colour and bar (top, left, height, width)."""
+    n = len(names)
+    img = np.full((LEGEND_BAND * n, LEGEND_W, 3), 255, np.uint8)
+    bars = []
+    for i, name in enumerate(names):
+        colour = hot(i / max(n - 1, 1))
+        top = (n - 1 - i) * LEGEND_BAND + LEGEND_BAND // 10
+        bar = [top, 16, LEGEND_BAND * 8 // 10, LEGEND_W // 2 - 32]
+        img[bar[0]:bar[0] + bar[2], bar[1]:bar[1] + bar[3]] = colour
+        label = f"{i}: {name}"
+        scale = 2 if text_size(label, 2)[1] <= LEGEND_W // 2 - 24 else 1
+        draw_text(img, label, top + bar[2] // 2 - text_size(label, scale)[0] // 2,
+                  LEGEND_W // 2 - 8, scale=scale)
+        bars.append({"label": label, "colour": list(colour), "bar": bar})
+    return png.write(Path(out_dir) / "class_legend.png", img,
+                     {"legend": json.dumps({"classes": bars})})
+
+
+# ---------------------------------------------------------------- diagram
+
+DIAGRAM = (720, 1440)   # height, width: JAX's 12 × 6 in at 120 dpi
+
+
+def save_architecture_diagram(arch: str, encoder: str | None, n_classes: int,
+                              n_params: int, out_dir: str | Path) -> Path:
+    """``<out_dir>/architecture_diagram.png`` (``cli/visualize.py:103-153
+    save_architecture_diagram``): the six labelled boxes (input, encoder,
+    decoder, output, skip connections, parameter count) and the five
+    arrows, on JAX's 8 × 5.5 axes, titled ``"{arch} architecture"``. Its
+    ``tEXt`` chunk ``diagram`` holds each box's label, colour and (top,
+    left, height, width) and each arrow's end points (row, column)."""
+    h, w = DIAGRAM
+    img = np.full((h, w, 3), 255, np.uint8)
+    px = lambda x, y: (int(round(60 + (5.5 - y) / 5.5 * (h - 90))),
+                       int(round(40 + x / 8 * (w - 80))))
+    comps = [
+        ("Input Image\n(H, W, 3)", (1, 4), "#FFE5B4"),
+        (f"Encoder\n{encoder or 'built-in'}", (3, 4), "#87CEEB"),
+        (f"Decoder\n{arch}", (5, 4), "#98FB98"),
+        (f"Output\n(H, W, {n_classes})", (7, 4), "#FFB6C1"),
+        ("Skip Connections", (4, 2.5), "#DDA0DD"),
+        (f"{n_params:,} parameters", (4, 1.2), "#F0E68C"),
+    ]
+    boxes = []
+    for label, (cx, cy), hexc in comps:
+        colour = tuple(int(hexc[k:k + 2], 16) for k in (1, 3, 5))
+        (r0, c0), (r1, c1) = px(cx - 0.6, cy + 0.4), px(cx + 0.6, cy - 0.4)
+        img[r0:r1, c0:c1] = 0
+        img[r0 + 2:r1 - 2, c0 + 2:c1 - 2] = colour
+        lines = label.split("\n")
+        scale = 2 if max(text_size(t, 2)[1] for t in lines) < c1 - c0 - 8 else 1
+        _text_centred(img, lines, (r0 + r1) // 2, (c0 + c1) // 2, scale)
+        boxes.append({"label": label, "colour": list(colour),
+                      "box": [r0, c0, r1 - r0, c1 - c0]})
+    arrows = []
+    for p0, p1 in [((1.6, 4), (2.4, 4)), ((3.6, 4), (4.4, 4)),
+                   ((5.6, 4), (6.4, 4)), ((3.4, 3.7), (4, 2.9)),
+                   ((4, 2.9), (4.8, 3.7))]:
+        a, b = px(*p0), px(*p1)
+        for d in ((0, 0), (0, 1), (1, 0)):   # a line 2 pixels wide
+            _line(img, (a[0] + d[0], a[1] + d[1]), (b[0] + d[0], b[1] + d[1]), (0, 0, 0))
+        v = np.subtract(b, a) / max(np.hypot(*np.subtract(b, a)), 1)
+        for side in (1, -1):   # the head: two strokes back from the tip
+            back = np.array(b) - 14 * v + side * 7 * np.array([-v[1], v[0]])
+            _line(img, b, tuple(int(round(t)) for t in back), (0, 0, 0))
+        arrows.append([list(a), list(b)])
+    title = f"{arch} architecture"
+    draw_text(img, title, 16, (w - text_size(title, 3)[1]) // 2, scale=3)
+    meta = {"title": title, "boxes": boxes, "arrows": arrows}
+    return png.write(Path(out_dir) / "architecture_diagram.png", img,
+                     {"diagram": json.dumps(meta)})

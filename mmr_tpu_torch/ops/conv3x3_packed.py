@@ -1,15 +1,19 @@
 """The standalone 3×3 stride-1 SAME conv: K6a (:func:`conv3x3`, conv +
 bias (+ ReLU)), K6b (:func:`conv3x3_dw`, its weight gradient), their plain
 PyTorch versions, the autograd op :func:`conv3x3p_bias_act` that joins them
-and the dispatch predicate :func:`use_kernel`.
+(or the library conv, per direction) and the dispatch predicate
+:func:`use_kernel`.
 
 Counterpart of ``mmr_tpu/ops/pallas/conv3x3_packed.py`` (``_conv_packed``,
 ``_conv_packed_dw``, ``conv3x3p_bias_act`` and its custom VJP,
 ``_dispatch_packed``). The TPU's p-pixel block-Toeplitz lane packing is not
 ported: tensors are plain NHWC, and the kernels
-(``mmr_tpu_torch/csrc/conv3x3.cu``) read x once and write y once. So the
-dispatch keeps the size clause of ``dispatch.py::use_packed`` (output
-H·W ≥ 64·64) and drops its packing-waste clause, which has no meaning here.
+(``mmr_tpu_torch/csrc/conv3x3.cu``) read x once and write y once. Which
+direction of a bf16 conv takes the kernels is decided per shape by
+:mod:`mmr_tpu_torch.ops.dispatch` (the table measured on the card, else
+output H·W ≥ 64·64): the forward at ``(h, w, cin, cout)``, the backward at
+``(h, w, cout, cin)``, as JAX's ``_fwd`` and ``_bwd`` each call
+``_dispatch_packed``.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; any other device raises. ``<wrapper>.launches``
@@ -25,28 +29,37 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
 
-from mmr_tpu_torch.ops import _build
+from mmr_tpu_torch.ops import _build, dispatch
 from mmr_tpu_torch.ops.fused_conv import (BF16, _check_bias, _check_grad,
                                           _launch_device, _pack_taps, _ptr,
                                           _raise_on, _round, _stream,
                                           _wg_tile)
 
-# None: dispatch by size; True / False: every bf16 Conv3x3 takes / skips
-# the kernel (tests and yardsticks; ``conv3x3_packed.py::_FORCE``)
+# None: dispatch by the table; True / False: every bf16 Conv3x3 takes /
+# skips the kernels in both directions (tests and yardsticks;
+# ``conv3x3_packed.py::_FORCE``)
 _FORCE: bool | None = None
-MIN_HW = 64 * 64
 
 
-def use_kernel(x: torch.Tensor) -> bool:
-    """Whether a ``Conv3x3`` on NHWC ``x`` runs through
-    :func:`conv3x3p_bias_act`: a bf16 input whose H·W ≥ 64·64 (the size
-    clause of ``dispatch.py::use_packed``), or any bf16 input under
-    ``_FORCE``. f32 convs stay on the library conv, as in JAX."""
-    if x.dtype != BF16:
+def use_kernel(dtype: torch.dtype, h: int, w: int, cin: int, cout: int) -> bool:
+    """Whether a 3×3 conv of an NHWC (B, h, w, cin) input of ``dtype`` to
+    ``cout`` channels runs on K6: bf16 only (f32 convs stay on the library
+    conv, as in JAX), every one under ``_FORCE``, else as
+    :func:`mmr_tpu_torch.ops.dispatch.use_kernel` says for the key. The
+    backward asks at ``(h, w, cout, cin)``."""
+    if dtype != BF16:
         return False
     if _FORCE is not None:
         return _FORCE
-    return x.shape[1] * x.shape[2] >= MIN_HW
+    return dispatch.use_kernel(h, w, cin, cout)
+
+
+def routes(x: torch.Tensor, cout: int) -> tuple[bool, bool]:
+    """(forward, backward) on K6 for a conv of NHWC ``x`` to ``cout``
+    channels, each asked at its own key."""
+    _, h, w, cin = x.shape
+    return (use_kernel(x.dtype, h, w, cin, cout),
+            use_kernel(x.dtype, h, w, cout, cin))
 
 
 def _check_x(x: torch.Tensor):
@@ -174,16 +187,49 @@ def launch_dw(x: torch.Tensor, g: torch.Tensor, name: str) -> torch.Tensor:
 
 # -------------------------------------------------------------- autograd
 
+def _library_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+                 relu: bool) -> torch.Tensor:
+    """The library route of the forward: the library conv of NHWC ``x``
+    over the HWIO weights and the bias cast to its dtype, as
+    ``layers.Conv2d`` runs it, then ReLU; NHWC out. It rounds as the port's
+    ``Conv2d`` does, not as JAX's ``_lax_conv``: the bias is rounded to bf16
+    and added by the conv, where JAX adds it in f32 to the f32 product and
+    rounds once."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
+                 None if bias is None else bias.to(x.dtype), padding=1)
+    if relu:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 1)
+
+
+def _library_bwd(x: torch.Tensor, w: torch.Tensor, gin: torch.Tensor,
+                 need_dx: bool, need_dw: bool):
+    """The library route of the backward: dx and dW of the bf16 cotangent
+    ``gin`` by the library conv's own backward, bf16 in, f32 accumulation;
+    (dx NHWC, dW HWIO). dW comes out rounded to bf16, as the port's
+    ``Conv2d`` backward gives it, where K6b's and JAX's ``lax`` branch of
+    ``_bwd`` (``preferred_element_type=f32``) keep f32."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gin.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1).to(gin.dtype), None, [1, 1], [1, 1], [1, 1],
+        False, [0, 0], 1, [need_dx, need_dw, False])
+    return (None if dx is None else dx.permute(0, 2, 3, 1).contiguous(),
+            None if dw is None else dw.float().permute(2, 3, 1, 0))
+
+
 class Conv3x3Fn(torch.autograd.Function):
-    """K6a forward; backward (``conv3x3_packed.py::_bwd``): the ReLU mask
-    when ``relu``, then K6a on the bf16 cotangent with flipped, transposed
-    taps and no bias for dx, K6b for dW, and dbias = Σg in f32 when there
-    is a bias."""
+    """Forward on K6a or the library conv (``fwd_kernel``); backward
+    (``conv3x3_packed.py::_bwd``): the ReLU mask when ``relu``, then on
+    ``bwd_kernel`` K6a on the bf16 cotangent with flipped, transposed taps
+    and no bias for dx and K6b for dW, else both by the library conv on
+    that same cotangent; dbias = Σg in f32 when there is a bias. The two
+    routes are decided apart, each at its own key (:func:`routes`)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, relu):
-        y = conv3x3(x, w, bias, relu)
+    def forward(ctx, x, w, bias, relu, fwd_kernel, bwd_kernel):
+        y = (conv3x3 if fwd_kernel else _library_fwd)(x, w, bias, relu)
         ctx.relu = relu
+        ctx.bwd_kernel = bwd_kernel
         ctx.has_bias = bias is not None
         ctx.save_for_backward(x, w, y if relu else None)
         return y
@@ -195,20 +241,44 @@ class Conv3x3Fn(torch.autograd.Function):
         if ctx.relu:
             g = torch.where(y > 0, g, 0.0)
         gin = g.to(BF16).contiguous()
+        need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = dbias = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3x3(gin, w.flip(0, 1).transpose(2, 3))
-        if ctx.needs_input_grad[1]:
-            dw = conv3x3_dw(x, gin).to(w.dtype)
+        if not ctx.bwd_kernel:
+            dx, dw = _library_bwd(x, w, gin, need_dx, need_dw)
+        else:
+            if need_dx:
+                dx = conv3x3(gin, w.flip(0, 1).transpose(2, 3))
+            if need_dw:
+                dw = conv3x3_dw(x, gin)
+        if dw is not None:
+            dw = dw.to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             dbias = g.sum((0, 1, 2))
-        return dx, dw, dbias, None
+        return dx, dw, dbias, None, None, None
 
 
 def conv3x3p_bias_act(x: torch.Tensor, w: torch.Tensor,
-                      bias: torch.Tensor | None = None,
-                      relu: bool = False) -> torch.Tensor:
-    """Differentiable :func:`conv3x3` (K6a forward; K6a dx and K6b dW
-    backward): NHWC bf16 ``x``, HWIO ``w``, ``bias`` or None (no bias: no
-    dbias reduction, as ``has_bias=False``)."""
-    return Conv3x3Fn.apply(x, w, bias, relu)
+                      bias: torch.Tensor | None = None, relu: bool = False,
+                      fwd_kernel: bool = True,
+                      bwd_kernel: bool = True) -> torch.Tensor:
+    """Differentiable 3×3 SAME conv + bias (+ ReLU): NHWC bf16 ``x``, HWIO
+    ``w``, ``bias`` or None (no bias: no dbias reduction, as
+    ``has_bias=False``). The forward on K6a (``fwd_kernel``) or the library
+    conv, the backward on K6a dx + K6b dW (``bwd_kernel``) or the library
+    conv; :func:`conv3x3_layer` passes :func:`routes`."""
+    return Conv3x3Fn.apply(x, w, bias, relu, fwd_kernel, bwd_kernel)
+
+
+def conv3x3_layer(x: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor | None = None,
+                  relu: bool = False) -> torch.Tensor:
+    """What ``models.layers.Conv3x3`` runs (and the table's tuner times):
+    NHWC ``x``, OIHW ``w`` (the layer's f32 parameters), ``bias`` or None.
+    :func:`conv3x3p_bias_act` on the :func:`routes` of ``x`` where either
+    direction takes K6, else the library conv under torch's autograd
+    (:func:`_library_fwd`, as ``layers.Conv2d``); NHWC out."""
+    fwd, bwd = routes(x, w.shape[0])
+    w = w.permute(2, 3, 1, 0)
+    if fwd or bwd:
+        return conv3x3p_bias_act(x.contiguous(), w, bias, relu, fwd, bwd)
+    return _library_fwd(x, w, bias, relu)

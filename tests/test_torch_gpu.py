@@ -30,6 +30,7 @@ from mmr_tpu_torch.ops.fused_conv import (Pending, fused_conv, fused_conv_bwd,
                                           fused_conv_down_bwd,
                                           fused_conv_down_bwd_ref,
                                           fused_conv_down_ref, fused_conv_ref)
+from mmr_tpu_torch.ops import conv3x3_packed as k6_ops
 from mmr_tpu_torch.ops.confusion import confusion_stats, confusion_stats_ref
 from mmr_tpu_torch.ops.conv3x3_packed import (conv3x3, conv3x3_dw,
                                               conv3x3_dw_ref, conv3x3_ref,
@@ -749,6 +750,33 @@ def test_k6_autograd_op(dev):
         _grad_close("dbias", bias.grad, gm.sum((0, 1, 2)))
 
 
+@pytest.mark.parametrize("fwd_kernel,bwd_kernel", [(True, False), (False, True)])
+def test_k6_routes_apart(dev, fwd_kernel, bwd_kernel):
+    """``conv3x3p_bias_act`` with its forward and its backward on different
+    routes (the per-shape table decides each apart), at Segformer's head
+    (256 → 10 at 128×160): the
+    kernel direction launches K6a / K6b, the other none; y, dx, dW and
+    dbias held against the plain versions on the same bf16 cotangent (y
+    of the library route: the weights and the bias rounded to bf16)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _rand(g, dev, 8, 128, 160, 256, dtype=torch.bfloat16).requires_grad_()
+    w = _rand(g, dev, 3, 3, 256, 10, scale=0.02).requires_grad_()
+    bias = _rand(g, dev, 10, scale=0.5).requires_grad_()
+    gy = _rand(g, dev, 8, 128, 160, 10, dtype=torch.bfloat16)
+    k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    y = conv3x3p_bias_act(x, w, bias, False, fwd_kernel, bwd_kernel)
+    assert conv3x3.launches - k6a == int(fwd_kernel)
+    y.backward(gy)
+    assert conv3x3.launches - k6a == int(fwd_kernel) + int(bwd_kernel)
+    assert conv3x3_dw.launches - k6b == int(bwd_kernel)
+    with torch.no_grad():
+        b16 = bias if fwd_kernel else bias.to(torch.bfloat16)
+        _close(y, conv3x3_ref(x, w, b16))
+        _grad_close("dx", x.grad, conv3x3_ref(gy, w.flip(0, 1).transpose(2, 3)))
+        _grad_close("dw", w.grad, conv3x3_dw_ref(x, gy))
+        _grad_close("dbias", bias.grad, gy.float().sum((0, 1, 2)))
+
+
 @pytest.mark.parametrize("shape,pdt,gdt,nc", [
     ((4, 256, 256), torch.int64, torch.uint8, 10),     # Path A's eval batch
     ((3, 37, 53), torch.int64, torch.int64, 10),
@@ -862,11 +890,42 @@ def test_evaluate_add_batch_makes_no_sync(dev):
                                   3 * want.double().cpu().numpy())
 
 
+def _k6_hooks(model):
+    """Forward pre-hooks on every ``Conv3x3`` of ``model`` that note (h, w,
+    cin, cout, needs dx) of each bf16 conv a forward runs; returns (the
+    list they fill, their handles)."""
+    from mmr_tpu_torch.models.layers import Conv3x3
+
+    shapes = []
+
+    def hook(m, a):
+        if a[0].dtype == torch.bfloat16:
+            shapes.append((a[0].shape[2], a[0].shape[3], m.in_channels,
+                           m.out_channels, a[0].requires_grad))
+    return shapes, [m.register_forward_pre_hook(hook) for m in model.modules()
+                    if isinstance(m, Conv3x3)]
+
+
+def _table_k6(shapes) -> tuple[int, int, int]:
+    """(K6a forwards, K6a dx, K6b) the committed dispatch table asks of one
+    train step over these Conv3x3 shapes: each forward at (h, w, cin,
+    cout), each backward at (h, w, cout, cin), a dx where the input needs a
+    gradient."""
+    from mmr_tpu_torch.ops.conv3x3_packed import use_kernel
+
+    bf16 = torch.bfloat16
+    bwd = [use_kernel(bf16, h, w, co, ci) for h, w, ci, co, _ in shapes]
+    return (sum(use_kernel(bf16, h, w, ci, co) for h, w, ci, co, _ in shapes),
+            sum(b and s[4] for b, s in zip(bwd, shapes)), sum(bwd))
+
+
 def test_path_a_train_and_eval_on_card(dev):
     """A few Path-A steps (UNet++/ResNet-18 in bf16, Adam, blended loss,
-    Path-A augmentation) at 128x128: 11 Conv3x3s at H·W >= 4096 give 22
-    K6a + 11 K6b launches per step; the loss is finite and falls; then
-    ``evaluate_checkpoint``: one K7 launch and 11 K6a per batch."""
+    Path-A augmentation) at 128x128: 23 bf16 Conv3x3s, 11 of them at H·W >=
+    4096; the K6a / K6b launches a step are those the committed dispatch
+    table asks of their shapes (a shape it lacks takes K6 at H·W >= 4096);
+    the loss is finite and falls; then ``evaluate_checkpoint``: one K7
+    launch and the table's K6a forwards per batch."""
     import functools
 
     from mmr_tpu_torch.data.augment import augment_path_a_batch
@@ -887,16 +946,21 @@ def test_path_a_train_and_eval_on_card(dev):
     masks = torch.randint(0, 10, (1, 2, 128, 128), generator=g)
     gen = torch.Generator(device=dev).manual_seed(0)
     k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    shapes, hooks = _k6_hooks(model)
     losses = []
     for _ in range(4):
         state, m = step(state, images, masks, 1e-3, gen)
         losses.append(float(m["loss"]))
-    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (4 * 22, 4 * 11)
+        for h in hooks:
+            h.remove()
+    assert len(shapes) == 23 and sum(s[0] * s[1] >= 4096 for s in shapes) == 11
+    fwd, dx, dw = _table_k6(shapes)
+    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (4 * (fwd + dx), 4 * dw)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     k6a, k7 = conv3x3.launches, confusion_stats.launches
     rep = evaluate_checkpoint(model, [(images[0], masks[0].to(torch.uint8))], 10,
                               loss_fn=loss_fn)
-    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (11, 1)
+    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (fwd, 1)
     assert np.isfinite(rep["loss"]) and 0.0 <= rep["mean_iou"] <= 1.0
 
 
@@ -1053,12 +1117,16 @@ def test_k6_zoo_shapes(dev, b, h, w, cin, cout):
 @pytest.mark.parametrize("arch,k6,dx", [
     ("smp_unet18", 7, 7), ("smp_MANet", 8, 8), ("unet", 12, 11),
     ("segnet", 0, 0), ("resnet18", 0, 0), ("smp_DeepLabV3+", 0, 0)])
-def test_zoo_train_and_eval_on_card(dev, arch, k6, dx):
+def test_zoo_train_and_eval_on_card(dev, monkeypatch, arch, k6, dx):
     """Two bf16 Path-A steps of each zoo model at 256x256, B=2 (Adam,
-    blended loss, augmentation, dropout from the step's generator): per
-    step K6a k6 forward + dx launches (UNet's first conv reads the image,
-    which needs no gradient: 11 dx) and K6b k6, the loss finite; one eval
-    batch through ``evaluate_checkpoint``: k6 K6a launches and one K7."""
+    blended loss, augmentation, dropout from the step's generator): ``k6``
+    of its Conv3x3s at H·W >= 4096, ``dx`` of them with a dx (UNet's first
+    conv reads the image, which needs no gradient); per step the K6a
+    forward + dx and K6b launches the committed dispatch table asks of all
+    its Conv3x3 shapes, the loss finite; one eval batch through
+    ``evaluate_checkpoint``: the table's K6a forwards and one K7; then one
+    step under ``_FORCE``: every Conv3x3 on K6a (forward and dx) and K6b,
+    the loss finite."""
     import contextlib
     import functools
     import io
@@ -1081,15 +1149,27 @@ def test_zoo_train_and_eval_on_card(dev, arch, k6, dx):
     masks = torch.randint(0, 10, (1, 2, 256, 256), generator=g)
     gen = torch.Generator(device=dev).manual_seed(0)
     k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    shapes, hooks = _k6_hooks(model)
     for _ in range(2):
         state, m = step(state, images, masks, 1e-3, gen)
         assert np.isfinite(float(m["loss"]))
-    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (2 * (k6 + dx), 2 * k6)
+        for h in hooks:
+            h.remove()
+    big = [s for s in shapes if s[0] * s[1] >= 4096]
+    assert (len(big), sum(s[4] for s in big)) == (k6, dx)
+    fwd, n_dx, dw = _table_k6(shapes)
+    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (2 * (fwd + n_dx), 2 * dw)
     k6a, k7 = conv3x3.launches, confusion_stats.launches
     with contextlib.redirect_stdout(io.StringIO()):
         report = evaluate_checkpoint(model, [(images[0], masks[0])], 10)
-    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (k6, 1)
+    assert (conv3x3.launches - k6a, confusion_stats.launches - k7) == (fwd, 1)
     assert np.isfinite(report["mean_iou"])
+    monkeypatch.setattr(k6_ops, "_FORCE", True)
+    k6a, k6b = conv3x3.launches, conv3x3_dw.launches
+    state, m = step(state, images, masks, 1e-3, gen)
+    assert np.isfinite(float(m["loss"]))
+    assert (conv3x3.launches - k6a, conv3x3_dw.launches - k6b) == (
+        len(shapes) + sum(s[4] for s in shapes), len(shapes))
 
 
 # ------------------------------------------------ Path B: augmentation, Trainer

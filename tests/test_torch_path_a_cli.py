@@ -67,11 +67,18 @@ def test_classes_match_jax(tmp_path):
 
 # --------------------------------------------------------------- PNG codec
 
+def _cv2_rgb(data: bytes, unchanged: bool) -> np.ndarray:
+    """``cv2.imdecode`` in either mode, channels turned to RGB(A) order."""
+    a = cv2.imdecode(np.frombuffer(data, np.uint8),
+                     cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR)
+    return a[..., [2, 1, 0, 3][:a.shape[2]]] if a.ndim == 3 else a
+
+
 @pytest.mark.parametrize("kind", ["grey", "rgb", "rgba", "palette"])
 def test_png_reads_as_cv2(tmp_path, kind):
-    """The decoder against ``cv2.imread`` (colour files: BGR → RGB) on files
-    libpng writes (adaptive row filters), and a palette file written here;
-    the encoder's files read back by cv2."""
+    """The decoder against ``cv2.imread`` in both modes (colour files: BGR →
+    RGB) on files libpng writes (adaptive row filters), and a palette file
+    written here; the encoder's files read back by cv2."""
     rng = np.random.RandomState(3)
     f = tmp_path / f"{kind}.png"
     if kind == "palette":
@@ -83,43 +90,72 @@ def test_png_reads_as_cv2(tmp_path, kind):
     else:
         img = _smooth(rng, 37, 53, {"grey": 1, "rgb": 3, "rgba": 4}[kind])
         cv2.imwrite(str(f), img[..., 0] if kind == "grey" else img)
-    got = png.read(f)
-    if kind == "grey":
-        want = cv2.imread(str(f), cv2.IMREAD_UNCHANGED)
-    else:
-        want = cv2.imread(str(f))[..., ::-1]
-    assert got.dtype == np.uint8
-    np.testing.assert_array_equal(got, want)
+    for unchanged in (False, True):
+        got = png.read(f, unchanged=unchanged)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, _cv2_rgb(f.read_bytes(), unchanged))
+    got = got[..., :3] if got.ndim == 3 else got
     png.write(tmp_path / "w.png", got, {"k": "v"})
     back = cv2.imread(str(tmp_path / "w.png"), cv2.IMREAD_UNCHANGED)
     np.testing.assert_array_equal(back if got.ndim == 2 else back[..., ::-1], got)
     assert png.read_text(tmp_path / "w.png") == {"k": "v"}
 
 
-@pytest.mark.parametrize("case", ["16-bit", "interlaced", "grey + alpha",
-                                  "bad CRC", "truncated"])
+def _formats():
+    """(id, samples, depth, colour, interlace, palette, tRNS) of the PNG
+    formats beyond 8-bit, non-interlaced grey / RGB / RGBA."""
+    rng = np.random.RandomState(4)
+    s = lambda n, top, hw=(13, 21): rng.randint(0, top + 1, (*hw, n))
+    pal = rng.randint(0, 256, (16, 3)).astype(np.uint8)
+    key = s(3, 255, (9, 11))
+    key[0, 0] = key[-1, -1] = (7, 8, 9)
+    return [
+        ("16-bit", s(1, 65535), 16, 0, False, None, None),
+        ("interlaced", s(3, 255, (19, 23)), 8, 2, True, None, None),
+        ("grey + alpha", s(2, 255), 8, 4, False, None, None),
+        ("grey + alpha 16-bit interlaced", s(2, 65535), 16, 4, True, None, None),
+        ("RGB 16-bit", s(3, 65535), 16, 2, False, None, None),
+        ("RGBA 16-bit interlaced", s(4, 65535, (5, 3)), 16, 6, True, None, None),
+        ("grey 1-bit", s(1, 1), 1, 0, False, None, None),
+        ("grey 2-bit interlaced", s(1, 3, (11, 9)), 2, 0, True, None, None),
+        ("grey 4-bit", s(1, 15, (7, 13)), 4, 0, False, None, None),
+        ("palette 1-bit", s(1, 1), 1, 3, False, pal[:2], None),
+        ("palette 2-bit tRNS", s(1, 3), 2, 3, False, pal[:4], bytes([0, 90])),
+        ("palette 4-bit interlaced", s(1, 15, (17, 10)), 4, 3, True, pal, None),
+        ("palette 8-bit tRNS", s(1, 15), 8, 3, False, pal, bytes(range(0, 250, 25))),
+        ("RGB tRNS", key, 8, 2, False, None, bytes([0, 7, 0, 8, 0, 9])),
+        ("grey tRNS", s(1, 255), 8, 0, False, None, bytes([0, 5])),
+    ]
+
+
+@pytest.mark.parametrize("case", _formats(), ids=lambda c: c[0])
+def test_png_formats_read_as_cv2(case):
+    """16-bit, Adam7-interlaced, grey + alpha, 1/2/4-bit grey and palette
+    files and ``tRNS`` read equal to ``cv2.imread`` in both modes: the
+    image mode 8-bit RGB (16 bits keep their high byte), the unchanged mode
+    uint16 kept and alpha kept (RGB(A) order)."""
+    from tests.torch_fixtures.png_fixtures import encode
+
+    _, samples, depth, colour, interlace, pal, trns = case
+    data = encode(samples, depth, colour, interlace, pal, trns)
+    for unchanged in (False, True):
+        got = png.decode(data, unchanged=unchanged)[0]
+        want = _cv2_rgb(data, unchanged)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["bad CRC", "truncated"])
 def test_png_refuses(tmp_path, case):
     f = tmp_path / "x.png"
     rows = np.zeros((4, 1 + 4 * 3), np.uint8).tobytes()
-    if case == "16-bit":
-        cv2.imwrite(str(f), np.full((4, 4), 1000, np.uint16))
-        match = "bit depth 16"
-    elif case == "interlaced":
-        f.write_bytes(_png_bytes((4, 4, 8, 2, 0, 0, 1), rows))
-        match = "interlaced"
-    elif case == "grey + alpha":
-        f.write_bytes(_png_bytes((6, 4, 8, 4, 0, 0, 0), rows))
-        match = "colour type 4"
+    data = _png_bytes((4, 4, 8, 2, 0, 0, 0), rows)
+    if case == "bad CRC":
+        data = data[:30] + bytes([data[30] ^ 1]) + data[31:]
     else:
-        data = _png_bytes((4, 4, 8, 2, 0, 0, 0), rows)
-        if case == "bad CRC":
-            data = data[:30] + bytes([data[30] ^ 1]) + data[31:]
-            match = "bad CRC"
-        else:
-            data = data[:-20]
-            match = "truncated"
-        f.write_bytes(data)
-    with pytest.raises(ValueError, match=match):
+        data = data[:-20]
+    f.write_bytes(data)
+    with pytest.raises(ValueError, match=case):
         png.read(f)
 
 
@@ -168,6 +204,41 @@ def test_png_dataset_matches_jax(png_root, split, crop, shuffle):
     assert n == 3
     if crop != -1:   # an item alone crops from the global numpy generator
         np.testing.assert_array_equal(mine[1][1], theirs[1][1])
+
+
+def test_png_dataset_reads_fixture_formats(tmp_path):
+    """A folder of ``tests/torch_fixtures/png`` (16-bit, Adam7 and grey +
+    alpha images; 16-bit, Adam7 and 4-bit id masks): each item equals the
+    JAX class's exactly, and each file decodes to ``records.json``'s cv2
+    decode in both modes. A grey + alpha mask reads as four channels: the
+    JAX class fails on it (numpy cannot broadcast it against the RGB key),
+    the port raises naming the file."""
+    import hashlib
+    import shutil
+
+    from mmr_tpu.data.png_dataset import PngFolderDataset as DatasetJ
+    from tests.torch_fixtures.png_fixtures import OUT, encode
+
+    records = json.loads((OUT / "records.json").read_text())
+    for name, rec in records.items():
+        for mode, want in rec.items():
+            a = png.read(OUT / name, unchanged=mode == "unchanged")
+            assert [list(a.shape), str(a.dtype)] == [want["shape"], want["dtype"]]
+            assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"], name
+    shutil.copytree(OUT, tmp_path / "val", ignore=shutil.ignore_patterns("*.json"))
+    args = (tmp_path, "val", (64, 64), 256, 10)
+    mine, theirs = PngFolderDataset(*args), DatasetJ(*args)
+    assert len(mine.files) == 3
+    for i in range(3):
+        for a, b in zip(mine[i], theirs[i]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    gt = tmp_path / "val" / "groundtruth" / mine.files[0]
+    gt.write_bytes(encode(np.full((64, 64, 2), 3), 8, 4))
+    with pytest.raises(ValueError):
+        DatasetJ(*args)[0]
+    with pytest.raises(ValueError, match=mine.files[0]):
+        PngFolderDataset(*args)[0]
 
 
 def test_png_dataset_colour_masks(tmp_path):

@@ -2,8 +2,11 @@
 kernels, run in interpret mode as ``tests/test_conv3x3_kernel.py`` runs
 them: K6a (``conv3x3_packed.py::_conv_packed``), K6b (``_conv_packed_dw``),
 the port's autograd op against the VJP of JAX's ``conv3x3p_bias_act``, and
-K7 (``confusion.py::confusion_stats``), its running total included; then the dispatch predicate over
-the 256×256 Path-A plan. Inputs are bf16 values made with seeded numpy.
+K7 (``confusion.py::confusion_stats``), its running total included; then the per-shape dispatch
+(``ops/dispatch.py``): the committed table over the 256×256 Path-A plan,
+its fallback and ``_FORCE``, and a conv whose forward and backward take
+different routes against JAX's VJP. Inputs are bf16 values made with
+seeded numpy.
 """
 
 import numpy as np
@@ -162,31 +165,144 @@ def test_k7_running_total_matches_pallas(rng):
 
 
 def test_dispatch_over_the_path_a_plan(monkeypatch):
-    """Which Conv3x3s of the UNet++/ResNet-18 plan at 256×256 take K6: the
-    16 decoder convs and the head whose output H·W ≥ 64·64 (Cin 16 … 320,
-    Cout 10 … 64), in bf16 only; the 6 coarser convs and every f32 conv
-    stay on the library conv. Shapes only: the model runs on the meta
-    device with the op counted, not computed."""
+    """Which Conv3x3s of the UNet++/ResNet-18 plan at 256×256 take K6, and
+    in which direction: the committed table (``ops/conv_table.json``) has
+    both keys of each of the 23 convs, and a bf16 conv reaches the op
+    exactly when the table sends its forward (h, w, cin, cout) or its
+    backward (h, w, cout, cin) to the kernels, with those two routes;
+    under ``_FORCE`` all 23 take both; f32 convs never. Shapes only: the
+    model runs on the meta device with the op counted, not computed."""
     from mmr_tpu_torch.models import create_model
+    from mmr_tpu_torch.ops import dispatch
 
-    calls = []
+    calls, seen = [], []
 
-    def counted(x, w, bias=None, relu=False):
-        calls.append((tuple(x.shape), tuple(w.shape)))
+    def counted(x, w, bias=None, relu=False, fwd_kernel=True, bwd_kernel=True):
+        calls.append((tuple(x.shape), tuple(w.shape), fwd_kernel, bwd_kernel))
         return x.new_empty(x.shape[:3] + (w.shape[3],))
 
     monkeypatch.setattr(k6, "conv3x3p_bias_act", counted)
     x = torch.empty(8, 256, 256, 3, device="meta")
-    for dtype in (torch.float32, BF16):
-        calls.clear()
-        model = create_model("smp_UNet++", classes=10, device="cpu",
-                             dtype=dtype).to("meta")
+    model = create_model("smp_UNet++", classes=10, device="cpu",
+                         dtype=torch.float32).to("meta")
+    with torch.no_grad():
+        model(x)
+    assert not calls
+    model = create_model("smp_UNet++", classes=10, device="cpu").to("meta")
+    convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
+    assert len(convs) == 23
+    for m in convs:
+        m.register_forward_pre_hook(lambda m, a: seen.append(
+            (a[0].shape[2], a[0].shape[3], m.in_channels, m.out_channels)))
+    entries = dispatch.table()["shapes"]
+    want = []
+    for force in (None, True):
+        monkeypatch.setattr(k6, "_FORCE", force)
+        calls.clear(), seen.clear()
         with torch.no_grad():
             assert model(x).shape == (8, 256, 256, 10)
-        if dtype == torch.float32:
-            assert not calls
-    assert sum(isinstance(m, Conv3x3) for m in model.modules()) == 23
-    assert len(calls) == 17
-    assert all(s[1] * s[2] >= 64 * 64 for s, _ in calls)
-    assert sorted({w[2] for _, w in calls}) == [16, 32, 64, 128, 192, 256, 320]
-    assert sorted({w[3] for _, w in calls}) == [10, 16, 32, 64]
+        assert len(seen) == 23
+        if force is None:
+            for h, w, cin, cout in seen:
+                fwd = entries[dispatch.shape_key(h, w, cin, cout)]["kernel_wins"]
+                bwd = entries[dispatch.shape_key(h, w, cout, cin)]["kernel_wins"]
+                if fwd or bwd:
+                    want.append(((8, h, w, cin), (3, 3, cin, cout), fwd, bwd))
+        else:
+            want = [((8, h, w, cin), (3, 3, cin, cout), True, True)
+                    for h, w, cin, cout in seen]
+        assert calls == want
+
+
+def test_dispatch_table_and_fallback(monkeypatch, tmp_path):
+    """``dispatch.use_kernel`` follows the committed table's verdict at a
+    key it has (JAX's ``bench_conv_kernel.py`` shapes, both directions,
+    measured on the card it names) and the size clause elsewhere (H·W ≥
+    64·64); ``conv3x3_packed.use_kernel`` keeps f32 on the library conv and
+    obeys ``_FORCE``; ``record`` merges entries and fields and clears the
+    cache."""
+    import importlib.util
+
+    from mmr_tpu_torch.ops import dispatch
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_conv_kernel", "benchmarks/bench_conv_kernel.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert dispatch.BENCH_SHAPES == bench.SHAPES
+    table = dispatch.table()
+    assert "H100" in table["card"] and table["commit"]
+    for hw, cin, cout in dispatch.BENCH_SHAPES:
+        for a, b in ((cin, cout), (cout, cin)):
+            e = table["shapes"][dispatch.shape_key(hw, hw, a, b)]
+            assert dispatch.use_kernel(hw, hw, a, b) == e["kernel_wins"]
+            assert e["kernel_wins"] == (e["kernel_fwdbwd_ms"] < e["library_fwdbwd_ms"])
+            assert e["batch"] == 8
+    assert dispatch.shape_key(64, 80, 3, 7) == "64x80x3->7"
+    assert dispatch.use_kernel(64, 64, 3, 7) and dispatch.use_kernel(32, 128, 3, 7)
+    assert not dispatch.use_kernel(63, 64, 3, 7)
+    assert not k6.use_kernel(torch.float32, 512, 512, 3, 7)
+    for force in (True, False):
+        monkeypatch.setattr(k6, "_FORCE", force)
+        assert k6.use_kernel(BF16, 8, 8, 3, 7) == force
+        assert not k6.use_kernel(torch.float32, 8, 8, 3, 7)
+    monkeypatch.setattr(dispatch, "TABLE_PATH", tmp_path / "t.json")
+    dispatch.table.cache_clear()
+    try:
+        assert dispatch.table() == {"shapes": {}}
+        dispatch.record({"8x8x3->7": {"kernel_wins": True}}, card="c")
+        dispatch.record({"8x8x7->3": {"kernel_wins": False}}, commit="x")
+        assert dispatch.table() == {"card": "c", "commit": "x", "shapes": {
+            "8x8x3->7": {"kernel_wins": True}, "8x8x7->3": {"kernel_wins": False}}}
+        monkeypatch.setattr(k6, "_FORCE", None)
+        assert k6.routes(torch.empty(1, 8, 8, 3, dtype=BF16), 7) == (True, False)
+    finally:
+        dispatch.table.cache_clear()
+
+
+@pytest.mark.parametrize("fwd,bwd", [(True, False), (False, True)])
+def test_routes_apart_match_jax_vjp(monkeypatch, rng, fwd, bwd):
+    """A patched table sends a ``Conv3x3``'s forward to one route and its
+    backward to the other: the counted calls show K6a's / the library
+    conv's forward and K6a + K6b's / the library conv's backward, and y,
+    dx, dW and dbias equal the VJP of JAX's ``conv3x3p_bias_act`` (its
+    ``lax`` branch on the CPU) on the same bf16 cotangent within max|Δ| /
+    max|ref| < 1e-2 (y: atol = rtol = 1e-2). No ReLU, as a Conv3x3 runs it:
+    the library forward adds the bias rounded to bf16, as the port's
+    ``Conv2d`` does, and JAX adds it in f32, so a fused ReLU could mask a y
+    near 0 on one side only."""
+    from mmr_tpu.ops.pallas import conv3x3_packed as kj
+    from mmr_tpu_torch.ops import dispatch
+
+    h, w, cin, cout = 8, 32, 16, 24
+    monkeypatch.setattr(dispatch, "table", lambda: {"shapes": {
+        dispatch.shape_key(h, w, cin, cout): {"kernel_wins": fwd},
+        dispatch.shape_key(h, w, cout, cin): {"kernel_wins": bwd}}})
+    names = ("conv3x3", "conv3x3_dw", "_library_fwd", "_library_bwd")
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def count(*a, _fn=getattr(k6, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(k6, name, count)
+    x, wt, b = _case(rng, (2, h, w, cin), cout)
+    g = _bf16(rng.randn(2, h, w, cout).astype(np.float32))
+    y_j, vjp = jax.vjp(lambda x_, w_, b_: kj.conv3x3p_bias_act(x_, w_, b_, False, True),
+                       jnp.asarray(x, jnp.bfloat16), jnp.asarray(wt), jnp.asarray(b))
+    dx_j, dw_j, db_j = vjp(jnp.asarray(g, jnp.bfloat16))
+
+    layer = Conv3x3(cin, cout)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(wt).permute(3, 2, 0, 1))
+        layer.bias.copy_(torch.from_numpy(b))
+    xt = torch.from_numpy(x).to(BF16).requires_grad_()
+    y = layer(xt.permute(0, 3, 1, 2))
+    y.backward(torch.from_numpy(g).to(BF16).permute(0, 3, 1, 2))
+    assert calls == {"conv3x3": fwd + bwd, "conv3x3_dw": int(bwd),
+                     "_library_fwd": int(not fwd), "_library_bwd": int(not bwd)}
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).float().numpy(),
+                               np.asarray(y_j, np.float32), atol=1e-2, rtol=1e-2)
+    assert _rel_to_max(xt.grad.float().numpy(), np.asarray(dx_j, np.float32)) < 1e-2
+    assert _rel_to_max(layer.weight.grad.permute(2, 3, 1, 0).numpy(),
+                       np.asarray(dw_j)) < 1e-2
+    assert _rel_to_max(layer.bias.grad.numpy(), np.asarray(db_j)) < 1e-2

@@ -61,10 +61,18 @@ def test_train_cli_writes_its_run(trained, tmp_path):
     assert json.loads((run / "training_metrics.json").read_text())["epoch"] == [1]
 
 
-def test_infer_and_visualize_cli(trained):
+def test_infer_and_visualize_cli(trained, capsys):
     """``mmr_torch_infer`` takes the saved test split (the dataset path is
     the training one) and writes the report; ``mmr_torch_visualize``
-    writes a two-row triptych."""
+    writes a two-row triptych and, with ``--legend --architecture``, the
+    class legend (each bar in ``matplotlib.cm.hot(i / (n − 1))`` at its
+    centre, its label's glyphs beside it) and the architecture diagram
+    (six boxes, five arrows, the model's parameter count) after printing
+    the layer summary."""
+    from matplotlib import cm
+
+    from mmr_tpu_torch.data.classes import sarrarp50_names
+
     ds, run = trained
     assert infer.main([str(ds), str(run), "--device", "cpu", "--infer_batch_size", "2"]) == 0
     report = json.loads((run / "inference_report.json").read_text())
@@ -75,12 +83,35 @@ def test_infer_and_visualize_cli(trained):
     assert (run / "test_plots_0" / "config.yaml").is_file()
 
     out = run / "vis"
+    capsys.readouterr()
     assert visualize.main([str(run), str(ds / "data" / "data_001.zarr"), "--frames", "0", "4",
-                           "--out", str(out), "--device", "cpu"]) == 0
+                           "--out", str(out), "--device", "cpu", "--legend",
+                           "--architecture"]) == 0
     img = png.read(out / "prediction_triptychs.png")
     assert img.shape == (2 * 72 + 4, 3 * 96 + 2 * 4, 3)
-    with pytest.raises(NotImplementedError, match="legend"):
-        visualize.main([str(run), str(ds), "--legend", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "Model Architecture Summary:" in printed and "Total params" in printed
+
+    legend = png.read(out / "class_legend.png")
+    bars = json.loads(png.read_text(out / "class_legend.png")["legend"])["classes"]
+    names = sarrarp50_names()[:4]   # the background and the 3 classes trained
+    assert [b["label"] for b in bars] == [f"{i}: {n}" for i, n in enumerate(names)]
+    for i, b in enumerate(bars):
+        top, left, h, w = b["bar"]
+        want = np.floor(np.array(cm.hot(i / (len(bars) - 1))[:3]) * 255 + 0.5)
+        np.testing.assert_array_equal(legend[top + h // 2, left + w // 2], want)
+        beside = legend[top:top + h, left + w + 4:]
+        assert (beside == 0).all(-1).sum() > 20   # the label's black glyphs
+
+    diagram = png.read(out / "architecture_diagram.png")
+    meta = json.loads(png.read_text(out / "architecture_diagram.png")["diagram"])
+    assert len(meta["boxes"]) == 6 and len(meta["arrows"]) == 5
+    n_params = int(meta["boxes"][5]["label"].split()[0].replace(",", ""))
+    assert str(n_params) in printed.replace(",", "")
+    for box in meta["boxes"]:
+        r, c, h, w = box["box"]
+        np.testing.assert_array_equal(diagram[r + 3, c + 3], box["colour"])
+        assert (diagram[r:r + h, c:c + w] == 0).all(-1).sum() > 2 * (h + w)
 
 
 def test_train_cli_resumes(trained, tmp_path):

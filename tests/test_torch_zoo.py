@@ -297,7 +297,7 @@ def test_resizes_match_jax(rng, dtype):
     input's dtype) to one bf16 rounding."""
     import mmr_tpu.ops.padcrop as pj
     import mmr_tpu_torch.ops.padcrop as pt
-    import mmr_tpu_torch.ops.resize as rt
+    rt = importlib.import_module("mmr_tpu_torch.ops.resize")   # ops/__init__ binds resize()
 
     rj = importlib.import_module("mmr_tpu.ops.resize")   # ops/__init__ binds resize()
 
@@ -359,24 +359,41 @@ def test_dilated_encoder_matches_jax(cases):
     ("smp_unet18", 7), ("smp_MANet", 8), ("unet", 12), ("segnet", 0),
     ("resnet18", 0), ("smp_DeepLabV3+", 0)])
 def test_k6_dispatch_per_zoo_model(monkeypatch, zoo, k6_per_forward):
-    """How many Conv3x3s of each zoo model take K6 in a bf16 forward at
-    256 × 256, B = 8 (output H·W ≥ 64·64): smp Unet 7 (blocks 2–4 and the
-    head), MAnet 8 (block 2's two convs, block 3's hl_conv1 and two convs,
-    block 4, the head), UNet 12 (inc, down1, down2, up2–up4); SegNet,
-    ResNet-UNet and DeepLabV3+ have no Conv3x3 at all. Shapes only: the
-    model runs on the meta device with the op counted, not computed."""
-    calls = []
+    """Which Conv3x3s of each zoo model take K6 in a bf16 forward at 256 ×
+    256, B = 8. ``k6_per_forward`` counts those at output H·W ≥ 64·64, the
+    size clause for a shape missing from the table: smp Unet 7 (blocks 2–4
+    and the head), MAnet 8 (block 2's two convs, block 3's hl_conv1 and
+    two convs, block 4, the head), UNet 12 (inc, down1, down2, up2–up4);
+    SegNet, ResNet-UNet and DeepLabV3+ have no Conv3x3 at all. The
+    committed table (``ops/conv_table.json``) has both keys of every one,
+    and a conv reaches the op exactly when the table sends its forward or
+    its backward to the kernels, with those routes. Shapes only: the model
+    runs on the meta device with the op counted, not computed."""
+    from mmr_tpu_torch.ops import dispatch
 
-    def counted(x, w, bias=None, relu=False):
-        calls.append(tuple(x.shape))
+    calls, seen = [], []
+
+    def counted(x, w, bias=None, relu=False, fwd_kernel=True, bwd_kernel=True):
+        calls.append((tuple(x.shape), fwd_kernel, bwd_kernel))
         return x.new_empty(x.shape[:3] + (w.shape[3],))
 
     monkeypatch.setattr(k6, "conv3x3p_bias_act", counted)
     model = create_model(zoo, classes=NC, device="cpu").to("meta")
+    for m in model.modules():
+        if isinstance(m, Conv3x3):
+            m.register_forward_pre_hook(lambda m, a: seen.append(
+                (a[0].shape[2], a[0].shape[3], m.in_channels, m.out_channels)))
     with torch.no_grad():
         out = model(torch.empty(8, 256, 256, 3, device="meta"))
     assert out.shape == (8, 256, 256, NC)
-    assert len(calls) == k6_per_forward
-    assert all(s[1] * s[2] >= 64 * 64 for s in calls)
+    assert sum(h * w >= 64 * 64 for h, w, *_ in seen) == k6_per_forward
+    entries = dispatch.table()["shapes"]
+    want = []
+    for h, w, cin, cout in seen:
+        fwd = entries[dispatch.shape_key(h, w, cin, cout)]["kernel_wins"]
+        bwd = entries[dispatch.shape_key(h, w, cout, cin)]["kernel_wins"]
+        if fwd or bwd:
+            want.append(((8, h, w, cin), fwd, bwd))
+    assert calls == want
     n_conv3x3 = sum(isinstance(m, Conv3x3) for m in model.modules())
-    assert (n_conv3x3 == 0) == (k6_per_forward == 0)
+    assert (n_conv3x3 == 0) == (k6_per_forward == 0) and n_conv3x3 == len(seen)
