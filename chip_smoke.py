@@ -177,8 +177,9 @@ front-end and head + loss).
     by ``cc``; the committed 1080×1920 Motion-JPEG fixture decoded to the
     recorded sha256 (ms a frame); the committed JAX-written blosc-zstd
     stores read through ``VideoStore`` and ``PatchSampler`` to JAX's
-    recorded sha256, and MB/s of their chunks decoded beside gzip copies
-    (64×80 chunks and full-size 512×640 ones);
+    recorded sha256, written again by the port's encoders (to the recorded
+    sha256), stored MB and encode and decode MB/s beside JAX's chunks and
+    gzip copies (64×80 chunks and full-size 512×640 ones);
     ``mmr_torch_create_dataset`` on a ZIP of two video ZIPs (the fixture
     and PNG masks) at the flagship's defaults, one ``mmr_torch_train_model``
     epoch on those stores (launches the code's) and ``mmr_torch_infer``.
@@ -2578,7 +2579,7 @@ def zarr_phase(dev, seed, smi, trained) -> dict:
             arrays = sum(np.prod(s.shape) * (3 * s.image_dtype.itemsize + 1) for s in stores)
             print(f"[14] wrote {len(stores)} {name} store(s) of {ZARR_FRAMES} {FRAME[0]}x"
                   f"{FRAME[1]} frames in {dt:.1f} s: {on_disk / 1e6:.1f} MB on disk for "
-                  f"{arrays / 1e6:.1f} MB of arrays (gzip level {zarr_io.GZIP_LEVEL})",
+                  f"{arrays / 1e6:.1f} MB of arrays (blosc-zstd clevel 3, bitshuffle)",
                   flush=True)
 
         # ---- the sampler alone -------------------------------------------------
@@ -3166,6 +3167,7 @@ CONVERT_VIDEOS = 2                   # inner video ZIPs made from the Motion-JPE
 CONVERT_STEPS, CONVERT_VAL = 4, 1    # the train epoch on the converted stores
 DECODE_REPS = 5                      # timed decodes of each fixture frame
 STORE_READS = 20                     # timed whole-array reads a rate
+CODEC_ROUNDS = 7                     # alternated rounds of one-chunk codec times
 
 
 def _sha256(a) -> str:
@@ -3195,19 +3197,111 @@ def chunk_decode_rates(array_path, threads, reps=STORE_READS) -> dict:
     return out
 
 
-def gzip_copy(src: Path, dst: Path) -> Path:
-    """The store at ``src`` written again by the port (``bytes`` + ``gzip``)
-    in the same chunks, with its properties."""
+def store_copy(src: Path, dst: Path, codec: str = "blosc") -> Path:
+    """The store at ``src`` written again by the port in the same chunks,
+    with its properties: by ``VideoStore.create``'s default writer (JAX's
+    ``bytes`` + ``blosc`` zstd clevel 3 bitshuffle) or, with
+    ``codec="gzip"``, as ``bytes`` + ``gzip`` (a comparison copy)."""
     from mmr_tpu_torch.data import zarr_io
 
     s = zarr_io.VideoStore(src)
     t, h, w = s.shape
-    d = zarr_io.VideoStore.create(dst, t, h, w, s.image.chunks[2:], image_dtype=s.image_dtype)
+    zarr_io.VideoStore.create(dst, t, h, w, s.image.chunks[2:], image_dtype=s.image_dtype)
+    if codec != "blosc":
+        for arr in (s.image, s.mask):
+            zarr_io.ZarrArray.create(dst / arr.path.name, arr.shape, arr.chunks, arr.dtype,
+                                     codec=codec)
+    d = zarr_io.VideoStore(dst)
     img, mask = s.read_frames(0, t)
     d.image.write((slice(None),), img.transpose(3, 0, 1, 2))
     d.mask.write((slice(None),), mask)
     d.set_properties(s.properties)
     return dst
+
+
+def _stored_mb(array: Path) -> float:
+    return sum(f.stat().st_size for f in (array / "c").rglob("*") if f.is_file()) / 1e6
+
+
+def codec_rates(src: Path, tmp: Path, threads) -> dict:
+    """JAX's blosc-zstd store at ``src`` (tensorstore's c-blosc) against
+    the port's copy (``store_copy``: the port's encoders) and a gzip copy,
+    image arrays, warm (chunk files in the page cache): MB of chunk files
+    stored; encode MB/s of the first chunk on one thread (the port's blosc,
+    ``zlib`` level ``GZIP_LEVEL`` as the gzip writer runs it; the best of
+    ``CODEC_ROUNDS`` rounds, the codecs alternated) and of whole-array
+    writes on the chunk pool at each of ``threads``; decode MB/s of the
+    first chunk on one thread (the port's decoder on both blosc chunks,
+    ``zlib`` on the gzip one; alternated the same way) and of whole-array
+    reads on the pool (``chunk_decode_rates``). Checks that the port's copy
+    reads back the array it was given."""
+    import zlib
+
+    from mmr_tpu_torch.data import hostlib, zarr_io
+
+    copies = {"jax": src, "port": store_copy(src, tmp / "port" / src.name),
+              "gzip": store_copy(src, tmp / "gzip" / src.name, "gzip")}
+    arrays = {k: zarr_io.ZarrArray(p / "image") for k, p in copies.items()}
+    whole = arrays["jax"][:]
+    check(all(np.array_equal(a[:], whole) for a in arrays.values()),
+          f"the port's copies of {src.name} read back other arrays")
+    arr = arrays["jax"]
+    n = math.prod(arr.chunks) * arr.dtype.itemsize
+    first = ("c",) + ("0",) * arr.ndim
+    chunk = {k: (p / "image").joinpath(*first).read_bytes() for k, p in copies.items()}
+    raw = np.ascontiguousarray(whole[tuple(slice(0, c) for c in arr.chunks)])
+    buf = np.empty(n, np.uint8)
+
+    def gzip_encode():
+        c = zlib.compressobj(zarr_io.GZIP_LEVEL, zlib.DEFLATED, 31)
+        return c.compress(raw.tobytes()) + c.flush()
+
+    one = {"encode": {"port": lambda: hostlib.blosc_compress(raw, raw.itemsize),
+                      "gzip": gzip_encode},
+           "decode": {"port": lambda: hostlib.blosc_decompress_into(chunk["port"], buf),
+                      "jax": lambda: hostlib.blosc_decompress_into(chunk["jax"], buf),
+                      "gzip": lambda: zlib.decompress(chunk["gzip"], 31, n)}}
+    out = {"chunk": list(arr.chunks), "chunk_mb": n / 1e6,
+           "stored_mb": {k: _stored_mb(p / "image") for k, p in copies.items()}}
+    for what, fns in one.items():
+        best = dict.fromkeys(fns, math.inf)
+        for _ in range(CODEC_ROUNDS):
+            for k, fn in fns.items():
+                t0 = time.perf_counter()
+                fn()
+                best[k] = min(best[k], time.perf_counter() - t0)
+        out[f"{what}_one_thread_mb_s"] = {k: n / 1e6 / v for k, v in best.items()}
+    out["encode_pool_mb_s"] = {}
+    for k in ("port", "gzip"):
+        rates = out["encode_pool_mb_s"][k] = {}
+        for t in threads:
+            zarr_io.set_pool_threads(t)
+            arrays[k].write((slice(None),), whole)
+            t0 = time.perf_counter()
+            arrays[k].write((slice(None),), whole)
+            rates[t] = whole.nbytes / 1e6 / (time.perf_counter() - t0)
+    zarr_io.set_pool_threads(zarr_io.POOL_THREADS)
+    out["decode_pool_mb_s"] = {k: chunk_decode_rates(p / "image", threads)
+                               for k, p in copies.items()}
+    return out
+
+
+def print_codec_rates(phase, smi, name, r) -> None:
+    def line(d):
+        return ", ".join(f"{k} {v:.1f}" for k, v in d.items())
+
+    def pool(d):
+        return "; ".join(f"{k} " + ", ".join(f"{t} threads {v:.1f}" for t, v in x.items())
+                         for k, x in d.items())
+
+    st, dec = r["stored_mb"], r["decode_one_thread_mb_s"]
+    print(f"[{phase}] {smi}: {name} image chunk {r['chunk']} ({r['chunk_mb']:.3f} MB), "
+          f"warm: stored MB port {st['port']:.4f}, jax {st['jax']:.4f} "
+          f"({st['port'] / st['jax']:.3f}x), gzip {st['gzip']:.4f}; encode MB/s one thread "
+          f"{line(r['encode_one_thread_mb_s'])}, pool {pool(r['encode_pool_mb_s'])}; decode "
+          f"MB/s one thread {line(dec)} (blosc/gzip: port {dec['port'] / dec['gzip']:.2f}x, "
+          f"jax {dec['jax'] / dec['gzip']:.2f}x), pool {pool(r['decode_pool_mb_s'])}",
+          flush=True)
 
 
 def fixture_masks(seed: int, n: int) -> list[np.ndarray]:
@@ -3227,10 +3321,12 @@ def native_data_phase(dev, seed, smi) -> dict:
     recorded), ms a frame, and ms a frame with OpenCV's chroma (the
     converter's decode); (c) reads the committed blosc-zstd stores (JAX's
     ``VideoStore``) through ``VideoStore`` and ``PatchSampler``: arrays and
-    batches of the recorded sha256 (JAX's reads); writes the bitshuffled
-    small stores and the two of one full-size (3, 1, 512, 640) chunk again
-    as gzip stores and times whole-array reads of both (MB/s of chunks
-    decoded, one thread and the pool's default); (d) a ZIP of
+    batches of the recorded sha256 (JAX's reads); writes every one again
+    through the port's ``VideoStore`` (blosc-zstd: its arrays read back to
+    the recorded sha256) and as a gzip copy, and prints ``codec_rates`` of
+    each: stored MB of the port's copy, JAX's and the gzip copy, encode
+    MB/s on one thread and on the pool's default, decode MB/s of the port's
+    blosc, JAX's blosc and gzip; (d) a ZIP of
     ``CONVERT_VIDEOS`` inner ZIPs of the fixture video and ``png.write``
     masks through ``create_dataset.main`` at the flagship's defaults (9
     tool classes, the reference's ``n_classes`` beside the background;
@@ -3309,21 +3405,16 @@ def native_data_phase(dev, seed, smi) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         threads = (1, zarr_io.POOL_THREADS)
-        for name in ("f32_a", "u8_a", "f32_full", "u8_full"):
+        for name, rec in records["stores"].items():
             src = FIXTURES / "blosc" / f"{name}.zarr"
-            dst = gzip_copy(src, tmp / f"{name}.zarr")
-            check(np.array_equal(zarr_io.VideoStore(dst).image[:], zarr_io.VideoStore(src).image[:]),
-                  f"the gzip copy of {name} differs")
-            arr = zarr_io.ZarrArray(src / "image")
-            stored = [sum(f.stat().st_size for f in (p / "image" / "c").rglob("*")
-                          if f.is_file()) / 1e6 for p in (src, dst)]
-            blosc = chunk_decode_rates(src / "image", threads)
-            gz = chunk_decode_rates(dst / "image", threads)
-            print(f"[16] {smi}: {name} image {arr.shape}, chunks {arr.chunks} {arr.dtype} "
-                  f"(stored {stored[0]:.3f} MB blosc-zstd, {stored[1]:.3f} MB gzip; warm "
-                  "reads): " + "; ".join(f"{k} threads: blosc-zstd+bitshuffle {blosc[k]:.1f} "
-                                         f"MB/s, gzip {gz[k]:.1f} MB/s" for k in threads),
-                  flush=True)
+            r = codec_rates(src, tmp, threads)
+            copy = zarr_io.VideoStore(tmp / "port" / src.name)
+            check(_sha256(copy.image[:]) == rec["image"] and _sha256(copy.mask[:]) == rec["mask"]
+                  and copy.class_locations == zarr_io.VideoStore(src).class_locations,
+                  f"the port's blosc-zstd copy of {name} reads other arrays than recorded")
+            print_codec_rates(16, smi, name, r)
+        print(f"[16] {len(records['stores'])} stores written again by the port's "
+              "VideoStore (blosc-zstd) read back to the recorded sha256", flush=True)
 
         # ---- (d) mmr_torch_create_dataset, train, infer ------------------------------
         masks = fixture_masks(seed + 16, len(frames))

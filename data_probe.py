@@ -6,14 +6,14 @@
 
 Writes ``chip_smoke.py``'s phase-14 dataset under a temporary directory
 (``ZARR_VIDEOS`` uint8 videos and one float32 store of ``ZARR_FRAMES``
-full-HD frames, 512×640 chunks, gzip level ``zarr_io.GZIP_LEVEL``; every
-later read finds the files in the page cache, so the reads are warm),
-then measures in one process:
+full-HD frames, 512×640 chunks, the port's default writer: blosc-zstd
+clevel 3, bitshuffle; every later read finds the files in the page cache,
+so the reads are warm), then measures in one process:
 
-1. inflate: one stored 512×640 image chunk of each dtype, decoded by
-   ``zlib`` on one thread (MB/s of output, the best of 5 rounds of 8), and
-   8 copies a thread decoded on the chunk pool at each ``--threads`` count
-   (the pool's MB/s of output);
+1. decode: one stored 512×640 image chunk of each dtype, decoded by the
+   host library's blosc decoder on one thread (MB/s of output, the best of
+   5 rounds of 8), and 8 copies a thread decoded on the chunk pool at each
+   ``--threads`` count (the pool's MB/s of output);
 2. the ``PatchSampler`` alone at B=8, 512×640, the default augmentation's
    initial patch, each dtype, the chunk pool at each ``--threads`` count:
    samples/s over ``SAMPLER_BATCHES`` batches, and MB/s of chunks decoded
@@ -26,20 +26,30 @@ then measures in one process:
    epoch s and samples/s (the monitor's), the host's time in the train
    step's calls; then, for each ``--epoch-threads`` count, the uint8 and
    float32 epochs again with the chunk pool held to that many threads;
-4. blosc-zstd against gzip: the committed stores JAX's ``VideoStore``
-   wrote (``tests/torch_fixtures/blosc``: blosc, zstd clevel 3,
-   bitshuffle; float32 and uint8, the small 64×80-chunked pairs and one
-   full-size (3, 1, 512, 640) chunk of a decoded Motion-JPEG frame each)
-   and the port's gzip copies of the same arrays — MB/s of output of one
-   image chunk decoded on one thread (the host decoder, and ``zlib`` for
-   the copy; the best of 5 rounds of 8), of whole-array reads on the chunk
-   pool at each ``--threads`` count (chunk files warm in the page cache),
-   and the ``PatchSampler``'s samples/s over each (B=8; 64×64 patches, a
-   whole chunk's 512×640 on the full-size stores). ``--fixture-only``
-   runs this part alone.
+4. the port's blosc-zstd writer against JAX's and gzip: the committed
+   stores JAX's ``VideoStore`` wrote (``tests/torch_fixtures/blosc``:
+   tensorstore's c-blosc, zstd clevel 3, bitshuffle; float32 and uint8,
+   the small 64×80-chunked pairs and one full-size (3, 1, 512, 640) chunk
+   of a decoded Motion-JPEG frame each), the port's copies of the same
+   arrays (its encoders) and gzip copies (``chip_smoke.codec_rates``):
+   stored MB; encode MB/s of one image chunk on one thread and of
+   whole-array writes on the chunk pool at each ``--threads`` count;
+   decode MB/s of one image chunk on one thread (the host decoder on both
+   blosc copies, ``zlib`` on the gzip one; the best of alternated rounds)
+   and of whole-array reads on the pool; and the ``PatchSampler``'s
+   samples/s over each (B=8; 64×64 patches, a whole chunk's 512×640 on the
+   full-size stores). ``--fixture-only`` runs this part alone;
+5. ``--split-only`` (host only, no card needed): the blosc decode of the
+   fixture's full-size image chunks split into its zstd streams and the
+   rest (bitunshuffle and copies), ms, the best of ``SPLIT_ROUNDS``, for
+   this tree's host library and each ``--compare-tree``'s (another
+   checkout's ``mmr_tpu_torch/data/hostlib.py``, built from its own
+   sources with its own flags), the trees alternated in one process,
+   beside ``zlib``'s inflate of a gzip-1 copy of the same chunk.
 
-Prints the card's name and power limit first and one JSON object of every
-number last. Needs ``chip_smoke.py`` beside it and one card.
+Prints the card's name and power limit (part 5: the CPU model) first and
+one JSON object of every number last. Needs ``chip_smoke.py`` beside it
+and, but for part 5, one card.
 """
 
 from __future__ import annotations
@@ -52,7 +62,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -64,24 +73,28 @@ BLOSC_STORES = {       # part 4: the fixture's blosc-zstd stores of each kind
     "f32_full": ["f32_full"], "u8_full": ["u8_full"],
 }
 WARMUP_STEPS, VAL_STEPS = 2, 2
+SPLIT_ROUNDS = 30      # part 5: decodes timed a tree and chunk
 
 
-def inflate_rates(store: Path, threads) -> dict:
-    """MB/s of output: one chunk on one thread, then on pools of ``threads``."""
-    from mmr_tpu_torch.data import zarr_io
+def decode_rates(store: Path, threads) -> dict:
+    """MB/s of output: one blosc chunk on one thread, then on pools of
+    ``threads``."""
+    from mmr_tpu_torch.data import hostlib, zarr_io
 
     arr = zarr_io.ZarrArray(store / "image")
     data = (store / "image" / "c" / "0" / "0" / "0" / "0").read_bytes()
     n = int(np.prod(arr.chunks)) * arr.dtype.itemsize
-    best = min(_timed(lambda: [zlib.decompress(data, 31, n) for _ in range(8)])
-               for _ in range(5))
+
+    def decode(_=None):
+        return hostlib.blosc_decompress_into(data, np.empty(n, np.uint8))
+
+    best = min(_timed(lambda: [decode() for _ in range(8)]) for _ in range(5))
     out = {"chunk_mb": n / 1e6, "stored_mb": len(data) / 1e6,
            "one_thread_mb_s": 8 * n / 1e6 / best, "pool_mb_s": {}}
     for k in threads:
         with ThreadPoolExecutor(k) as pool:
-            list(pool.map(lambda _: zlib.decompress(data, 31, n), range(k)))   # warm
-            dt = _timed(lambda: list(pool.map(lambda _: zlib.decompress(data, 31, n),
-                                              range(8 * k))))
+            list(pool.map(decode, range(k)))   # warm
+            dt = _timed(lambda: list(pool.map(decode, range(8 * k))))
         out["pool_mb_s"][k] = 8 * k * n / 1e6 / dt
     return out
 
@@ -112,33 +125,29 @@ def sampler_rates(stores, initial, threads, seed) -> dict:
 
 
 def blosc_rates(tmp, threads, seed) -> dict:
-    """Part 4: per dtype, the fixture's blosc-zstd stores against gzip
-    copies: one chunk on one thread, whole reads on the pool, the sampler."""
+    """Part 4: per kind, JAX's blosc-zstd fixture stores against the port's
+    copies and gzip copies (``chip_smoke.codec_rates`` of the first store
+    of the kind), and the sampler over each."""
     import chip_smoke as cs
-    from mmr_tpu_torch.data import hostlib, zarr_io
+    from mmr_tpu_torch.data import zarr_io
     from mmr_tpu_torch.data.patch_dataset import PatchSampler
 
     out = {}
+    tmp = Path(tmp)
     for kind, names in BLOSC_STORES.items():
         src = [cs.FIXTURES / "blosc" / f"{name}.zarr" for name in names]
-        dst = [cs.gzip_copy(p, Path(tmp) / "fixture_gzip" / p.name) for p in src]
-        arr = zarr_io.ZarrArray(src[0] / "image")
-        patch = tuple(arr.chunks[2:]) if kind.endswith("_full") else (64, 64)
-        n = math.prod(arr.chunks) * arr.dtype.itemsize
-        first = ("image", "c", "0", "0", "0", "0")
-        blosc, gz = (p.joinpath(*first).read_bytes() for p in (src[0], dst[0]))
-        buf = np.empty(n, np.uint8)
-        one = {"blosc": lambda: hostlib.blosc_decompress_into(blosc, buf),
-               "gzip": lambda: zlib.decompress(gz, 31, n)}
-        r = out[kind] = {"chunk": list(arr.chunks), "chunk_mb": n / 1e6, "patch": list(patch),
-                         "stored_mb": {"blosc": len(blosc) / 1e6, "gzip": len(gz) / 1e6},
-                         "one_thread_mb_s": {}, "pool_mb_s": {}, "sampler_samples_s": {}}
-        for codec, fn in one.items():
-            best = min(_timed(lambda: [fn() for _ in range(8)]) for _ in range(5))
-            r["one_thread_mb_s"][codec] = 8 * n / 1e6 / best
-        for codec, paths in (("blosc", src), ("gzip", dst)):
-            r["pool_mb_s"][codec] = cs.chunk_decode_rates(paths[0] / "image", threads)
-            sampler = PatchSampler(paths, patch, cs.TRAIN_BATCH, SAMPLER_BATCHES, seed=seed)
+        r = out[kind] = cs.codec_rates(src[0], tmp, threads)
+        paths = {"jax": src,
+                 "port": [cs.store_copy(p, tmp / "port" / p.name) for p in src[1:]],
+                 "gzip": [cs.store_copy(p, tmp / "gzip" / p.name, "gzip") for p in src[1:]]}
+        for codec in ("port", "gzip"):   # codec_rates' copies of src[0] first
+            paths[codec].insert(0, tmp / codec / src[0].name)
+        chunks = zarr_io.ZarrArray(src[0] / "image").chunks
+        patch = tuple(chunks[2:]) if kind.endswith("_full") else (64, 64)
+        r["patch"] = list(patch)
+        r["sampler_samples_s"] = {}
+        for codec, stores in paths.items():
+            sampler = PatchSampler(stores, patch, cs.TRAIN_BATCH, SAMPLER_BATCHES, seed=seed)
             per = r["sampler_samples_s"][codec] = {}
             for k in threads:
                 zarr_io.set_pool_threads(k)
@@ -146,6 +155,58 @@ def blosc_rates(tmp, threads, seed) -> dict:
                 dt = _timed(lambda: [None for _ in sampler.epoch(epoch_seed=seed)])
                 per[k] = SAMPLER_BATCHES * cs.TRAIN_BATCH / dt
         zarr_io.set_pool_threads(zarr_io.POOL_THREADS)
+    return out
+
+
+def _hostlib(tree: Path):
+    """``tree``'s ``hostlib`` module, loaded under its own name: its
+    library built from ``tree``'s sources with ``tree``'s flags."""
+    import importlib.util
+
+    path = Path(tree).resolve() / "mmr_tpu_torch" / "data" / "hostlib.py"
+    spec = importlib.util.spec_from_file_location(f"hostlib_{abs(hash(str(path)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decode_split(trees: dict) -> dict:
+    """Part 5: {chunk: {tree: {blosc_ms, streams_ms, rest_ms}, inflate_ms}}
+    for the fixture's full-size image chunks; ``trees``: {name: hostlib
+    module}."""
+    import struct
+    import zlib
+
+    import chip_smoke as cs
+
+    out = {}
+    for name in ("f32_full", "u8_full"):
+        data = (cs.FIXTURES / "blosc" / f"{name}.zarr").joinpath(
+            "image", "c", "0", "0", "0", "0").read_bytes()
+        nbytes, bs = struct.unpack("<II", data[4:12])
+        starts = struct.unpack(f"<{-(-nbytes // bs)}I", data[16:16 + 4 * -(-nbytes // bs)])
+        streams = []
+        for b, p in enumerate(starts):
+            size = struct.unpack("<I", data[p:p + 4])[0]
+            streams.append((data[p + 4:p + 4 + size], np.empty(min(bs, nbytes - b * bs), np.uint8)))
+        buf = np.empty(nbytes, np.uint8)
+        raw = trees[next(iter(trees))].blosc_decompress_into(data, buf).tobytes()
+        c = zlib.compressobj(1, zlib.DEFLATED, 31)
+        gz = c.compress(raw) + c.flush()
+        fns = {}
+        for tree, lib in trees.items():
+            fns[(tree, "blosc_ms")] = lambda lib=lib: lib.blosc_decompress_into(data, buf)
+            fns[(tree, "streams_ms")] = lambda lib=lib: [
+                lib.zstd_decompress_into(s, o) for s, o in streams]
+        fns[("zlib", "inflate_ms")] = lambda: zlib.decompress(gz, 31, nbytes)
+        best = dict.fromkeys(fns, math.inf)
+        for _ in range(SPLIT_ROUNDS):
+            for k, fn in fns.items():
+                best[k] = min(best[k], _timed(fn))
+        r = out[name] = {"mb": nbytes / 1e6, "inflate_ms": best[("zlib", "inflate_ms")] * 1e3}
+        for tree in trees:
+            x = r[tree] = {k: best[(tree, k)] * 1e3 for k in ("blosc_ms", "streams_ms")}
+            x["rest_ms"] = x["blosc_ms"] - x["streams_ms"]
     return out
 
 
@@ -182,14 +243,38 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50, help="train batches an epoch")
     ap.add_argument("--threads", type=int, nargs="+", default=[1, 4, 8],
-                    help="chunk pool sizes for the inflate and sampler rates")
+                    help="chunk pool sizes for the codec and sampler rates")
     ap.add_argument("--epoch-threads", type=int, nargs="*", default=[],
                     help="chunk pool sizes for further Zarr epochs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fixture-only", action="store_true",
-                    help="run part 4 (blosc-zstd against gzip) alone")
+                    help="run part 4 (the port's blosc-zstd against JAX's and gzip) alone")
+    ap.add_argument("--split-only", action="store_true",
+                    help="run part 5 (the blosc decode's split, host only) alone")
+    ap.add_argument("--compare-tree", type=Path, nargs="*", default=[],
+                    help="part 5: other checkouts whose host library to time beside this one's")
     args = ap.parse_args()
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    if args.split_only:
+        cpu = next((line.split(":", 1)[1].strip() for line in open("/proc/cpuinfo")
+                    if line.startswith("model name")), "unknown CPU")
+        print(f"host: {cpu}, {os.cpu_count()} cores", flush=True)
+        trees = {"this": _hostlib(Path(here))}
+        trees.update((str(t), _hostlib(t)) for t in args.compare_tree)
+        for lib in trees.values():
+            lib.library()
+        result = {"cpu": cpu, "split": decode_split(trees)}
+        for name, r in result["split"].items():
+            print(f"[part 5] {cpu}: {name} image chunk ({r['mb']:.3f} MB), one thread, warm: "
+                  f"zlib inflate of a gzip-1 copy {r['inflate_ms']:.3f} ms; "
+                  + "; ".join(f"{t}: blosc {x['blosc_ms']:.3f} ms = zstd streams "
+                              f"{x['streams_ms']:.3f} + bitunshuffle and copies "
+                              f"{x['rest_ms']:.3f} ({r['inflate_ms'] / x['blosc_ms']:.2f}x "
+                              "inflate's rate)"
+                              for t, x in r.items() if isinstance(x, dict)), flush=True)
+        print(json.dumps(result), flush=True)
+        return 0
 
     import torch
 
@@ -214,15 +299,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         r = result["blosc_vs_gzip"] = blosc_rates(tmp, args.threads, args.seed)
         for kind, x in r.items():
-            print(f"{smi}: fixture {kind} image chunk {x['chunk']} ({x['chunk_mb']:.3f} MB; "
-                  f"stored {x['stored_mb']['blosc']:.3f} MB blosc-zstd, "
-                  f"{x['stored_mb']['gzip']:.3f} MB gzip), warm: one thread "
-                  + ", ".join(f"{c} {v:.1f}" for c, v in x["one_thread_mb_s"].items())
-                  + " MB/s; whole reads on the pool "
-                  + "; ".join(f"{c} " + ", ".join(f"{k} threads {v:.1f}"
-                                                  for k, v in x["pool_mb_s"][c].items())
-                              for c in x["pool_mb_s"]) + " MB/s; PatchSampler (B="
-                  f"{cs.TRAIN_BATCH}, {x['patch'][0]}x{x['patch'][1]}) "
+            cs.print_codec_rates("part 4", smi, f"fixture {kind}", x)
+            print(f"[part 4] {smi}: fixture {kind} PatchSampler (B={cs.TRAIN_BATCH}, "
+                  f"{x['patch'][0]}x{x['patch'][1]}) "
                   + "; ".join(f"{c} " + ", ".join(f"{k} threads {v:.1f}"
                                                   for k, v in x["sampler_samples_s"][c].items())
                               for c in x["sampler_samples_s"]) + " samples/s", flush=True)
@@ -241,8 +320,8 @@ def main() -> int:
         initial = AugmentConfig(patch_size=cs.ROI, low_resolution=False).initial_patch_size
 
         for name, paths in stores.items():
-            r = result[f"inflate_{name}"] = inflate_rates(paths[0], args.threads)
-            print(f"{smi}: inflate, one {name} image chunk ({r['chunk_mb']:.2f} MB, "
+            r = result[f"decode_{name}"] = decode_rates(paths[0], args.threads)
+            print(f"{smi}: blosc-zstd decode, one {name} image chunk ({r['chunk_mb']:.2f} MB, "
                   f"{r['stored_mb']:.2f} MB stored): one thread "
                   f"{r['one_thread_mb_s']:.1f} MB/s; pool "
                   + ", ".join(f"{k} threads {v:.1f}" for k, v in r["pool_mb_s"].items())

@@ -16,6 +16,7 @@
 #include <stdlib.h>
 #include <string.h>
 
+#include "bitshuffle.h"
 #include "mmr_host.h"
 
 #define BLOSC_DOSHUFFLE 0x01
@@ -35,41 +36,6 @@ static void unshuffle(size_t ts, size_t bsize, const uint8_t *src, uint8_t *dst)
   size_t n = bsize / ts;
   for (size_t j = 0; j < ts; j++)
     for (size_t i = 0; i < n; i++) dst[i * ts + j] = src[j * n + i];
-  memcpy(dst + n * ts, src + n * ts, bsize - n * ts);
-}
-
-/* an 8x8 bit matrix (byte r, bit c) transposed to (byte c, bit r) */
-static inline uint64_t transpose8(uint64_t x) {
-  uint64_t t;
-  t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
-  x = x ^ t ^ (t << 7);
-  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
-  x = x ^ t ^ (t << 14);
-  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
-  x = x ^ t ^ (t << 28);
-  return x;
-}
-
-/* bitshuffle's layout: for byte j of an element and bit b, one row of
- * n / 8 bytes holding that bit of every element, element i at bit i % 8
- * of byte i / 8; a block of n % 8 != 0 elements is copied */
-static void bitunshuffle(size_t ts, size_t bsize, const uint8_t *src, uint8_t *dst) {
-  size_t n = bsize / ts;
-  if (n % 8) {
-    memcpy(dst, src, bsize);
-    return;
-  }
-  size_t row = n / 8;
-  for (size_t j = 0; j < ts; j++) {
-    const uint8_t *rows = src + j * 8 * row;
-    for (size_t g = 0; g < row; g++) {
-      uint64_t x = 0;
-      for (int b = 0; b < 8; b++) x |= (uint64_t)rows[b * row + g] << (8 * b);
-      x = transpose8(x);
-      uint8_t *d = dst + 8 * g * ts + j;
-      for (int r = 0; r < 8; r++) d[r * ts] = (uint8_t)(x >> (8 * r));
-    }
-  }
   memcpy(dst + n * ts, src + n * ts, bsize - n * ts);
 }
 
@@ -161,7 +127,7 @@ int mmr_blosc_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
     if (shuffle)
       unshuffle(ts, bsize, tmp, dst + b * blocksize);
     else if (bitshuffle)
-      bitunshuffle(ts, bsize, tmp, dst + b * blocksize);
+      bitunshuffle_block(ts, bsize, tmp, dst + b * blocksize);
   }
   free(tmp);
   if (rc == MMR_OK) *written = nbytes;

@@ -7,7 +7,14 @@
  * a match may reach anywhere back to the frame's first byte and no window
  * buffer is kept. Skippable frames are skipped; content checksums are not
  * verified; a dictionary ID other than 0 is refused. Every read and write
- * is bounds-checked: damaged input gives MMR_CORRUPT. */
+ * is bounds-checked: damaged input gives MMR_CORRUPT.
+ *
+ * The hot paths are libzstd's: bitstreams read a 64-bit word at a time
+ * (bitd), the four Huffman streams of a block decoded interleaved,
+ * sequences read through cells that hold each code's base and extra bits,
+ * and literals and matches copied 16 or 8 bytes at a time past their ends
+ * wherever the output has WILD bytes of room (a short offset first spread
+ * to 8 or more). */
 #include <stdarg.h>
 #include <stdio.h>
 #include <stdlib.h>
@@ -17,6 +24,7 @@
 
 #define ZSTD_MAGIC 0xFD2FB528u
 #define BLOCK_MAX (128 * 1024)
+#define WILD 32 /* bytes a wild copy may write past its end */
 
 int mmr_set_error(char *err, size_t errlen, int code, const char *fmt, ...) {
   if (err && errlen) {
@@ -79,6 +87,78 @@ static inline uint64_t bitr_read(bitr *b, int nb) {
   b->pos -= nb;
   return v;
 }
+
+/* The same stream read a word at a time: c holds the 8 bytes at p, `used`
+ * bits of it are taken from the top. A refill steps p back by whole bytes
+ * (never below the stream's start), so reads between refills need no
+ * bounds branch; up to 56 bits can be read after each refill. Bits
+ * remaining: (p - start) * 8 + 64 - used, below 0 once the reader went
+ * past the start (what bitr's pos < 0 means). */
+typedef struct {
+  uint64_t c;
+  unsigned used;
+  const uint8_t *p, *start;
+} bitd;
+
+static inline uint64_t rd64(const uint8_t *p) {
+  uint64_t v;
+  memcpy(&v, p, 8);
+  return v;
+}
+
+static int bitd_init(bitd *b, const uint8_t *src, size_t n) {
+  if (n == 0 || src[n - 1] == 0) return -1;
+  b->start = src;
+  b->used = 8 - (unsigned)highbit(src[n - 1]);
+  if (n >= 8) {
+    b->p = src + n - 8;
+    b->c = rd64(b->p);
+  } else {
+    b->p = src;
+    b->c = 0;
+    memcpy(&b->c, src, n);
+    b->used += (unsigned)(8 - n) * 8;
+  }
+  return 0;
+}
+
+/* nb <= 56 bits past the last refill. Bits below the start read as zero
+ * while used < 64; past that the value is arbitrary but below 2^nb (so
+ * every table index stays in its table), and only a damaged stream gets
+ * there: its end check fails. */
+static inline uint64_t bitd_peek(const bitd *b, unsigned nb) {
+  return (b->c << (b->used & 63)) >> 1 >> (63 - nb);
+}
+
+static inline uint64_t bitd_read(bitd *b, unsigned nb) {
+  uint64_t v = bitd_peek(b, nb);
+  b->used += nb;
+  return v;
+}
+
+static void bitd_refill_slow(bitd *b) {
+  if (b->used > 64 || b->p == b->start) return; /* at or past the start: stays so */
+  size_t k = b->used >> 3;
+  if (k > (size_t)(b->p - b->start)) k = (size_t)(b->p - b->start);
+  b->p -= k;
+  b->used -= (unsigned)k * 8;
+  b->c = rd64(b->p);
+}
+
+/* Reads between refills take at most 57 bits, so `used` <= 64 here
+ * whenever p is 8 bytes or more from the start. */
+static inline void bitd_refill(bitd *b) {
+  if (__builtin_expect(b->p >= b->start + 8, 1)) {
+    b->p -= b->used >> 3;
+    b->used &= 7;
+    b->c = rd64(b->p);
+  } else {
+    bitd_refill_slow(b);
+  }
+}
+
+/* the stream read to its first bit, no further */
+static inline int bitd_done(const bitd *b) { return b->p == b->start && b->used == 64; }
 
 /* ------------------------------------------------------------------- FSE */
 typedef struct {
@@ -183,11 +263,20 @@ typedef struct {
   huf_cell c[1 << 12];
 } huf_t;
 
+/* A sequence table's state: the code's base value and extra bits beside
+ * the FSE transition, one lookup a field */
+typedef struct {
+  uint32_t base;
+  uint16_t next;
+  uint8_t nbits, add;
+} seq_cell;
+
 typedef struct {
   huf_t huf;
   fse_t ll, of, ml, tmp;
+  seq_cell sll[512], sof[512], sml[512];
   uint64_t rep[3];
-  uint8_t lit[BLOCK_MAX];
+  uint8_t lit[BLOCK_MAX + WILD];
 } zctx;
 
 /* The Huffman tree description (RFC 8878 4.2.1): weights FSE-coded or
@@ -259,16 +348,75 @@ static int read_huf(zctx *z, const uint8_t *src, size_t n, size_t *used) {
   return 0;
 }
 
+/* One stream: its cnt symbols into dst. Four symbols of at most 12 bits
+ * a refill while the reader is 8 bytes or more from the start, then one
+ * at a time. The stream must end on its first bit. */
 static int huf_stream(const huf_t *h, const uint8_t *src, size_t n, uint8_t *dst,
                       size_t cnt) {
-  bitr b;
-  if (bitr_init(&b, src, n)) return -1;
-  for (size_t i = 0; i < cnt; i++) {
-    huf_cell c = h->c[bitr_peek(&b, h->bits)];
-    dst[i] = c.sym;
-    b.pos -= c.nb;
+  bitd b;
+  const huf_cell *t = h->c;
+  const unsigned bits = (unsigned)h->bits;
+  uint8_t *op = dst, *end = dst + cnt;
+  if (bitd_init(&b, src, n)) return -1;
+  while (end - op >= 4 && b.p >= b.start + 8) {
+    bitd_refill(&b);
+    for (int k = 0; k < 4; k++) {
+      huf_cell c = t[bitd_peek(&b, bits)];
+      *op++ = c.sym;
+      b.used += c.nb;
+    }
   }
-  return b.pos == 0 ? 0 : -1;
+  while (op < end) {
+    bitd_refill(&b);
+    huf_cell c = t[bitd_peek(&b, bits)];
+    *op++ = c.sym;
+    b.used += c.nb;
+  }
+  bitd_refill(&b);
+  return bitd_done(&b) ? 0 : -1;
+}
+
+/* Four streams of one table, interleaved: cnt[k] symbols of stream k
+ * into dst[k]. */
+static int huf_streams4(const huf_t *h, const uint8_t *const src[4], const size_t n[4],
+                        uint8_t *const dst[4], const size_t cnt[4]) {
+  bitd b[4];
+  const huf_cell *t = h->c;
+  const unsigned bits = (unsigned)h->bits;
+  uint8_t *op[4];
+  size_t left = cnt[3];
+  for (int k = 0; k < 4; k++) {
+    if (bitd_init(&b[k], src[k], n[k])) return -1;
+    op[k] = dst[k];
+    if (cnt[k] < left) left = cnt[k];
+  }
+  for (;;) {
+    if (left < 4) break;
+    int ok = 1;
+    for (int k = 0; k < 4; k++) ok &= b[k].p >= b[k].start + 8;
+    if (!ok) break;
+    for (int k = 0; k < 4; k++) bitd_refill(&b[k]);
+    for (int j = 0; j < 4; j++)
+      for (int k = 0; k < 4; k++) {
+        huf_cell c = t[bitd_peek(&b[k], bits)];
+        op[k][j] = c.sym;
+        b[k].used += c.nb;
+      }
+    for (int k = 0; k < 4; k++) op[k] += 4;
+    left -= 4;
+  }
+  for (int k = 0; k < 4; k++) {
+    uint8_t *end = dst[k] + cnt[k];
+    while (op[k] < end) {
+      bitd_refill(&b[k]);
+      huf_cell c = t[bitd_peek(&b[k], bits)];
+      *op[k]++ = c.sym;
+      b[k].used += c.nb;
+    }
+    bitd_refill(&b[k]);
+    if (!bitd_done(&b[k])) return -1;
+  }
+  return 0;
 }
 
 /* The literals section: *lit points at the block's literals (in src for
@@ -344,12 +492,11 @@ static int literals(zctx *z, const uint8_t *src, size_t n, const uint8_t **lit,
     sz[3] = left - 6 - sz[0] - sz[1] - sz[2];
     size_t seg = (regen + 3) / 4;
     if (3 * seg > regen) return -1;
-    const uint8_t *q = p + 6;
-    for (int i = 0; i < 4; i++) {
-      size_t cnt = i < 3 ? seg : regen - 3 * seg;
-      if (huf_stream(&z->huf, q, sz[i], z->lit + i * seg, cnt)) return -1;
-      q += sz[i];
-    }
+    const uint8_t *q[4] = {p + 6, p + 6 + sz[0], p + 6 + sz[0] + sz[1],
+                           p + 6 + sz[0] + sz[1] + sz[2]};
+    uint8_t *const d[4] = {z->lit, z->lit + seg, z->lit + 2 * seg, z->lit + 3 * seg};
+    const size_t cnt[4] = {seg, seg, seg, regen - 3 * seg};
+    if (huf_streams4(&z->huf, q, sz, d, cnt)) return -1;
   }
   *lit = z->lit;
   *nlit = regen;
@@ -404,6 +551,74 @@ static int seq_table(fse_t *t, int mode, const int16_t *def, int def_max, int de
   }
 }
 
+/* n bytes from src to dst 16 at a time: writes up to 15 bytes past
+ * dst + n and reads as far past src + n */
+static inline void wild_copy16(uint8_t *dst, const uint8_t *src, size_t n) {
+  uint8_t *end = dst + n;
+  while (dst < end) {
+    memcpy(dst, src, 16);
+    dst += 16;
+    src += 16;
+  }
+}
+
+/* A match of ml bytes at offset off (m = op - off). With `wild`, room for
+ * WILD bytes past the match: 16- or 8-byte copies, a short offset first
+ * spread to 8 or more as libzstd's ZSTD_overlapCopy8 does; else exact. */
+static inline void copy_match(uint8_t *op, const uint8_t *m, size_t ml, size_t off, int wild) {
+  if (wild && off >= 16) {
+    memcpy(op, m, 16);
+    if (ml > 16) wild_copy16(op + 16, m + 16, ml - 16);
+    return;
+  }
+  if (off == 1) {
+    memset(op, m[0], ml);
+    return;
+  }
+  if (!wild) {
+    if (off >= ml) {
+      memcpy(op, m, ml);
+    } else {
+      for (size_t k = 0; k < ml; k++) op[k] = m[k];
+    }
+    return;
+  }
+  uint8_t *end = op + ml;
+  if (off < 8) {
+    static const uint8_t inc[8] = {0, 1, 2, 1, 4, 4, 4, 4};
+    static const uint8_t dec[8] = {8, 8, 8, 7, 8, 9, 10, 11};
+    op[0] = m[0];
+    op[1] = m[1];
+    op[2] = m[2];
+    op[3] = m[3];
+    m += inc[off];
+    memcpy(op + 4, m, 4);
+    m += 8 - (ptrdiff_t)dec[off];
+  } else {
+    memcpy(op, m, 8);
+    m += 8;
+  }
+  op += 8;
+  while (op < end) { /* op - m >= 8 now */
+    memcpy(op, m, 8);
+    op += 8;
+    m += 8;
+  }
+}
+
+/* The sequence cells of an FSE table whose symbols are codes with the
+ * given base values and extra bits (offsets: base 1 << code, code bits).
+ * Every symbol a table holds is a valid code: seq_table admits no other. */
+static void seq_cells(seq_cell *out, const fse_t *t, const uint32_t *base, const uint8_t *bits) {
+  for (int u = 0, size = 1 << t->log; u < size; u++) {
+    int sym = t->c[u].sym;
+    out[u].base = base ? base[sym] : 1u << sym;
+    out[u].add = bits ? bits[sym] : (uint8_t)sym;
+    out[u].next = t->c[u].base;
+    out[u].nbits = t->c[u].nb;
+  }
+}
+
 /* One compressed block of src[0 .. n) to *op; fstart: the frame's first
  * output byte, oend: the buffer's end. */
 static int block(zctx *z, const uint8_t *src, size_t n, uint8_t *fstart, uint8_t **opp,
@@ -439,20 +654,30 @@ static int block(zctx *z, const uint8_t *src, size_t n, uint8_t *fstart, uint8_t
     if (seq_table(&z->ml, (modes >> 2) & 3, ML_DEF, 52, 6, 52, 9, p, end - p, &used))
       return -1;
     p += used;
-    bitr b;
-    if (p > end || bitr_init(&b, p, end - p)) return -1;
-    const fse_cell *llc = z->ll.c, *ofc = z->of.c, *mlc = z->ml.c;
-    uint32_t lls = (uint32_t)bitr_read(&b, z->ll.log);
-    uint32_t ofs = (uint32_t)bitr_read(&b, z->of.log);
-    uint32_t mls = (uint32_t)bitr_read(&b, z->ml.log);
+    bitd b;
+    if (p > end || bitd_init(&b, p, end - p)) return -1;
+    seq_cells(z->sll, &z->ll, LL_BASE, LL_BITS);
+    seq_cells(z->sof, &z->of, NULL, NULL);
+    seq_cells(z->sml, &z->ml, ML_BASE, ML_BITS);
+    const seq_cell *sl = z->sll, *so = z->sof, *sm = z->sml;
+    /* where a wild copy of literals may read to: the literals buffer's
+     * slack, or the block's end for literals stored raw in it */
+    const uint8_t *lsafe = lit == z->lit ? z->lit + sizeof z->lit : end;
+    uint32_t lls = (uint32_t)bitd_read(&b, (unsigned)z->ll.log);
+    uint32_t ofs = (uint32_t)bitd_read(&b, (unsigned)z->of.log);
+    uint32_t mls = (uint32_t)bitd_read(&b, (unsigned)z->ml.log);
     uint64_t *rep = z->rep;
     for (size_t i = 0; i < nseq; i++) {
-      int lcode = llc[lls].sym, ocode = ofc[ofs].sym, mcode = mlc[mls].sym;
-      if (lcode > 35 || mcode > 52 || ocode > 31) return -1;
-      uint64_t ofv = (1ull << ocode) + bitr_read(&b, ocode);
-      uint64_t ml = ML_BASE[mcode] + bitr_read(&b, ML_BITS[mcode]);
-      uint64_t ll = LL_BASE[lcode] + bitr_read(&b, LL_BITS[lcode]);
-      uint64_t off;
+      const seq_cell L = sl[lls], O = so[ofs], M = sm[mls];
+      /* one refill a sequence (libzstd's order): 57 bits take the offset's
+       * and the lengths' extra bits and the states' 26 while those extra
+       * bits are under 31; else a second refill after the offset's and
+       * the match length's */
+      bitd_refill(&b);
+      uint64_t off, ofv = O.base + bitd_read(&b, O.add);
+      uint64_t ml = M.base + bitd_read(&b, M.add);
+      if (O.add + M.add + L.add >= 31) bitd_refill(&b);
+      uint64_t ll = L.base + bitd_read(&b, L.add);
       if (ofv > 3) {
         off = ofv - 3;
         rep[2] = rep[1];
@@ -474,24 +699,26 @@ static int block(zctx *z, const uint8_t *src, size_t n, uint8_t *fstart, uint8_t
         }
       }
       if (i + 1 < nseq) {
-        lls = llc[lls].base + (uint32_t)bitr_read(&b, llc[lls].nb);
-        mls = mlc[mls].base + (uint32_t)bitr_read(&b, mlc[mls].nb);
-        ofs = ofc[ofs].base + (uint32_t)bitr_read(&b, ofc[ofs].nb);
+        lls = L.next + (uint32_t)bitd_read(&b, L.nbits);
+        mls = M.next + (uint32_t)bitd_read(&b, M.nbits);
+        ofs = O.next + (uint32_t)bitd_read(&b, O.nbits);
       }
       if (ll > (uint64_t)(lend - lit) || ll + ml > (uint64_t)(oend - op)) return -1;
-      memcpy(op, lit, ll);
+      int wild = ll + ml + WILD <= (uint64_t)(oend - op);
+      if (wild && ll + WILD <= (uint64_t)(lsafe - lit)) {
+        memcpy(op, lit, 16);
+        if (ll > 16) wild_copy16(op + 16, lit + 16, ll - 16);
+      } else {
+        memcpy(op, lit, ll);
+      }
       op += ll;
       lit += ll;
       if (off == 0 || off > (uint64_t)(op - fstart)) return -1;
-      const uint8_t *m = op - off;
-      if (off >= ml) {
-        memcpy(op, m, ml);
-        op += ml;
-      } else {
-        for (uint64_t k = 0; k < ml; k++) *op++ = *m++;
-      }
+      copy_match(op, op - off, ml, off, wild);
+      op += ml;
     }
-    if (b.pos != 0) return -1;
+    bitd_refill(&b);
+    if (!bitd_done(&b)) return -1;
   }
   if ((size_t)(lend - lit) > (size_t)(oend - op)) return -1;
   memcpy(op, lit, lend - lit);

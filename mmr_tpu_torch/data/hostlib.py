@@ -1,7 +1,9 @@
-"""The port's host-side decoders (``mmr_tpu_torch/csrc/host/*.c``): zstd
-frames, c-blosc 1.x chunks over zstd, and baseline JPEG as libjpeg-turbo
-decodes it. They run on the CPU, where the JAX package decodes too (c-blosc
-inside tensorstore, FFmpeg inside OpenCV).
+"""The port's host-side codecs (``mmr_tpu_torch/csrc/host/*.c``): zstd
+frames and c-blosc 1.x chunks over zstd, both ways (the encoders write the
+reference's one setting, blosc-zstd clevel 3 with bitshuffle), and
+baseline JPEG decoded as libjpeg-turbo decodes it. They run on the CPU,
+where the JAX package's codecs run too (c-blosc inside tensorstore, FFmpeg
+inside OpenCV).
 
 The library is built at first use by the C compiler (``cc``, or ``$CC``)
 into ``mmr_tpu_torch/_build/`` under a name keyed on a hash of the sources
@@ -10,12 +12,13 @@ and flags, by the policy of the CUDA library
 rebuilds, an unchanged one is reused, processes that build at once each
 write a file of their own and rename it into place, and the threads of
 one process build once. There is no stand-in: without a compiler every
-decode raises.
+decode and encode raises.
 
 :mod:`ctypes` releases the GIL during each call, so the Zarr chunk pool
-decodes on all its threads at once. Damaged input raises ``ValueError``
-and input this library does not decode ``NotImplementedError``, each
-naming ``what`` (a chunk's path, a video's frame) and the reason.
+encodes and decodes on all its threads at once. Damaged input raises
+``ValueError`` and input this library does not take
+``NotImplementedError``, each naming ``what`` (a chunk's path, a video's
+frame) and the reason.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from mmr_tpu_torch.ops import _build
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc" / "host"
 BUILD_DIR = _PKG / "_build"
-CC_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c11")
+CC_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c11")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_size_t
@@ -44,9 +47,14 @@ _NP = ctypes.POINTER(ctypes.c_size_t)
 SIGNATURES = {
     "mmr_zstd_decompress": [ctypes.c_char_p, _N, _P, _N, _NP, ctypes.c_char_p, _N],
     "mmr_blosc_decompress": [ctypes.c_char_p, _N, _P, _N, _NP, ctypes.c_char_p, _N],
+    "mmr_zstd_compress": [_P, _N, _P, _N, _NP, ctypes.c_char_p, _N],
+    "mmr_blosc_compress": [_P, _N, _N, _P, _N, _NP, ctypes.c_char_p, _N],
     "mmr_jpeg_info": [ctypes.c_char_p, _N, _IP, _IP, _IP, ctypes.c_char_p, _N],
     "mmr_jpeg_decode": [ctypes.c_char_p, _N, _P, _N, ctypes.c_int, ctypes.c_char_p, _N],
 }
+# each encoder's bound, size_t bound(size_t n): its largest output for n bytes
+BOUNDS = {"mmr_zstd_compress": "mmr_zstd_compress_bound",
+          "mmr_blosc_compress": "mmr_blosc_compress_bound"}
 _CORRUPT, _UNSUPPORTED, _NOMEM = 1, 2, 3
 _ERRLEN = 512
 
@@ -79,7 +87,11 @@ def build() -> Path:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded library (built on first call)."""
-    return _build.load(build(), SIGNATURES)
+    lib = _build.load(build(), SIGNATURES)
+    for name in BOUNDS.values():
+        getattr(lib, name).argtypes = [_N]
+        getattr(lib, name).restype = _N
+    return lib
 
 
 def _raise(rc: int, err, what: str) -> None:
@@ -116,6 +128,34 @@ def blosc_decompress_into(data: bytes, out: np.ndarray,
     """One c-blosc 1.x chunk (zstd streams) into ``out``, which it must fill."""
     _into("mmr_blosc_decompress", data, out, what)
     return out
+
+
+def _compress(entry: str, data, what: str, *extra) -> bytes:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        src = np.frombuffer(data, np.uint8)
+    else:
+        src = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    lib = library()
+    out = np.empty(getattr(lib, BOUNDS[entry])(src.nbytes), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    got = ctypes.c_size_t()
+    rc = getattr(lib, entry)(src.ctypes.data, src.nbytes, *extra, out.ctypes.data,
+                             out.nbytes, ctypes.byref(got), err, _ERRLEN)
+    if rc:
+        _raise(rc, err, what)
+    return out[:got.value].tobytes()
+
+
+def zstd_compress(data, what: str = "zstd data") -> bytes:
+    """``data`` (bytes or a C-ordered array's bytes) as one zstd frame."""
+    return _compress("mmr_zstd_compress", data, what)
+
+
+def blosc_compress(data, typesize: int, what: str = "blosc chunk") -> bytes:
+    """``data`` (bytes or a C-ordered array's bytes, elements of
+    ``typesize`` bytes) as one c-blosc 1.x chunk: zstd, bitshuffle, the
+    block size c-blosc picks at clevel 3."""
+    return _compress("mmr_blosc_compress", data, what, int(typesize))
 
 
 def jpeg_decode(data: bytes, what: str = "JPEG image",

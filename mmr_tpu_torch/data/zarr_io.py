@@ -1,32 +1,33 @@
 """Zarr v3 video stores without tensorstore (counterpart of
 ``mmr_tpu/data/zarr_io.py``), in numpy, ``json``, ``zlib``, the standard
-library and the port's host decoders (:mod:`mmr_tpu_torch.data.hostlib`).
+library and the port's host codecs (:mod:`mmr_tpu_torch.data.hostlib`).
 
 The on-disk schema is the reference's (zarr v3, ``Data_Loader.py:303-397``):
 
     <dataset>/data/data_NNN.zarr/
         zarr.json            (group; attrs: properties.class_locations)
-        image/               (3, T, H, W) float32 or uint8, chunks (3, 1, *patch)
+        image/               (3, T, H, W) float32 or uint8, chunks (3, 1, *patch),
+                             blosc-zstd clevel 3 bitshuffle (Data_Loader.py:664-666)
         mask/                (T, H, W) uint8, chunks (1, *patch)
 
 Chunks are files ``<array>/c/<i>/<j>/...`` (the ``default`` chunk key
 encoding), edge chunks stored at full size; a chunk that holds only the
-fill value is absent, and reads as the fill value. :class:`ZarrArray`
-reads the codecs ``bytes`` (little endian) alone, ``bytes`` + ``gzip``,
-and ``bytes`` + ``blosc`` with the zstd compressor: the stores the
-reference's converter writes (zstd, clevel 3, bitshuffle;
-``Data_Loader.py:664-666``) and JAX's ``VideoStore`` writes through
-tensorstore. It writes ``bytes`` + ``gzip``, which tensorstore reads too;
-writing blosc would need an encoder this package does not have, so a write
-into a blosc array raises. It takes what the schema holds and nothing
-more: uint8 and float32, the ``/`` chunk key separator, a numeric fill
-value, blosc over zstd; anything else (another codec, another blosc
-compressor) raises ``NotImplementedError`` naming it, rather than being
-misread.
+fill value is absent, and reads as the fill value. :meth:`ZarrArray.create`
+writes the codecs JAX's ``VideoStore`` writes through tensorstore,
+``bytes`` + ``blosc`` (zstd, clevel 3, bitshuffle, the dtype's typesize),
+chunk by chunk with the port's encoders; ``codec="gzip"`` writes ``bytes``
++ ``gzip`` level 1 instead (a comparison copy). :class:`ZarrArray` reads
+``bytes`` alone, ``bytes`` + ``gzip``, ``bytes`` + ``zstd`` (zarr-python
+3's default) and ``bytes`` + ``blosc`` over zstd, and writes into any of
+them. It takes what the schema holds and nothing more: uint8 and float32,
+the ``/`` chunk key separator, a numeric fill value, blosc over zstd;
+anything else (another codec, another blosc compressor) raises
+``NotImplementedError`` naming it, rather than being misread.
 
 Reads decode only the chunks a window touches, each on a shared thread
-pool (``zlib``, the host decoders and file reads release the GIL, so the
-decodes run in parallel), straight into the caller's output array.
+pool (``zlib``, the host codecs and file reads release the GIL, so the
+decodes run in parallel), straight into the caller's output array; writes
+encode a chunk a pool task the same way.
 """
 
 from __future__ import annotations
@@ -47,7 +48,11 @@ from mmr_tpu_torch.ops.padcrop import window_slices
 
 GZIP_LEVEL = 1
 _DTYPES = ("uint8", "float32")
-_COMPRESSORS = ("gzip", "blosc")   # the codecs this reader takes after ``bytes``
+_COMPRESSORS = ("gzip", "zstd", "blosc")   # the codecs this reader takes after ``bytes``
+_HOST_CODECS = ("zstd", "blosc")           # those the host library decodes and encodes
+# JAX's ``_array_spec`` codecs as tensorstore writes them into zarr.json
+_BLOSC = {"name": "blosc", "configuration": {"blocksize": 0, "clevel": 3, "cname": "zstd",
+                                             "shuffle": "bitshuffle"}}
 
 POOL_THREADS = min(32, os.cpu_count() or 1)   # the chunk pool's default size
 
@@ -120,18 +125,21 @@ class ZarrArray:
         if bad is not None or len(names) > 2:
             raise NotImplementedError(
                 f"{self.path}: codec {bad or names[-1]!r} is not supported "
-                f"(codecs {names}; this reader takes 'bytes', 'bytes' + 'gzip' "
-                f"and 'bytes' + 'blosc')")
+                f"(codecs {names}; this reader takes 'bytes', 'bytes' + 'gzip', "
+                f"'bytes' + 'zstd' and 'bytes' + 'blosc')")
         endian = codecs[0].get("configuration", {}).get("endian", "little")
         if endian != "little":
             raise NotImplementedError(f"{self.path}: {endian} endian bytes")
         self._codec = names[1] if len(names) == 2 else None
         if self._codec == "blosc":
-            cname = codecs[1].get("configuration", {}).get("cname")
-            if cname != "zstd":
+            config = codecs[1].get("configuration", {})
+            if config.get("cname") != "zstd":
                 raise NotImplementedError(
-                    f"{self.path}: blosc compressor {cname!r} is not supported "
-                    f"(this reader takes blosc over zstd, the reference's)")
+                    f"{self.path}: blosc compressor {config.get('cname')!r} is not "
+                    f"supported (this package reads and writes blosc over zstd, the "
+                    f"reference's)")
+            self._typesize = int(config.get("typesize") or self.dtype.itemsize)
+        if self._codec in _HOST_CODECS:
             hostlib.library()   # built here, on the opener's thread, not on the pool
         fill = meta.get("fill_value", 0)
         if isinstance(fill, (str, bool)) or not isinstance(fill, (int, float)):
@@ -139,23 +147,34 @@ class ZarrArray:
         self.fill_value = self.dtype.type(fill)
 
     @classmethod
-    def create(cls, path: str | Path, shape, chunks, dtype) -> "ZarrArray":
+    def create(cls, path: str | Path, shape, chunks, dtype, codec: str = "blosc") -> "ZarrArray":
         """A new empty array at ``path`` (an array there before is
-        removed), codecs ``bytes`` + ``gzip`` at ``GZIP_LEVEL``, fill
-        value 0."""
+        removed), fill value 0, its codecs ``bytes`` + ``blosc`` as JAX's
+        ``VideoStore`` writes them (zstd, clevel 3, bitshuffle, the dtype's
+        typesize), or with ``codec="gzip"`` ``bytes`` + ``gzip`` at
+        ``GZIP_LEVEL``."""
+        dtype = np.dtype(dtype)
+        if codec == "blosc":
+            second = {"name": "blosc",
+                      "configuration": dict(_BLOSC["configuration"], typesize=dtype.itemsize)}
+        elif codec == "gzip":
+            second = {"name": "gzip", "configuration": {"level": GZIP_LEVEL}}
+        else:
+            raise ValueError(f"codec {codec!r}: 'blosc' or 'gzip'")
+        first = ({"name": "bytes"} if dtype.itemsize == 1 else
+                 {"name": "bytes", "configuration": {"endian": "little"}})
         path = Path(path)
         if (path / "zarr.json").exists():
             shutil.rmtree(path)
         path.mkdir(parents=True, exist_ok=True)
         (path / "zarr.json").write_text(json.dumps({
             "zarr_format": 3, "node_type": "array",
-            "shape": [int(n) for n in shape], "data_type": np.dtype(dtype).name,
+            "shape": [int(n) for n in shape], "data_type": dtype.name,
             "chunk_grid": {"name": "regular",
                            "configuration": {"chunk_shape": [int(n) for n in chunks]}},
             "chunk_key_encoding": {"name": "default"},
-            "fill_value": 0,
-            "codecs": [{"name": "bytes", "configuration": {"endian": "little"}},
-                       {"name": "gzip", "configuration": {"level": GZIP_LEVEL}}],
+            "fill_value": dtype.type(0).item(),
+            "codecs": [first, second],
         }))
         return cls(path)
 
@@ -175,8 +194,10 @@ class ZarrArray:
         except FileNotFoundError:
             return None
         n = int(np.prod(self.chunks)) * self.dtype.itemsize
-        if self._codec == "blosc":
-            buf = hostlib.blosc_decompress_into(data, np.empty(n, np.uint8), str(path))
+        if self._codec in _HOST_CODECS:
+            decode = (hostlib.blosc_decompress_into if self._codec == "blosc"
+                      else hostlib.zstd_decompress_into)
+            buf = decode(data, np.empty(n, np.uint8), str(path))
             return buf.view(self.dtype).reshape(self.chunks)
         if self._codec == "gzip":
             try:   # one output buffer of the chunk's size: no regrowth, no join
@@ -188,9 +209,6 @@ class ZarrArray:
         return np.frombuffer(data, self.dtype).reshape(self.chunks)
 
     def _write_chunk(self, idx, src, part: np.ndarray) -> None:
-        if self._codec == "blosc":
-            raise NotImplementedError(
-                f"{self.path}: writing blosc chunks (this package writes 'bytes' + 'gzip')")
         in_bounds = tuple(min(c, n - i * c)
                           for i, c, n in zip(idx, self.chunks, self.shape))
         whole = all(s.stop - s.start == m for s, m in zip(src, in_bounds))
@@ -202,10 +220,15 @@ class ZarrArray:
         if not np.any(buf != self.fill_value):
             path.unlink(missing_ok=True)   # fill-valued chunks stay absent
             return
-        data = buf.tobytes()
-        if self._codec == "gzip":
-            c = zlib.compressobj(GZIP_LEVEL, zlib.DEFLATED, 31)
-            data = c.compress(data) + c.flush()
+        if self._codec == "blosc":
+            data = hostlib.blosc_compress(buf, self._typesize, str(path))
+        elif self._codec == "zstd":
+            data = hostlib.zstd_compress(buf, str(path))
+        else:
+            data = buf.tobytes()
+            if self._codec == "gzip":
+                c = zlib.compressobj(GZIP_LEVEL, zlib.DEFLATED, 31)
+                data = c.compress(data) + c.flush()
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f".{path.name}.tmp")
         tmp.write_bytes(data)

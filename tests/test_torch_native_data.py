@@ -1,4 +1,4 @@
-"""The port's host decoders (``mmr_tpu_torch/csrc/host``, built by ``cc``
+"""The port's host codecs (``mmr_tpu_torch/csrc/host``, built by ``cc``
 at first use) and Path B's data entry held against the JAX package on the
 CPU:
 
@@ -11,6 +11,11 @@ CPU:
   chunks of 105 and 221 elements (blocks c-blosc leaves unshuffled):
   the port's ``ZarrArray`` reads them bit-equal to tensorstore; split
   streams, raw streams and memcpyed chunks built here by the format;
+- the port's encoders: zstd frames that ``zstandard`` and the port's
+  decoder both read back exactly; blosc chunks with tensorstore's header
+  (flags, typesize, block size) that tensorstore reads, at typesizes 1, 2,
+  4 and 8; the committed arrays and a full-HD synthetic frame stored within
+  1.10× tensorstore's bytes;
 - the committed JAX-written stores (``tests/torch_fixtures``) read by the
   port's ``VideoStore`` and ``PatchSampler`` bit-equal to JAX's reads and
   to the recorded sha256;
@@ -20,8 +25,9 @@ CPU:
   AVI through ``idx1``, a ``movi`` walk and a hand-built OpenDML file
   (``AVIX`` + ``indx`` / ``ix00``) that cv2 reads too;
 - ``convert_zip_dataset`` (nested ZIP, flat ZIP, folder) and
-  ``extract_frames_dataset`` against JAX's: masks, ``class_locations`` and
-  split files exactly equal, frames within a stated bound of cv2's decode;
+  ``extract_frames_dataset`` against JAX's: masks, ``class_locations``,
+  codecs and split files exactly equal, frames within a stated bound of
+  cv2's decode;
 - the refusals, each naming what it refuses, and ``mmr_torch_create_dataset``
   end to end.
 """
@@ -49,6 +55,7 @@ from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures"
 RECORDS = json.loads((FIXTURES / "records.json").read_text())
 BYTES = {"name": "bytes", "configuration": {"endian": "little"}}
+MEMCPYED = 0x02   # the blosc flag of a chunk stored uncompressed
 
 # the converters' frames (``VideoReader(fancy_upsampling=False)``: each
 # chroma sample repeated, as OpenCV's FFmpeg backend does) against cv2's
@@ -191,6 +198,37 @@ def test_zstd_hand_built_blocks():
     assert hostlib.zstd_decompress_into(zeros, np.empty(300_000, np.uint8)).tobytes() == bytes(300_000)
 
 
+@pytest.mark.parametrize("kind", ["noise", "smooth", "constant", "records", "bytes", "short",
+                                  "empty", "one", "large"])
+def test_zstd_encoder_read_by_zstandard(kind):
+    """The port's zstd frames: ``zstandard`` and the port's decoder both
+    give the input back exactly; float noise (raw or Huffman literals),
+    smooth floats and text records (FSE sequences, repeat offsets), a
+    constant (RLE), random bytes (raw blocks), a short text (one Huffman
+    stream), empty and 1-byte input, and 600 kB (five blocks, matches that
+    reach back across them)."""
+    rng = np.random.RandomState(11)
+    if kind == "records":
+        data = b"".join(b"%06d,%s,%d\n" % (i, b"abc" * (i % 5), i * 7 % 13)
+                        for i in range(8000))
+    elif kind == "bytes":
+        data = rng.bytes(150_000)
+    elif kind == "short":
+        data = bytes(rng.choice(list(b"abcdefgh"), 1600))
+    elif kind in ("empty", "one"):
+        data = b"x" if kind == "one" else b""
+    elif kind == "large":
+        data = _content("smooth", (150_000,), "float32", rng).tobytes()
+    else:
+        data = _content(kind, (40_001,), "float32", rng).tobytes()
+    comp = hostlib.zstd_compress(data)
+    assert zstandard.ZstdDecompressor().decompress(comp) == data
+    out = np.empty(len(data), np.uint8)
+    assert hostlib.zstd_decompress_into(comp, out).tobytes() == data
+    if kind in ("smooth", "records", "large"):   # within 1.10x of libzstd's level 1
+        assert len(comp) <= 1.10 * len(zstandard.ZstdCompressor(level=1).compress(data))
+
+
 # ------------------------------------------------------------------ blosc
 
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
@@ -215,29 +253,46 @@ def test_blosc_tensorstore_store_read_by_port(tmp_path, dtype, clevel, shuffle, 
                                           ((1, 512, 640), "uint8"),
                                           ((3, 1, 5, 7), "float32"),
                                           ((1, 13, 17), "uint8"),
-                                          ((1, 1000, 37), "float32")],
+                                          ((1, 1000, 37), "float32"),
+                                          ((1, 300, 37), "int16"),
+                                          ((1, 250, 37), "float64")],
                          ids=["f32-512x640", "u8-512x640", "f32-105", "u8-221",
-                              "f32-leftover"])
+                              "f32-leftover", "i16", "f64"])
 def test_blosc_whole_chunks(tmp_path, shape, dtype):
     """Single chunks: a flagship image chunk (3.9 MB, 30 blosc blocks, each
     several zstd blocks), a mask chunk (a leftover block), 105 and 221
-    elements (not a multiple of 8: c-blosc stores the block unshuffled) and
-    a leftover block of 4232 elements, each as tensorstore wrote it."""
+    elements (not a multiple of 8: c-blosc stores the block unshuffled), a
+    leftover block of 4232 elements, and typesizes 2 and 8, each as
+    tensorstore wrote it: the port decodes it; the port's chunk of the same
+    array has tensorstore's header (version, flags, typesize, nbytes,
+    c-blosc's block size) but for cbytes and the memcpyed flag, which follow
+    the compressed size, and tensorstore reads it in place of its own."""
     rng = np.random.RandomState(1)
     a = np.round(rng.rand(*shape) * 255).astype(dtype)
-    if dtype == "float32":
+    if dtype.startswith("float"):
         a /= 255
-    arr = _ts_array(tmp_path / "a", shape, shape, dtype,
-                    [BYTES, _blosc(typesize=a.itemsize)])
+    spec = (tmp_path / "a", shape, shape, dtype, [BYTES, _blosc(typesize=a.itemsize)])
+    arr = _ts_array(*spec)
     arr.write(a).result()
     out = np.empty(a.nbytes, np.uint8)
-    hostlib.blosc_decompress_into(_chunk_file(tmp_path / "a" / "c").read_bytes(), out)
+    chunk = _chunk_file(tmp_path / "a" / "c")
+    theirs = chunk.read_bytes()
+    hostlib.blosc_decompress_into(theirs, out)
     assert out.tobytes() == a.tobytes()
+    mine = hostlib.blosc_compress(a, a.itemsize)
+    assert [mine[:2], mine[2] & ~MEMCPYED, mine[3:12]] == [theirs[:2], theirs[2] & ~MEMCPYED,
+                                                           theirs[3:12]]
+    assert hostlib.blosc_decompress_into(mine, out).tobytes() == a.tobytes()
+    chunk.write_bytes(mine)
+    reread = ts.open({"driver": "zarr3", "kvstore": {"driver": "file",
+                                                     "path": str(tmp_path / "a")}}).result()
+    np.testing.assert_array_equal(np.asarray(reread[...].read().result()), a)
 
 
 def test_blosc_decodes_on_many_threads(tmp_path):
-    """The decoders keep no state between calls and release the GIL: 16
-    threads decoding the flagship-size chunk at once all get its bytes."""
+    """The codecs keep no state between calls and release the GIL: 16
+    threads decoding the flagship-size chunk at once all get its bytes, and
+    16 encoding it at once all write the same chunk, which decodes to it."""
     from concurrent.futures import ThreadPoolExecutor
 
     a = np.round(np.random.RandomState(3).rand(3, 1, 128, 160) * 255).astype(np.float32) / 255
@@ -250,7 +305,11 @@ def test_blosc_decodes_on_many_threads(tmp_path):
 
     with ThreadPoolExecutor(16) as pool:
         outs = list(pool.map(decode, range(64), timeout=60))
+        chunks = list(pool.map(lambda _: hostlib.blosc_compress(a, 4), range(32), timeout=60))
     assert all(o == a.tobytes() for o in outs)
+    assert len(set(chunks)) == 1
+    assert hostlib.blosc_decompress_into(chunks[0], np.empty(a.nbytes, np.uint8)).tobytes() \
+        == a.tobytes()
 
 
 def _blosc_frame(data: bytes, typesize: int, blocksize: int, flags: int,
@@ -355,6 +414,44 @@ def test_jax_video_store_read_by_port(tmp_path):
     mine = VideoStore(tmp_path / "v.zarr")
     np.testing.assert_array_equal(mine.image[:], np.asarray(s.image[:]))
     np.testing.assert_array_equal(mine.mask[:], np.asarray(s.mask[:]))
+
+
+def _stored(array: Path) -> int:
+    return sum(f.stat().st_size for f in (array / "c").rglob("*") if f.is_file())
+
+
+@pytest.mark.parametrize("name", ["f32_full", "u8_full", "render_f32", "render_u8"])
+def test_port_blosc_within_tensorstore_size(tmp_path, name):
+    """The port's default writer against tensorstore's c-blosc (zstd
+    clevel 3, bitshuffle) on the same arrays: the committed full-size image
+    chunks written again through ``VideoStore`` (read back to the recorded
+    sha256), and one full-HD ``render_frame`` written by both stores in
+    512×640 chunks (edge chunks at full size). The port's image chunks take
+    at most 1.10× tensorstore's bytes (measured 0.99, 1.02, 1.00, 1.00)."""
+    from mmr_tpu.data.zarr_io import VideoStore as JaxStore
+    from mmr_tpu_torch.data.synthetic import render_frame
+
+    if name.startswith("render"):
+        dtype = np.float32 if name.endswith("f32") else np.uint8
+        img, mask = render_frame(np.random.RandomState(12), 1080, 1920, 9)
+        stores = [cls.create(tmp_path / who, 1, 1080, 1920, (512, 640), image_dtype=dtype)
+                  for who, cls in (("mine", VideoStore), ("theirs", JaxStore))]
+        for s in stores:
+            s.write_frame(0, img.transpose(2, 0, 1), mask)
+        mine, theirs = tmp_path / "mine", tmp_path / "theirs"
+        np.testing.assert_array_equal(np.asarray(JaxStore(mine).image[:]),
+                                      np.asarray(stores[1].image[:]))
+    else:
+        theirs = FIXTURES / "blosc" / f"{name}.zarr"
+        src = VideoStore(theirs)
+        t, h, w = src.shape
+        mine = tmp_path / "mine"
+        dst = VideoStore.create(mine, t, h, w, src.image.chunks[2:], image_dtype=src.image_dtype)
+        img, mask = src.read_frames(0, t)
+        dst.image.write((slice(None),), img.transpose(3, 0, 1, 2))
+        dst.mask.write((slice(None),), mask)
+        assert _sha(VideoStore(mine).image[:]) == RECORDS["stores"][name]["image"]
+    assert _stored(mine / "image") <= 1.10 * _stored(theirs / "image")
 
 
 # ------------------------------------------------------------------- JPEG
@@ -785,6 +882,10 @@ def _same_dataset(mine: Path, theirs: Path):
         scale = 1.0 if a.image_dtype == np.uint8 else 255.0
         d = np.abs(ia.astype(np.float64) - ib) * scale
         assert d.mean() <= CV2_MEAN and d.max() <= CV2_MAX + 1e-3, (name, d.mean(), d.max())
+        for arr in ("image", "mask"):
+            meta = [json.loads((root / "data" / name / arr / "zarr.json").read_text())
+                    for root in (mine, theirs)]
+            assert meta[0]["codecs"] == meta[1]["codecs"], (name, arr)
     for f in ("train_val_test_split.json",):
         assert (mine / f).exists() == (theirs / f).exists()
         if (mine / f).exists():
@@ -800,8 +901,8 @@ def _same_dataset(mine: Path, theirs: Path):
 def test_convert_zip_dataset_matches_jax(tmp_path, raw_videos, source, kw):
     """The port's converter and JAX's over the same sources: the same
     stores (frame 8, past each video's end, warned about and left
-    unwritten), masks, class locations and split files exactly equal,
-    frames within the bound of cv2's decode."""
+    unwritten), masks, class locations, codecs (blosc-zstd) and split files
+    exactly equal, frames within the bound of cv2's decode."""
     from mmr_tpu.data.convert import convert_zip_dataset as jax_convert
 
     mine = convert.convert_zip_dataset(raw_videos / source, tmp_path / "mine", 3,
@@ -887,9 +988,10 @@ def test_refusals_name_what_they_refuse(tmp_path):
     """Another fourcc (cv2's mp4v AVI), progressive, lossless,
     arithmetic-coded and 12-bit JPEG, a non-zstd blosc store and chunk
     (lz4, written by tensorstore), a zstd dictionary,
-    a blosc header of another version: ``NotImplementedError`` naming each;
-    a truncated chunk: ``ValueError`` naming its file; a write into a blosc
-    array is refused."""
+    a blosc header of another version, a write into a blosc-lz4 array, a
+    typesize c-blosc lacks: ``NotImplementedError`` naming each; a
+    truncated chunk: ``ValueError`` naming its file, and written anew by
+    the port, read back by both readers."""
     w = cv2.VideoWriter(str(tmp_path / "m.avi"), cv2.VideoWriter_fourcc(*"mp4v"), 5, (64, 48))
     w.write(np.zeros((48, 64, 3), np.uint8))
     w.release()
@@ -927,8 +1029,13 @@ def test_refusals_name_what_they_refuse(tmp_path):
     chunk.write_bytes(chunk.read_bytes()[:-20])
     with pytest.raises(ValueError, match=str(chunk)):
         ZarrArray(tmp_path / "b")[:]
-    with pytest.raises(NotImplementedError, match="writing blosc"):
-        ZarrArray(tmp_path / "b").write((0,), np.zeros((64, 64), np.float32))
+    ZarrArray(tmp_path / "b").write((0,), a[0])   # the damaged chunk written anew
+    np.testing.assert_array_equal(ZarrArray(tmp_path / "b")[:], a)
+    np.testing.assert_array_equal(np.asarray(b[...].read().result()), a)
+    with pytest.raises(NotImplementedError, match="blosc compressor 'lz4'"):
+        ZarrArray(tmp_path / "lz4").write((0,), a[0])
+    with pytest.raises(NotImplementedError, match="c.bin: blosc typesize 300"):
+        hostlib.blosc_compress(a, 300, "c.bin")
 
 
 def test_build_without_cc_raises(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """Path B's host data path in the port against the JAX package on the CPU:
-the Zarr stores both ways (the port's gzip stores read by JAX's
-tensorstore-backed ``VideoStore``, tensorstore's gzip and raw stores read
-by the port, absent chunks as the fill value, blosc-lz4 refused), the window
+the Zarr stores both ways (the port's blosc-zstd stores, with JAX's
+``zarr.json``, and its gzip copies read by JAX's tensorstore-backed
+``VideoStore``; tensorstore's gzip, zstd and raw stores read by the port;
+absent chunks as the fill value, blosc-lz4 refused), the window
 crops, the ``PatchSampler`` (bit-equal batches for three epochs), the
 ``VideoFrameDataset``, ``make_synthetic_dataset``, the split files (byte-
 equal to scikit-learn's), the one-hot codecs and the converter's parts
@@ -25,6 +26,7 @@ from tests.test_torch_train_modules import few_torch_threads  # noqa: F401
 
 BYTES = {"name": "bytes", "configuration": {"endian": "little"}}
 GZIP = {"name": "gzip", "configuration": {"level": 1}}
+ZSTD = {"name": "zstd", "configuration": {"level": 0, "checksum": True}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -43,10 +45,15 @@ def _frame(rng, h, w, n_classes=4):
     return (np.round(img * 255) / 255).astype(np.float32), mask
 
 
-def _port_store(path, rng, t, h, w, patch, dtype, skip=(), background=()):
+def _port_store(path, rng, t, h, w, patch, dtype, skip=(), background=(), codec="blosc"):
     """A port-written store with frames ``skip`` left unwritten and frames
-    ``background`` all class 0 (their mask chunks absent)."""
+    ``background`` all class 0 (their mask chunks absent); its arrays'
+    codecs the default (JAX's blosc-zstd) or ``codec``."""
     s = VideoStore.create(path, t, h, w, patch, image_dtype=dtype)
+    if codec != "blosc":
+        ZarrArray.create(path / "image", (3, t, h, w), (3, 1) + tuple(patch), dtype, codec)
+        ZarrArray.create(path / "mask", (t, h, w), (1,) + tuple(patch), np.uint8, codec)
+        s = VideoStore(path)
     locs = {"1": [], "2": [], "3": []}
     for i in range(t):
         if i in skip:
@@ -115,16 +122,26 @@ def _same_store(a, b):
 
 # ------------------------------------------------------------------ stores
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
-def test_port_store_read_by_jax(tmp_path, dtype):
-    """(a) 100×130 frames in 64×64 chunks (edge chunks partial), frame 2
-    unwritten, frame 3 all background: JAX's tensorstore reader gets the
-    port's arrays and properties, bit for bit."""
+@pytest.mark.parametrize("dtype, shape, patch, codec", [
+    (np.uint8, (5, 100, 130), (64, 64), "blosc"),
+    (np.float32, (5, 100, 130), (64, 64), "blosc"),
+    (np.float32, (4, 12, 16), (5, 7), "blosc"),
+    (np.uint8, (4, 30, 40), (13, 17), "blosc"),
+    (np.float32, (5, 100, 130), (64, 64), "gzip"),
+], ids=["uint8", "float32", "float32-105", "uint8-221", "float32-gzip"])
+def test_port_store_read_by_jax(tmp_path, dtype, shape, patch, codec):
+    """(a) Frames in chunks with partial edge chunks, frame 2 unwritten,
+    frame 3 all background, written by the port's default writer (and a
+    gzip copy): JAX's tensorstore reader gets the port's arrays and
+    properties, bit for bit; the arrays' ``zarr.json`` are those tensorstore
+    writes for JAX's ``VideoStore`` (codecs, typesize, fill value). Chunks
+    of 105 float32 and 221 uint8 elements are blocks c-blosc leaves
+    unshuffled."""
     from mmr_tpu.data.zarr_io import VideoStore as JaxStore
 
     rng = np.random.RandomState(3)
-    mine = _port_store(tmp_path / "v.zarr", rng, 5, 100, 130, (64, 64), dtype,
-                       skip=(2,), background=(3,))
+    mine = _port_store(tmp_path / "v.zarr", rng, *shape, patch, dtype,
+                       skip=(2,), background=(3,), codec=codec)
     assert _chunk_files(mine.path, 2) == [[], []]
     assert _chunk_files(mine.path, 3)[0] and not _chunk_files(mine.path, 3)[1]
     theirs = JaxStore(tmp_path / "v.zarr")
@@ -133,12 +150,20 @@ def test_port_store_read_by_jax(tmp_path, dtype):
     _same_store(VideoStore(tmp_path / "v.zarr"), theirs)
     img, mask = mine.read_frames(2, 4)
     assert not img[0].any() and not mask.any()
+    if codec == "blosc":
+        JaxStore.create(tmp_path / "j.zarr", *shape, patch, image_dtype=dtype)
+        for arr in ("image", "mask"):
+            assert (json.loads((tmp_path / "v.zarr" / arr / "zarr.json").read_text())
+                    == json.loads((tmp_path / "j.zarr" / arr / "zarr.json").read_text()))
 
 
-@pytest.mark.parametrize("codecs", [[BYTES, GZIP], [BYTES]], ids=["gzip", "raw"])
+@pytest.mark.parametrize("codecs", [[BYTES, GZIP], [BYTES], [BYTES, ZSTD]],
+                         ids=["gzip", "raw", "zstd"])
 def test_tensorstore_store_read_by_port(tmp_path, codecs):
-    """(b) tensorstore's gzip and raw stores, with an unwritten frame and
-    an all-background frame (absent chunks), read bit-equal by the port."""
+    """(b) tensorstore's gzip, raw and zstd (zarr-python 3's default
+    compressor, with its checksum) stores, with an unwritten frame and an
+    all-background frame (absent chunks), read bit-equal by the port; a
+    frame the port writes into them reads the same through both."""
     from mmr_tpu.data.zarr_io import VideoStore as JaxStore
 
     rng = np.random.RandomState(4)
@@ -146,6 +171,8 @@ def test_tensorstore_store_read_by_port(tmp_path, codecs):
                      skip=(1,), background=(2,))
     assert _chunk_files(path, 1) == [[], []]
     assert _chunk_files(path, 2)[0] and not _chunk_files(path, 2)[1]
+    _same_store(VideoStore(path), JaxStore(path))
+    VideoStore(path).write_frame(1, *_frame(rng, 90, 70))   # the port writes its codecs
     _same_store(VideoStore(path), JaxStore(path))
 
 
@@ -194,7 +221,7 @@ def test_zarr_array_partial_writes_and_indexing(tmp_path):
      "separator"),
     ("chunk_key_encoding", {"name": "v2"}, "chunk key encoding"),
     ("fill_value", "NaN", "fill value"),
-    ("codecs", [BYTES, {"name": "zstd", "configuration": {"level": 1}}], "zstd"),
+    ("codecs", [BYTES, {"name": "crc32c"}], "crc32c"),
 ])
 def test_zarr_array_refuses_what_the_schema_lacks(tmp_path, key, value, what):
     """Metadata outside the stores' schema (another data type, big-endian
