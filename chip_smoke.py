@@ -3312,6 +3312,103 @@ def fixture_masks(seed: int, n: int) -> list[np.ndarray]:
     return [render_frame(rng, *FRAME, N_CLASSES - 1)[1] for _ in range(n)]
 
 
+def _alternated_ms(fns: dict, rounds: int) -> dict:
+    """{name: (median, min) ms} of each call, the calls alternated round by
+    round on one thread."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (sorted(v)[len(v) // 2], min(v)) for k, v in times.items()}
+
+
+def other_inputs_phase(seed, smi, records, tmp: Path) -> None:
+    """Phase 16 (e): the inputs the JAX converters read beside the
+    reference's own, on the card's host. Every frame of the committed
+    progressive and 4:4:0 / 4:1:1 Motion-JPEG AVIs decodes to its recorded
+    sha256 (PIL's samples); one-thread decode of a progressive full-HD frame
+    (4:2:2) against the baseline fixture's (4:2:0), alternated, both chroma
+    modes; the stores tensorstore wrote with blosclz, lz4, lz4hc, snappy and
+    zlib read to their recorded sha256; the full-size lz4 and zlib chunks'
+    one-thread decode against ``f32_full``'s zstd chunk (alternated, best of
+    ``CODEC_ROUNDS``); ``mmr_torch_create_dataset`` on the progressive
+    full-HD AVI, whose store holds the converter's decode and the masks."""
+    import zipfile
+
+    from mmr_tpu_torch.cli import create_dataset
+    from mmr_tpu_torch.data import hostlib, png, zarr_io
+    from mmr_tpu_torch.data.video import VideoReader
+
+    for name, rec in records["mjpeg"].items():
+        with VideoReader(FIXTURES / rec["file"]) as video:
+            check(video.frame_count == len(rec["frames"])
+                  and all(_sha256(video.read(t)) == want for t, want in enumerate(rec["frames"])),
+                  f"{rec['file']} decoded to other samples than recorded")
+    print(f"[16e] {len(records['mjpeg'])} Motion-JPEG AVIs ("
+          + ", ".join(f"{'progressive' if r['progressive'] else 'baseline'} {r['sampling']} "
+                      f"{r['shape'][0]}x{r['shape'][1]}" for r in records["mjpeg"].values())
+          + ") decode to the recorded sha256", flush=True)
+    prog = records["mjpeg"]["mjpeg_prog_1080"]
+    with VideoReader(FIXTURES / prog["file"]) as a, VideoReader(FIXTURES / records["avi"]["file"]) as b:
+        frames = {"progressive 4:2:2": a.frame_bytes(0), "baseline 4:2:0": b.frame_bytes(0)}
+    fns = {}
+    for k, data in frames.items():
+        fns[k] = lambda data=data: hostlib.jpeg_decode(data)
+        fns[k + " (OpenCV's chroma)"] = lambda data=data: hostlib.jpeg_decode(
+            data, fancy_upsampling=False)
+    ms = _alternated_ms(fns, 4 * DECODE_REPS)
+    print(f"[16e] {smi}: full-HD frame decode on one thread, median (min) ms over "
+          f"{4 * DECODE_REPS} alternated decodes: "
+          + "; ".join(f"{k} {m:.2f} ({lo:.2f}) ms, {len(frames[k.split(' (')[0]]) / 1e3:.1f} kB"
+                      for k, (m, lo) in ms.items()), flush=True)
+
+    for name, rec in records["other_compressors"].items():
+        store = zarr_io.VideoStore(FIXTURES / "blosc" / f"{name}.zarr")
+        check(_sha256(store.image[:]) == rec["image"] and _sha256(store.mask[:]) == rec["mask"],
+              f"the blosc-{rec['cname']} store {name} reads other arrays than JAX's")
+    print(f"[16e] {len(records['other_compressors'])} stores of blosc's other compressors "
+          f"({', '.join(sorted({r['cname'] for r in records['other_compressors'].values()}))}) "
+          "read to the recorded sha256", flush=True)
+    chunk = {k: (FIXTURES / "blosc" / f"{k}.zarr" / "image" / "c" / "0" / "0" / "0" / "0"
+                 ).read_bytes() for k in ("f32_full", "lz4_full", "zlib_full")}
+    buf = np.empty(3 * 512 * 640 * 4, np.uint8)
+    ms = _alternated_ms({k: lambda data=data: hostlib.blosc_decompress_into(data, buf)
+                         for k, data in chunk.items()}, CODEC_ROUNDS)
+    print(f"[16e] {smi}: full-size (3, 1, 512, 640) float32 chunk decode on one thread, best "
+          f"of {CODEC_ROUNDS} alternated: "
+          + "; ".join(f"{k} ({'zstd' if k == 'f32_full' else k[:-5]}, {len(chunk[k]) / 1e6:.3f} "
+                      f"MB stored) {lo:.2f} ms, {buf.nbytes / 1e3 / lo:.0f} MB/s"
+                      for k, (_, lo) in ms.items()), flush=True)
+
+    masks = fixture_masks(seed + 161, len(prog["frames"]))
+    outer, inner = tmp / "progressive.zip", tmp / "video_01.zip"
+    with zipfile.ZipFile(inner, "w") as zi:
+        zi.write(FIXTURES / prog["file"], "video_left.avi")
+        for t, m in enumerate(masks):
+            zi.write(png.write(tmp / "pm.png", m), f"segmentation/{t:09d}.png")
+    with zipfile.ZipFile(outer, "w") as zo:
+        zo.write(inner, inner.name)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = create_dataset.main([str(outer), str(tmp / "pds"), str(N_CLASSES - 1),
+                                  f"[{ROI[0]},{ROI[1]}]"])
+    dt = time.perf_counter() - t0
+    stores = zarr_io.list_dataset_stores(tmp / "pds")
+    with VideoReader(FIXTURES / prog["file"], fancy_upsampling=False) as video:
+        converted = [video.read(t) for t in range(len(prog["frames"]))]
+    ok = rc == 0 and len(stores) == 1
+    if ok:
+        img, mask = zarr_io.VideoStore(stores[0]).read_frames(0, len(converted))
+        ok = all(np.array_equal(img[t], converted[t].astype(np.float32) / 255.0)
+                 and np.array_equal(mask[t], masks[t]) for t in range(len(converted)))
+    print(f"[16e] {smi}: mmr_torch_create_dataset on {prog['file']} (progressive 4:2:2, "
+          f"{len(converted)} frames): exit {rc} in {dt:.2f} s; the store holds the "
+          f"converter's decode and the masks: {ok}", flush=True)
+    check(ok, "mmr_torch_create_dataset on the progressive AVI did not store its frames and masks")
+
+
 def native_data_phase(dev, seed, smi) -> dict:
     """Phase 16: Path B's entry on the card's machine — the host decoders
     (``csrc/host``, built by ``cc``) and ``mmr_torch_create_dataset``.
@@ -3334,7 +3431,8 @@ def native_data_phase(dev, seed, smi) -> dict:
     frames decoded with OpenCV's chroma and the masks, class locations; one
     ``train_model.main`` epoch of ``CONVERT_STEPS`` + ``CONVERT_VAL``
     batches on them (launches the code's), ``infer.main`` on the split's
-    test video (exit 0, 21 K1 + 2 K2 a frame). Returns {kind: launches of
+    test video (exit 0, 21 K1 + 2 K2 a frame); (e) the other inputs the JAX
+    converters read (``other_inputs_phase``). Returns {kind: launches of
     the train epoch}."""
     import tempfile
     import zipfile
@@ -3490,6 +3588,7 @@ def native_data_phase(dev, seed, smi) -> dict:
               "mmr_torch_infer on the converted stores did not report the test split")
         check(served == forward_counts(n_frames),
               "mmr_torch_infer's launches are not 21 K1 + 2 K2 a frame")
+        other_inputs_phase(seed, smi, records, tmp)
     print(f"[16] {smi}: phase 16 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return launches

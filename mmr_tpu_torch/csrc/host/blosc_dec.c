@@ -1,5 +1,7 @@
-/* c-blosc 1.x chunks (header version 2) over zstd, the codec the
- * reference's converter writes (zarr v3 "blosc", cname zstd).
+/* c-blosc 1.x chunks (header version 2) over each compressor tensorstore
+ * writes: zstd, the reference converter's (zarr v3 "blosc", cname zstd),
+ * and blosclz, lz4 (lz4hc writes the same streams), snappy and zlib
+ * (lz_dec.c, inflate.c).
  *
  * The 16-byte header (version, versionlz, flags, typesize, nbytes,
  * blocksize, cbytes), then either the raw bytes (flag 0x02, memcpyed) or
@@ -12,7 +14,7 @@
  * a block whose element count is a multiple of 8 (bytes past its last
  * whole element copied) and stores any other block as it is: a chunk of
  * 105 float32 or 221 uint8 elements written by tensorstore holds its
- * bytes unshuffled. */
+ * bytes unshuffled. The delta filter (0x08) is refused by name. */
 #include <stdlib.h>
 #include <string.h>
 
@@ -25,8 +27,12 @@
 #define BLOSC_DODELTA 0x08
 #define BLOSC_NOSPLIT 0x10
 
-static const char *const COMPRESSORS[8] = {"blosclz", "lz4 or lz4hc", "snappy", "zlib",
-                                           "zstd",    "code 5",       "code 6", "code 7"};
+typedef int (*stream_decoder)(const uint8_t *, size_t, uint8_t *, size_t, size_t *, char *,
+                              size_t);
+/* by the compressor code in the flags' top 3 bits */
+static const stream_decoder DECODERS[8] = {mmr_blosclz_decompress, mmr_lz4_decompress,
+                                           mmr_snappy_decompress,  mmr_zlib_decompress,
+                                           mmr_zstd_decompress};
 
 static inline uint32_t le32(const uint8_t *p) {
   return p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 | (uint32_t)p[3] << 24;
@@ -66,12 +72,12 @@ int mmr_blosc_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
     *written = nbytes;
     return MMR_OK;
   }
-  int comp = flags >> 5;
-  if (comp != 4)
+  stream_decoder decode = DECODERS[flags >> 5];
+  if (!decode)
     return mmr_set_error(err, errlen, MMR_UNSUPPORTED,
-                         "blosc compressor %s (this reader takes zstd, the one the "
-                         "reference's converter writes)",
-                         COMPRESSORS[comp]);
+                         "blosc compressor code %d (this reader takes blosclz, lz4, lz4hc, "
+                         "snappy, zlib and zstd)",
+                         flags >> 5);
   if (flags & BLOSC_DODELTA)
     return mmr_set_error(err, errlen, MMR_UNSUPPORTED, "blosc delta filter");
   if (nbytes == 0) return MMR_OK;
@@ -114,7 +120,7 @@ int mmr_blosc_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
         memcpy(out + j * neblock, src + p, neblock);
       } else {
         size_t got;
-        rc = mmr_zstd_decompress(src + p, cs, out + j * neblock, neblock, &got, err, errlen);
+        rc = decode(src + p, cs, out + j * neblock, neblock, &got, err, errlen);
         if (rc == MMR_OK && got != neblock)
           rc = mmr_set_error(err, errlen, MMR_CORRUPT,
                              "blosc block %zu stream %zu gave %zu bytes, not %zu", b, j, got,

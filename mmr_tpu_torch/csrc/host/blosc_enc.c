@@ -1,14 +1,17 @@
 /* c-blosc 1.x chunks (header version 2) over zstd, as tensorstore's
  * c-blosc writes the reference's codec (zarr v3 "blosc": cname zstd,
- * clevel 3, bitshuffle).
+ * clevel 3, bitshuffle) and its byte-shuffled and unshuffled variants.
  *
- * The header: version 2, versionlz 1, flags bitshuffle | no-split | zstd
- * (0x94), the typesize, nbytes, c-blosc's block size for zstd at clevel 3
- * (128 KiB where the chunk holds that much, else the whole chunk, a
- * multiple of the typesize) and cbytes; one int32 start offset a block;
- * each block bitshuffled (bitshuffle.h: a block whose element count is not
- * a multiple of 8 is kept as it is) and written as one stream, its int32
- * size and a zstd frame, or its raw bytes where the frame is not smaller.
+ * The header: version 2, versionlz 1, flags no-split | zstd with the
+ * array's shuffle (0x94 bitshuffle, 0x91 byte shuffle, 0x90 none: c-blosc
+ * sets the shuffle flag at any typesize), the typesize, nbytes, c-blosc's
+ * block size for zstd at clevel 3 (128 KiB where the chunk holds that
+ * much, else the whole chunk, a multiple of the typesize) and cbytes; one
+ * int32 start offset a block; each block shuffled (byte shuffle as
+ * c-blosc's shuffle.c, the bytes past the last whole element kept in
+ * place; bitshuffle.h: a block whose element count is not a multiple of 8
+ * is kept as it is) and written as one stream, its int32 size and a zstd
+ * frame, or its raw bytes where the frame is not smaller.
  * A chunk of fewer than 128 bytes, or one whose streams do not fit in
  * nbytes + 16, is stored memcpyed (flag 0x02) as c-blosc stores it. */
 #include <stdlib.h>
@@ -18,16 +21,26 @@
 #include "mmr_host.h"
 
 #define BLOSC_MEMCPYED 0x02
-#define BLOSC_FLAGS (0x04 | 0x10 | 4 << 5) /* bitshuffle, no split, zstd */
+#define BLOSC_FLAGS (0x10 | 4 << 5) /* no split, zstd */
+static const uint8_t SHUFFLE_FLAGS[3] = {0x00, 0x01, 0x04}; /* none, byte, bit */
 #define MIN_BUFFERSIZE 128
 #define MAX_OVERHEAD 16
 /* the shortest match: on bitshuffled image planes matches under 7 bytes
  * cost more in sequences than they save in literals, and decode slower;
- * a block left unshuffled holds whole elements, repeated 4 bytes apart */
+ * a block left unshuffled or byte-shuffled holds whole elements or byte
+ * planes, whose repeats are shorter */
 #define MATCH_BITSHUFFLED 7
 #define MATCH_UNSHUFFLED 4
 
 static void put32(uint8_t *p, uint32_t v) { memcpy(p, &v, 4); }
+
+/* c-blosc's byte shuffle: byte j of element i to j * n + i */
+static void byte_shuffle(size_t ts, size_t bsize, const uint8_t *src, uint8_t *dst) {
+  size_t n = bsize / ts;
+  for (size_t i = 0; i < n; i++)
+    for (size_t j = 0; j < ts; j++) dst[j * n + i] = src[i * ts + j];
+  memcpy(dst + n * ts, src + n * ts, bsize - n * ts);
+}
 
 /* c-blosc 1.x's compute_blocksize for zstd at clevel 3, no forced size */
 static size_t blocksize_for(size_t nbytes, size_t ts) {
@@ -40,9 +53,12 @@ static size_t blocksize_for(size_t nbytes, size_t ts) {
 
 size_t mmr_blosc_compress_bound(size_t n) { return n + MAX_OVERHEAD; }
 
-int mmr_blosc_compress(const uint8_t *src, size_t n, size_t ts, uint8_t *dst, size_t cap,
-                       size_t *written, char *err, size_t errlen) {
+int mmr_blosc_compress(const uint8_t *src, size_t n, size_t ts, int shuffle, uint8_t *dst,
+                       size_t cap, size_t *written, char *err, size_t errlen) {
   *written = 0;
+  if (shuffle < 0 || shuffle > 2)
+    return mmr_set_error(err, errlen, MMR_UNSUPPORTED,
+                         "blosc shuffle %d (0 none, 1 byte shuffle, 2 bitshuffle)", shuffle);
   if (ts < 1 || ts > 255)
     return mmr_set_error(err, errlen, MMR_UNSUPPORTED,
                          "blosc typesize %zu (c-blosc 1.x takes 1 to 255)", ts);
@@ -54,7 +70,7 @@ int mmr_blosc_compress(const uint8_t *src, size_t n, size_t ts, uint8_t *dst, si
                          "blosc output buffer of %zu bytes, %zu bytes of input need %zu", cap,
                          n, n + MAX_OVERHEAD);
   size_t bs = blocksize_for(n, ts), nblocks = n ? (n + bs - 1) / bs : 0;
-  uint8_t flags = BLOSC_FLAGS;
+  uint8_t flags = BLOSC_FLAGS | SHUFFLE_FLAGS[shuffle];
   size_t limit = n + MAX_OVERHEAD, p = MAX_OVERHEAD + 4 * nblocks;
   int rc = MMR_OK, memcpyed = n < MIN_BUFFERSIZE || p > limit;
   if (!memcpyed) {
@@ -65,12 +81,20 @@ int mmr_blosc_compress(const uint8_t *src, size_t n, size_t ts, uint8_t *dst, si
     } else {
       for (size_t b = 0; b < nblocks && !memcpyed; b++) {
         size_t bsize = b + 1 < nblocks || n % bs == 0 ? bs : n % bs, got;
-        bitshuffle_block(ts, bsize, src + b * bs, shuf);
-        size_t mm = (bsize / ts) % 8 ? MATCH_UNSHUFFLED : MATCH_BITSHUFFLED;
-        rc = mmr_zstd_compress_with(z, shuf, bsize, mm, frame, mmr_zstd_compress_bound(bs), &got,
+        const uint8_t *block = src + b * bs;
+        size_t mm = MATCH_UNSHUFFLED;
+        if (shuffle == 2) {
+          bitshuffle_block(ts, bsize, block, shuf);
+          block = shuf;
+          if ((bsize / ts) % 8 == 0) mm = MATCH_BITSHUFFLED;
+        } else if (shuffle == 1) {
+          byte_shuffle(ts, bsize, block, shuf);
+          block = shuf;
+        }
+        rc = mmr_zstd_compress_with(z, block, bsize, mm, frame, mmr_zstd_compress_bound(bs), &got,
                                     err, errlen);
         if (rc != MMR_OK) break;
-        const uint8_t *stream = got < bsize ? frame : shuf;
+        const uint8_t *stream = got < bsize ? frame : block;
         size_t size = got < bsize ? got : bsize;
         if (p + 4 + size > limit) {
           memcpyed = 1;

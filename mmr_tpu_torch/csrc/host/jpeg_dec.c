@@ -1,26 +1,45 @@
-/* Baseline and extended-Huffman 8-bit JPEG (SOF0, SOF1), decoded as
- * libjpeg-turbo does by default, so that the samples equal its own:
+/* 8-bit Huffman JPEG, baseline, extended (SOF0, SOF1) and progressive
+ * (SOF2), decoded as libjpeg-turbo does by default, so that the samples
+ * equal its own:
  *
- *   - Huffman tables (DHT) and quantization tables (DQT) as they stand
- *     when each scan starts (redefined between scans), restart intervals
- *     (DRI, RSTn), interleaved and single-component scans;
+ *   - Huffman tables (DHT) as they stand when each scan starts (redefined
+ *     between scans), restart intervals (DRI, RSTn), interleaved and
+ *     single-component scans, each component's quantization table latched
+ *     at its first scan (libjpeg's latch_quant_tables: a DQT later in the
+ *     frame does not change it);
  *   - Motion-JPEG frames without DHT take the standard tables of the JPEG
  *     standard's Annex K for slots 0 and 1 (libjpeg-turbo's jstdhuff.c);
+ *   - progressive scans as jdphuff.c decodes them: DC first and refinement
+ *     scans, AC spectral-selection first scans with EOB runs, AC successive
+ *     approximation refinement (correction bits, ZRL, the EOB run carried
+ *     across blocks and reset at each RSTn), into one int16 coefficient
+ *     buffer of the frame, sized from the frame header; the blocks are
+ *     dequantized and transformed once, after the last scan. A scan header
+ *     out of range (Ss, Se, Ah, Al), an AC scan before its component's DC
+ *     scan or a refinement that follows no first scan is MMR_CORRUPT. Scans
+ *     that leave a low-frequency coefficient unrefined, which libjpeg would
+ *     output through its block smoothing, are MMR_UNSUPPORTED;
  *   - the ISLOW integer IDCT (jidctint.c: 13-bit constants, 2 pass bits)
  *     and its range limit;
- *   - 1 or 3 components; chroma at 4:4:4, 4:2:2 (h2v1) or 4:2:0 (h2v2),
- *     upsampled by libjpeg's "fancy" triangular filter (jdsample.c), the
- *     edge rows and columns repeated, a box filter where a component is
- *     at most 2 samples wide; or, on request, each chroma sample repeated
- *     over the 2x1 or 2x2 pixels it covers, which is how OpenCV's FFmpeg
- *     backend gives Motion-JPEG frames (cv2.VideoCapture);
+ *   - 1 or 3 components, each sampled at a whole fraction (1 to 4 in each
+ *     direction) of the largest factor: 4:4:4, 4:2:2 (h2v1), 4:2:0 (h2v2),
+ *     4:4:0 (h1v2), 4:1:1 (h4v1) and the rest. Chroma is upsampled as
+ *     jdsample.c does: the "fancy" triangular filter for h2v1 and h2v2
+ *     (edge rows and columns repeated; a box filter where a component is at
+ *     most 2 samples wide) and h1v2, each sample repeated elsewhere
+ *     (int_upsample); or, on request, the chroma as OpenCV's FFmpeg backend
+ *     gives Motion-JPEG frames (cv2.VideoCapture, through swscale): each
+ *     sample repeated over the pixels it covers at 4:4:4, and at 4:2:2 and
+ *     4:2:0 of even height (its unscaled converter), else resampled as its
+ *     generic scaler does (Keys' cubic at centre siting, to half the width
+ *     and the full height, each pixel pair sharing a sample);
  *   - its fixed-point YCbCr -> RGB (jdcolor.c, 16 fraction bits); three
  *     components tagged RGB (Adobe transform 0, or ids 'R' 'G' 'B' with
  *     no JFIF marker) are copied.
  *
- * Progressive, lossless, hierarchical, arithmetic-coded and 12-bit JPEG,
- * CMYK, DNL heights and other sampling factors give MMR_UNSUPPORTED,
- * naming what was found. */
+ * Lossless, hierarchical, arithmetic-coded and 12-bit JPEG, CMYK, DNL
+ * heights and sampling factors whose ratios are not whole numbers give
+ * MMR_UNSUPPORTED, naming what was found. */
 #include <stdlib.h>
 #include <string.h>
 
@@ -75,6 +94,10 @@ typedef struct {
   int dw, dh;     /* samples of the component inside the image */
   int stride, bh; /* plane: stride = blocks across x 8, bh blocks down */
   uint8_t *plane;
+  int16_t *coef;  /* progressive: 64 coefficients a block, in the plane's block order */
+  uint16_t q[64]; /* the quantization table, latched at the component's first scan */
+  int latched;
+  int8_t bits[64]; /* progressive: each coefficient's Al so far, -1 before its first scan */
   int dc_pred;
 } comp_t;
 
@@ -85,7 +108,7 @@ typedef struct {
   int qdef[4];
   htab dc[4], ac[4];
   int width, height, ncomp, hmax, vmax, mcux, mcuy, restart;
-  int jfif, adobe, adobe_transform, sof;
+  int jfif, adobe, adobe_transform, sof, progressive, scans;
   comp_t c[3];
   size_t cap; /* the output's bytes: a larger frame is refused before any allocation */
   int fancy;  /* chroma: libjpeg's triangular filter (1) or repeated samples (0) */
@@ -230,6 +253,101 @@ static int decode_block(jbits *b, const htab *dc, const htab *ac, int *pred, int
   return 0;
 }
 
+/* -------------------------------------------------- progressive blocks */
+/* one progressive scan's band and approximation, and its EOB run */
+typedef struct {
+  int ss, se, ah, al, eobrun;
+} pscan;
+
+/* DC first scan: the difference, shifted up by Al (jdphuff.c
+ * decode_mcu_DC_first) */
+static int dc_first(jbits *b, const htab *dc, int *pred, int16_t *blk, int al) {
+  int s = hdecode(b, dc);
+  if (s < 0) return -1;
+  int diff = 0;
+  if (s) {
+    int r = getbits(b, s);
+    diff = EXTEND(r, s);
+  }
+  if ((diff > 0 && *pred > INT32_MAX - diff) || (diff < 0 && *pred < INT32_MIN - diff)) return -1;
+  *pred += diff;
+  blk[0] = (int16_t)((uint32_t)*pred << al);
+  return 0;
+}
+
+/* AC first scan over [Ss, Se]: coefficients shifted up by Al, ZRL, and EOB
+ * runs that skip this and the next blocks (decode_mcu_AC_first) */
+static int ac_first(jbits *b, const htab *ac, pscan *p, int16_t *blk) {
+  if (p->eobrun > 0) {
+    p->eobrun--;
+    return 0;
+  }
+  for (int k = p->ss; k <= p->se; k++) {
+    int rs = hdecode(b, ac);
+    if (rs < 0) return -1;
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      if (k > p->se) return -1;
+      int v = getbits(b, s);
+      blk[ZZ[k]] = (int16_t)((uint32_t)EXTEND(v, s) << p->al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      p->eobrun = (1 << r) - 1;
+      if (r) p->eobrun += getbits(b, r);
+      break;
+    }
+  }
+  return 0;
+}
+
+/* a correction bit for a coefficient already nonzero: 1 adds the bit of
+ * weight p1 to its magnitude, unless it has it */
+static inline void correct(jbits *b, int16_t *t, int p1) {
+  if (getbits(b, 1) && (*t & p1) == 0) *t = (int16_t)(*t >= 0 ? *t + p1 : *t - p1);
+}
+
+/* AC refinement over [Ss, Se] (decode_mcu_AC_refine): each newly nonzero
+ * coefficient is +-2^Al, placed after r zero coefficients; the nonzero ones
+ * passed on the way, and those after an end of band, take a correction bit */
+static int ac_refine(jbits *b, const htab *ac, pscan *p, int16_t *blk) {
+  int p1 = 1 << p->al, k = p->ss;
+  if (p->eobrun == 0) {
+    for (; k <= p->se; k++) {
+      int rs = hdecode(b, ac);
+      if (rs < 0) return -1;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        if (s != 1) return -1;
+        s = getbits(b, 1) ? p1 : -p1;
+      } else if (r != 15) {
+        p->eobrun = 1 << r;
+        if (r) p->eobrun += getbits(b, r);
+        break;
+      }
+      do {
+        int16_t *t = blk + ZZ[k];
+        if (*t)
+          correct(b, t, p1);
+        else if (--r < 0)
+          break;
+        k++;
+      } while (k <= p->se);
+      if (s) {
+        if (k > p->se) return -1;
+        blk[ZZ[k]] = (int16_t)s;
+      }
+    }
+  }
+  if (p->eobrun > 0) {
+    for (; k <= p->se; k++)
+      if (blk[ZZ[k]]) correct(b, blk + ZZ[k], p1);
+    p->eobrun--;
+  }
+  return 0;
+}
+
 /* ----------------------------------------------------------- ISLOW IDCT */
 #define CONST_BITS 13
 #define PASS1_BITS 2
@@ -366,7 +484,6 @@ static void idct_islow(const int16_t *in, const uint16_t *q, uint8_t *out, int s
 /* -------------------------------------------------------------- markers */
 static const char *sof_name(int m) {
   switch (m) {
-    case 0xC2: return "progressive JPEG (SOF2)";
     case 0xC3: return "lossless JPEG (SOF3)";
     case 0xC5: return "differential sequential JPEG (SOF5)";
     case 0xC6: return "differential progressive JPEG (SOF6)";
@@ -383,7 +500,7 @@ static const char *sof_name(int m) {
 
 static inline int be16(const uint8_t *p) { return p[0] << 8 | p[1]; }
 
-static int read_sof(jdec *d, const uint8_t *s, int len, int marker) {
+static int read_sof(jdec *d, const uint8_t *s, int len, int marker, int info_only) {
   if (len < 6) FAIL(MMR_CORRUPT, "JPEG frame header of %d bytes", len);
   if (s[0] != 8)
     FAIL(MMR_UNSUPPORTED, "%d-bit JPEG (SOF%d; this decoder takes 8-bit samples)", s[0],
@@ -409,19 +526,18 @@ static int read_sof(jdec *d, const uint8_t *s, int len, int marker) {
     d->hmax = c->h > d->hmax ? c->h : d->hmax;
     d->vmax = c->v > d->vmax ? c->v : d->vmax;
   }
-  if (d->ncomp == 3) {
-    for (int i = 0; i < 3; i++) {
-      int rh = d->hmax / d->c[i].h, rv = d->vmax / d->c[i].v;
-      if (d->hmax % d->c[i].h || d->vmax % d->c[i].v || rh > 2 || rv > rh)
-        FAIL(MMR_UNSUPPORTED,
-             "JPEG sampling factors %dx%d, %dx%d, %dx%d (this decoder takes 4:4:4, "
-             "4:2:2 and 4:2:0)",
-             d->c[0].h, d->c[0].v, d->c[1].h, d->c[1].v, d->c[2].h, d->c[2].v);
-    }
-  }
+  for (int i = 0; i < d->ncomp; i++)
+    if (d->hmax % d->c[i].h || d->vmax % d->c[i].v)
+      FAIL(MMR_UNSUPPORTED,
+           "JPEG sampling factors %dx%d, %dx%d, %dx%d (a component's ratio to the largest "
+           "factor is not a whole number; libjpeg refuses them too)",
+           d->c[0].h, d->c[0].v, d->c[1].h, d->c[1].v, d->c[2].h, d->c[2].v);
   if ((size_t)d->height * d->width * d->ncomp > d->cap)
     FAIL(MMR_CORRUPT, "JPEG image of %dx%dx%d, the buffer holds %zu", d->height, d->width,
          d->ncomp, d->cap);
+  d->sof = marker;
+  d->progressive = marker == 0xC2;
+  if (info_only) return MMR_OK;
   d->mcux = (d->width + 8 * d->hmax - 1) / (8 * d->hmax);
   d->mcuy = (d->height + 8 * d->vmax - 1) / (8 * d->vmax);
   for (int i = 0; i < d->ncomp; i++) {
@@ -431,9 +547,12 @@ static int read_sof(jdec *d, const uint8_t *s, int len, int marker) {
     c->stride = d->mcux * c->h * 8;
     c->bh = d->mcuy * c->v;
     c->plane = calloc((size_t)c->stride * c->bh * 8, 1);
-    if (!c->plane) FAIL(MMR_NOMEM, "out of memory");
+    if (d->progressive) {
+      c->coef = calloc((size_t)c->stride * c->bh * 8, sizeof *c->coef);
+      memset(c->bits, -1, sizeof c->bits);
+    }
+    if (!c->plane || (d->progressive && !c->coef)) FAIL(MMR_NOMEM, "out of memory");
   }
-  d->sof = marker;
   return MMR_OK;
 }
 
@@ -469,6 +588,50 @@ static int read_dqt(jdec *d, const uint8_t *s, int len) {
   return MMR_OK;
 }
 
+/* the tables a scan's components name, Annex K's standing in for slots 0
+ * and 1 where none was defined, derived for decoding */
+static int scan_tables(jdec *d, comp_t *const *sc, int ns, int need_dc, int need_ac) {
+  for (int i = 0; i < ns; i++) {
+    htab *dc = &d->dc[sc[i]->td], *ac = &d->ac[sc[i]->ta];
+    if (need_dc && !dc->defined && sc[i]->td < 2)
+      std_table(dc, sc[i]->td ? STD_DC_C_BITS : STD_DC_L_BITS, STD_DC_VALS, 12);
+    if (need_ac && !ac->defined && sc[i]->ta < 2)
+      std_table(ac, sc[i]->ta ? STD_AC_C_BITS : STD_AC_L_BITS,
+                sc[i]->ta ? STD_AC_C_VALS : STD_AC_L_VALS, 162);
+    if ((need_dc && (!dc->defined || derive(dc, 1))) || (need_ac && (!ac->defined || derive(ac, 0))))
+      FAIL(MMR_CORRUPT, "JPEG Huffman table %d/%d missing or invalid", sc[i]->td, sc[i]->ta);
+  }
+  return MMR_OK;
+}
+
+/* a progressive scan's band and approximation against what the earlier
+ * scans coded (jdphuff.c start_pass_phuff_decoder, whose warnings for
+ * scans out of order are refusals here) */
+static int progression(jdec *d, comp_t *const *sc, int ns, const pscan *p) {
+  int dc = p->ss == 0;
+  if ((dc ? p->se != 0 : p->ss > p->se || p->se > 63 || ns != 1) ||
+      (p->ah && p->al != p->ah - 1) || p->al > 13)
+    FAIL(MMR_CORRUPT,
+         "progressive JPEG scan of %d components with spectral selection %d..%d, "
+         "approximation %d/%d",
+         ns, p->ss, p->se, p->ah, p->al);
+  for (int i = 0; i < ns; i++) {
+    int8_t *bits = sc[i]->bits;
+    if (!dc && bits[0] < 0)
+      FAIL(MMR_CORRUPT, "progressive JPEG AC scan of component %d before its DC scan",
+           sc[i]->id);
+    for (int k = p->ss; k <= p->se; k++) {
+      if (p->ah != (bits[k] < 0 ? 0 : bits[k]))
+        FAIL(MMR_CORRUPT,
+             "progressive JPEG scan of component %d coefficient %d at approximation %d/%d "
+             "after %s",
+             sc[i]->id, k, p->ah, p->al, bits[k] < 0 ? "no first scan" : "another scan");
+      bits[k] = (int8_t)p->al;
+    }
+  }
+  return MMR_OK;
+}
+
 /* past the RSTn marker that ends a restart interval */
 static int restart(jdec *d, jbits *b) {
   const uint8_t *p = b->p;
@@ -484,10 +647,11 @@ static int restart(jdec *d, jbits *b) {
 }
 
 /* one scan from s (past its header) to the next marker; *next: the
- * offset of that marker */
+ * offset of that marker. A sequential scan's blocks are transformed into
+ * the planes as they come; a progressive one's go into the coefficients */
 static int read_scan(jdec *d, const uint8_t *s, int len, size_t body, size_t *next) {
   if (!d->sof) FAIL(MMR_CORRUPT, "JPEG scan before its frame header");
-  int ns = s[0];
+  int ns = len > 0 ? s[0] : 0, blocks = 0;
   comp_t *sc[4];
   if (ns < 1 || ns > d->ncomp || len < 4 + 2 * ns) FAIL(MMR_CORRUPT, "JPEG scan header");
   for (int i = 0; i < ns; i++) {
@@ -495,27 +659,37 @@ static int read_scan(jdec *d, const uint8_t *s, int len, size_t body, size_t *ne
     for (k = 0; k < d->ncomp && d->c[k].id != id; k++) {
     }
     if (k == d->ncomp) FAIL(MMR_CORRUPT, "JPEG scan names component %d", id);
+    for (int j = 0; j < i; j++)
+      if (sc[j] == &d->c[k]) FAIL(MMR_CORRUPT, "JPEG scan names component %d twice", id);
     sc[i] = &d->c[k];
     sc[i]->td = tt >> 4;
     sc[i]->ta = tt & 15;
     if (sc[i]->td > 3 || sc[i]->ta > 3) FAIL(MMR_CORRUPT, "JPEG scan table slot");
-    if (!d->qdef[sc[i]->tq]) FAIL(MMR_CORRUPT, "JPEG quantization table %d missing", sc[i]->tq);
+    if (!sc[i]->latched) {
+      if (!d->qdef[sc[i]->tq])
+        FAIL(MMR_CORRUPT, "JPEG quantization table %d missing", sc[i]->tq);
+      memcpy(sc[i]->q, d->q[sc[i]->tq], sizeof sc[i]->q);
+      sc[i]->latched = 1;
+    }
+    blocks += sc[i]->h * sc[i]->v;
   }
-  int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-  if (ss != 0 || se != 63 || ah || al)
-    FAIL(MMR_CORRUPT, "JPEG sequential scan with spectral selection %d..%d, approximation %d/%d",
-         ss, se, ah, al);
-  for (int i = 0; i < ns; i++) {
-    htab *dc = &d->dc[sc[i]->td], *ac = &d->ac[sc[i]->ta];
-    if (!dc->defined && sc[i]->td < 2)
-      std_table(dc, sc[i]->td ? STD_DC_C_BITS : STD_DC_L_BITS, STD_DC_VALS, 12);
-    if (!ac->defined && sc[i]->ta < 2)
-      std_table(ac, sc[i]->ta ? STD_AC_C_BITS : STD_AC_L_BITS,
-                sc[i]->ta ? STD_AC_C_VALS : STD_AC_L_VALS, 162);
-    if (!dc->defined || !ac->defined || derive(dc, 1) || derive(ac, 0))
-      FAIL(MMR_CORRUPT, "JPEG Huffman table %d/%d missing or invalid", sc[i]->td, sc[i]->ta);
-    sc[i]->dc_pred = 0;
+  if (ns > 1 && blocks > 10)
+    FAIL(MMR_CORRUPT, "JPEG scan of %d blocks an MCU (at most 10)", blocks);
+  pscan ps = {s[1 + 2 * ns], s[2 + 2 * ns], s[3 + 2 * ns] >> 4, s[3 + 2 * ns] & 15, 0};
+  int rc;
+  if (!d->progressive) {
+    if (ps.ss != 0 || ps.se != 63 || ps.ah || ps.al)
+      FAIL(MMR_CORRUPT,
+           "JPEG sequential scan with spectral selection %d..%d, approximation %d/%d", ps.ss,
+           ps.se, ps.ah, ps.al);
+    rc = scan_tables(d, sc, ns, 1, 1);
+  } else {
+    rc = progression(d, sc, ns, &ps);
+    if (rc == MMR_OK) rc = scan_tables(d, sc, ns, ps.ss == 0 && ps.ah == 0, ps.ss > 0);
   }
+  if (rc != MMR_OK) return rc;
+  for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+  d->scans++;
   jbits b = {d->src + body, d->src + d->n, 0, 0, 0};
   int16_t blk[64];
   long mcus;
@@ -528,15 +702,16 @@ static int read_scan(jdec *d, const uint8_t *s, int len, size_t body, size_t *ne
   }
   for (long m = 0; m < mcus; m++) {
     if (d->restart && m && m % d->restart == 0) {
-      int rc = restart(d, &b);
+      rc = restart(d, &b);
       if (rc) return rc;
+      ps.eobrun = 0;
     }
     for (int i = 0; i < ns; i++) {
       comp_t *c = sc[i];
       int bw = ns == 1 ? 1 : c->h, bhh = ns == 1 ? 1 : c->v;
       for (int v = 0; v < bhh; v++)
         for (int h = 0; h < bw; h++) {
-          int bx, by;
+          int bx, by, bad;
           if (ns == 1) {
             bx = (int)(m % nbx);
             by = (int)(m / nbx);
@@ -544,10 +719,22 @@ static int read_scan(jdec *d, const uint8_t *s, int len, size_t body, size_t *ne
             bx = (int)(m % d->mcux) * c->h + h;
             by = (int)(m / d->mcux) * c->v + v;
           }
-          if (decode_block(&b, &d->dc[c->td], &d->ac[c->ta], &c->dc_pred, blk))
-            FAIL(MMR_CORRUPT, "corrupt JPEG entropy data in MCU %ld", m);
-          idct_islow(blk, d->q[c->tq], c->plane + (size_t)by * 8 * c->stride + bx * 8,
-                     c->stride);
+          if (!d->progressive) {
+            bad = decode_block(&b, &d->dc[c->td], &d->ac[c->ta], &c->dc_pred, blk);
+            if (!bad)
+              idct_islow(blk, c->q, c->plane + (size_t)by * 8 * c->stride + bx * 8, c->stride);
+          } else {
+            int16_t *cb = c->coef + ((size_t)by * (c->stride / 8) + bx) * 64;
+            if (ps.ss == 0 && ps.ah == 0)
+              bad = dc_first(&b, &d->dc[c->td], &c->dc_pred, cb, ps.al);
+            else if (ps.ss == 0)
+              bad = (cb[0] |= (int16_t)(getbits(&b, 1) << ps.al), 0);
+            else if (ps.ah == 0)
+              bad = ac_first(&b, &d->ac[c->ta], &ps, cb);
+            else
+              bad = ac_refine(&b, &d->ac[c->ta], &ps, cb);
+          }
+          if (bad) FAIL(MMR_CORRUPT, "corrupt JPEG entropy data in MCU %ld", m);
         }
     }
   }
@@ -577,13 +764,13 @@ static int parse(jdec *d, int info_only) {
       FAIL(MMR_CORRUPT, "JPEG marker 0x%02X runs past the image", m);
     const uint8_t *seg = s + p + 2;
     int rc = MMR_OK;
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       if (d->sof) FAIL(MMR_CORRUPT, "second JPEG frame header");
-      rc = read_sof(d, seg, len, m);
+      rc = read_sof(d, seg, len, m, info_only);
       if (rc == MMR_OK && info_only) return MMR_OK;
     } else if (sof_name(m)) {
-      FAIL(MMR_UNSUPPORTED, "%s (this decoder takes baseline and extended-Huffman "
-           "sequential JPEG, SOF0 and SOF1)", sof_name(m));
+      FAIL(MMR_UNSUPPORTED, "%s (this decoder takes Huffman-coded 8-bit JPEG: baseline, "
+           "extended sequential and progressive, SOF0 to SOF2)", sof_name(m));
     } else if (m == 0xCC) {
       FAIL(MMR_UNSUPPORTED, "arithmetic-coded JPEG (DAC marker)");
     } else if (m == 0xDC) {
@@ -615,22 +802,46 @@ static int parse(jdec *d, int info_only) {
     p += 2 + len;
   }
   if (!d->sof) FAIL(MMR_CORRUPT, "JPEG image without a frame header");
+  if (!info_only && !d->scans) FAIL(MMR_CORRUPT, "JPEG image without a scan");
   return MMR_OK;
 }
 
 /* ---------------------------------------------------------------- output */
-/* component c's samples of output row y at full resolution (libjpeg's
- * upsamplers: none, h2v1 or h2v2, fancy where d->fancy is set and the
- * component is wider than 2 samples, else each sample repeated) */
+/* component c's samples of output row y at full resolution, as libjpeg's
+ * upsamplers give them (jdsample.c): with d->fancy, the triangular filter
+ * at h2v1 and h2v2 (where the component is wider than 2 samples) and h1v2;
+ * every other ratio, and every ratio without d->fancy, each sample repeated
+ * over the rh x rv pixels it covers (int_upsample) */
 static const uint8_t *upsampled_row(const jdec *d, const comp_t *c, int y, uint8_t *out) {
-  int rh = d->hmax / c->h, rv = d->vmax / c->v, dw = c->dw;
-  const uint8_t *in0 = c->plane + (size_t)(rv == 2 ? y >> 1 : y) * c->stride;
-  if (rh == 1) return in0;
-  if (!d->fancy || dw <= 2) {
-    for (int i = 0; i < dw; i++) out[2 * i] = out[2 * i + 1] = in0[i];
+  int rh = d->hmax / c->h, rv = d->vmax / c->v, dw = c->dw, iy = y / rv;
+  const uint8_t *in0 = c->plane + (size_t)iy * c->stride;
+  if (rh == 1 && rv == 1) return in0;
+  if (d->fancy && rv == 2 && (rh == 1 || (rh == 2 && dw > 2))) {
+    /* the nearer row above (even y) or below (odd y), the edge row repeated */
+    int ny = (y & 1) ? (iy + 1 < c->dh ? iy + 1 : c->dh - 1) : (iy > 0 ? iy - 1 : 0);
+    const uint8_t *in1 = c->plane + (size_t)ny * c->stride;
+    if (rh == 1) {
+      int bias = (y & 1) ? 2 : 1;
+      for (int i = 0; i < dw; i++) out[i] = (uint8_t)((in0[i] * 3 + in1[i] + bias) >> 2);
+      return out;
+    }
+    int last = in0[0] * 3 + in1[0], cur = last, next = in0[1] * 3 + in1[1];
+    out[0] = (uint8_t)((cur * 4 + 8) >> 4);
+    out[1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+    for (int i = 1; i < dw - 1; i++) {
+      last = cur;
+      cur = next;
+      next = in0[i + 1] * 3 + in1[i + 1];
+      out[2 * i] = (uint8_t)((cur * 3 + last + 8) >> 4);
+      out[2 * i + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+    }
+    last = cur;
+    cur = next;
+    out[2 * dw - 2] = (uint8_t)((cur * 3 + last + 8) >> 4);
+    out[2 * dw - 1] = (uint8_t)((cur * 4 + 7) >> 4);
     return out;
   }
-  if (rv == 1) {
+  if (d->fancy && rh == 2 && rv == 1 && dw > 2) {
     out[0] = in0[0];
     out[1] = (uint8_t)((in0[0] * 3 + in0[1] + 2) >> 2);
     for (int i = 1; i < dw - 1; i++) {
@@ -642,23 +853,127 @@ static const uint8_t *upsampled_row(const jdec *d, const comp_t *c, int y, uint8
     out[2 * dw - 1] = in0[dw - 1];
     return out;
   }
-  int iy = y >> 1, ny = (y & 1) ? (iy + 1 < c->dh ? iy + 1 : c->dh - 1) : (iy > 0 ? iy - 1 : 0);
-  const uint8_t *in1 = c->plane + (size_t)ny * c->stride;
-  int last = in0[0] * 3 + in1[0], cur = last, next = in0[1] * 3 + in1[1];
-  out[0] = (uint8_t)((cur * 4 + 8) >> 4);
-  out[1] = (uint8_t)((cur * 3 + next + 7) >> 4);
-  for (int i = 1; i < dw - 1; i++) {
-    last = cur;
-    cur = next;
-    next = in0[i + 1] * 3 + in1[i + 1];
-    out[2 * i] = (uint8_t)((cur * 3 + last + 8) >> 4);
-    out[2 * i + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
-  }
-  last = cur;
-  cur = next;
-  out[2 * dw - 2] = (uint8_t)((cur * 3 + last + 8) >> 4);
-  out[2 * dw - 1] = (uint8_t)((cur * 4 + 7) >> 4);
+  if (rh == 1) return in0;
+  for (int i = 0; i < dw; i++)
+    for (int j = 0; j < rh; j++) out[rh * i + j] = in0[i];
   return out;
+}
+
+/* a progressive frame's coefficients, once all its scans are in,
+ * dequantized by each component's latched table and transformed into its
+ * plane. libjpeg smooths the blocks (jdcoefct.c decompress_smooth_data)
+ * where every component's DC is known and some of its first ten
+ * coefficients is not refined to the last bit; such frames are refused */
+static int finish_progressive(jdec *d) {
+  int smooth = 1, partial = -1, coef = 0;
+  for (int i = 0; i < d->ncomp; i++) {
+    const comp_t *c = &d->c[i];
+    if (c->bits[0] < 0) smooth = 0;
+    for (int k = 1; k < 10 && partial < 0; k++)
+      if (c->bits[k] != 0) {
+        partial = i;
+        coef = k;
+      }
+  }
+  if (smooth && partial >= 0)
+    FAIL(MMR_UNSUPPORTED,
+         "progressive JPEG whose scans leave component %d's coefficient %d at approximation "
+         "%d (libjpeg outputs it through its block smoothing)",
+         d->c[partial].id, coef, d->c[partial].bits[coef]);
+  for (int i = 0; i < d->ncomp; i++) {
+    comp_t *c = &d->c[i];
+    int nbx = c->stride / 8;
+    for (int by = 0; by < c->bh; by++)
+      for (int bx = 0; bx < nbx; bx++)
+        idct_islow(c->coef + ((size_t)by * nbx + bx) * 64, c->q,
+                   c->plane + (size_t)by * 8 * c->stride + bx * 8, c->stride);
+  }
+  return MMR_OK;
+}
+
+/* ------------------------------------------------------- OpenCV's chroma */
+/* Keys' cubic with a = -0.6: swscale's SWS_BICUBIC at its default
+ * parameters (B = 0, C = 0.6) */
+static double keys(double x) {
+  x = x < 0 ? -x : x;
+  return x < 1 ? (1.4 * x - 2.4) * x * x + 1 : x < 2 ? ((-0.6 * x + 3) * x - 4.8) * x + 2.4 : 0;
+}
+
+/* one axis of swscale's generic scaler from n samples to m, each sample at
+ * its centre (its default chroma siting): for output i, taps source
+ * indices (clamped at the edges) and their weights, normalized; where it
+ * shrinks, the kernel is stretched by n / m */
+typedef struct {
+  int taps;
+  int *idx;
+  double *w;
+} axis;
+
+static int make_axis(axis *a, int n, int m) {
+  double scale = (double)n / m, stretch = scale > 1 ? scale : 1;
+  a->taps = 2 * (int)(2 * stretch + 2);
+  a->idx = malloc(sizeof *a->idx * m * a->taps);
+  a->w = malloc(sizeof *a->w * m * a->taps);
+  if (!a->idx || !a->w) return -1;
+  for (int i = 0; i < m; i++) {
+    double pos = (i + 0.5) * scale - 0.5, sum = 0;
+    int j0 = (int)(pos + 2 * stretch + 1) - a->taps + 1;
+    for (int t = 0; t < a->taps; t++) {
+      int j = j0 + t;
+      double w = keys((j - pos) / stretch);
+      a->idx[i * a->taps + t] = j < 0 ? 0 : j >= n ? n - 1 : j;
+      a->w[i * a->taps + t] = w;
+      sum += w;
+    }
+    for (int t = 0; t < a->taps; t++) a->w[i * a->taps + t] /= sum;
+  }
+  return 0;
+}
+
+/* does OpenCV's FFmpeg backend run swscale's generic scaler on this frame?
+ * Its unscaled YUV -> BGR converter takes 4:2:2 and 4:2:0 at even heights
+ * (each chroma sample repeated), and 4:4:4 keeps full chroma; every other
+ * layout goes through the scaler */
+static int swscale_generic(const jdec *d) {
+  for (int i = 1; i < 3; i++) {
+    int rh = d->hmax / d->c[i].h, rv = d->vmax / d->c[i].v;
+    if (!(rh == 1 && rv == 1) && !(rh == 2 && rv <= 2 && d->height % 2 == 0)) return 1;
+  }
+  return 0;
+}
+
+/* component c's samples as that scaler gives them to its output: the
+ * plane resampled, rows first, to ceil(W / 2) x H, rounded; each pair of
+ * output pixels then shares one */
+static int generic_chroma(jdec *d, const comp_t *c, uint8_t *out) {
+  int iw = (d->width + 1) / 2, H = d->height, cw = c->dw, ch = c->dh, rc = MMR_OK;
+  axis ax = {0}, ay = {0};
+  double *rows = malloc(sizeof *rows * (size_t)iw * ch);
+  if (!rows || make_axis(&ax, cw, iw) || make_axis(&ay, ch, H)) {
+    rc = mmr_set_error(d->err, d->errlen, MMR_NOMEM, "out of memory");
+  } else {
+    for (int y = 0; y < ch; y++) {
+      const uint8_t *in = c->plane + (size_t)y * c->stride;
+      for (int x = 0; x < iw; x++) {
+        double v = 0;
+        for (int t = 0; t < ax.taps; t++) v += ax.w[x * ax.taps + t] * in[ax.idx[x * ax.taps + t]];
+        rows[(size_t)y * iw + x] = v;
+      }
+    }
+    for (int y = 0; y < H; y++)
+      for (int x = 0; x < iw; x++) {
+        double v = 0.5;
+        for (int t = 0; t < ay.taps; t++)
+          v += ay.w[y * ay.taps + t] * rows[(size_t)ay.idx[y * ay.taps + t] * iw + x];
+        out[(size_t)y * iw + x] = v < 0 ? 0 : v >= 255 ? 255 : (uint8_t)v;
+      }
+  }
+  free(rows);
+  free(ax.idx);
+  free(ax.w);
+  free(ay.idx);
+  free(ay.w);
+  return rc;
 }
 
 static inline uint8_t clamp255(int v) { return v < 0 ? 0 : v > 255 ? 255 : (uint8_t)v; }
@@ -681,12 +996,33 @@ static int write_rgb(jdec *d, uint8_t *dst) {
     crg[i] = -46802 * x;                       /* -FIX(0.71414) */
     cbg[i] = -22554 * x + half;                /* -FIX(0.34414) */
   }
-  uint8_t *buf = malloc((size_t)3 * (W + 16));
-  if (!buf) FAIL(MMR_NOMEM, "out of memory");
+  /* OpenCV's chroma where its scaler resamples it (the converters' mode) */
+  int iw = (W + 1) / 2, generic = !d->fancy && !rgb && swscale_generic(d);
+  uint8_t *buf = malloc((size_t)3 * (W + 16)), *cv = generic ? malloc((size_t)2 * iw * H) : NULL;
+  int rc = !buf || (generic && !cv) ? mmr_set_error(d->err, d->errlen, MMR_NOMEM, "out of memory")
+                                    : MMR_OK;
+  if (rc == MMR_OK && generic) rc = generic_chroma(d, &d->c[1], cv);
+  if (rc == MMR_OK && generic) rc = generic_chroma(d, &d->c[2], cv + (size_t)iw * H);
+  if (rc != MMR_OK) {
+    free(buf);
+    free(cv);
+    return rc;
+  }
   for (int y = 0; y < H; y++) {
-    const uint8_t *r0 = upsampled_row(d, &d->c[0], y, buf);
-    const uint8_t *r1 = upsampled_row(d, &d->c[1], y, buf + (W + 16));
-    const uint8_t *r2 = upsampled_row(d, &d->c[2], y, buf + 2 * (W + 16));
+    const uint8_t *r0 = upsampled_row(d, &d->c[0], y, buf), *r1, *r2;
+    if (cv) {
+      uint8_t *o1 = buf + (W + 16), *o2 = buf + 2 * (W + 16);
+      const uint8_t *i1 = cv + (size_t)y * iw, *i2 = i1 + (size_t)iw * H;
+      for (int x = 0; x < W; x++) {
+        o1[x] = i1[x >> 1];
+        o2[x] = i2[x >> 1];
+      }
+      r1 = o1;
+      r2 = o2;
+    } else {
+      r1 = upsampled_row(d, &d->c[1], y, buf + (W + 16));
+      r2 = upsampled_row(d, &d->c[2], y, buf + 2 * (W + 16));
+    }
     uint8_t *o = dst + (size_t)y * W * 3;
     if (rgb) {
       for (int x = 0; x < W; x++) {
@@ -704,11 +1040,15 @@ static int write_rgb(jdec *d, uint8_t *dst) {
     }
   }
   free(buf);
+  free(cv);
   return MMR_OK;
 }
 
 static void release(jdec *d) {
-  for (int i = 0; i < 3; i++) free(d->c[i].plane);
+  for (int i = 0; i < 3; i++) {
+    free(d->c[i].plane);
+    free(d->c[i].coef);
+  }
   free(d);
 }
 
@@ -745,6 +1085,7 @@ int mmr_jpeg_decode(const uint8_t *src, size_t n, uint8_t *dst, size_t cap, int 
   if (!d) return mmr_set_error(err, errlen, MMR_NOMEM, "out of memory");
   d->fancy = fancy;
   int rc = parse(d, 0);
+  if (rc == MMR_OK && d->progressive) rc = finish_progressive(d);
   if (rc == MMR_OK) rc = write_rgb(d, dst);
   release(d);
   return rc;

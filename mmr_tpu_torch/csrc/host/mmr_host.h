@@ -4,14 +4,18 @@
  *   zstd_dec.c   zstd frames (RFC 8878), no dictionaries
  *   zstd_enc.c   one zstd frame: greedy matching, Huffman literals, FSE
  *                sequences, the reference's one setting (blosc clevel 3)
- *   blosc_dec.c  c-blosc 1.x frames (header version 2) over zstd streams
+ *   lz_dec.c     blosclz, lz4 and snappy block streams
+ *   inflate.c    zlib streams (RFC 1950 / 1951)
+ *   blosc_dec.c  c-blosc 1.x frames (header version 2) over any of them
  *   blosc_enc.c  c-blosc 1.x frames over zstd as tensorstore writes the
- *                reference's codec (bitshuffle, clevel 3)
+ *                reference's codec (clevel 3; bitshuffle, byte shuffle
+ *                or none)
  *   bitshuffle.h c-blosc's bitshuffle both ways, on 64-bit words
- *   jpeg_dec.c   baseline / extended-Huffman 8-bit JPEG, decoded as
- *                libjpeg-turbo does by default (ISLOW IDCT, fancy
- *                upsampling, its fixed-point YCbCr -> RGB), or with the
- *                chroma samples repeated as OpenCV's FFmpeg backend does
+ *   jpeg_dec.c   Huffman-coded 8-bit JPEG, baseline, extended and
+ *                progressive, decoded as libjpeg-turbo does by default
+ *                (ISLOW IDCT, fancy upsampling, its fixed-point YCbCr ->
+ *                RGB), or with the chroma as OpenCV's FFmpeg backend
+ *                gives it (swscale)
  *
  * Every entry returns MMR_OK, MMR_CORRUPT (the input is damaged: Python
  * raises ValueError) or MMR_UNSUPPORTED (a valid input this library does
@@ -36,6 +40,18 @@
 int mmr_zstd_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
                         size_t *written, char *err, size_t errlen);
 
+/* One block stream of blosc's other compressors into dst[0 .. cap);
+ * *written = the bytes produced. Not entries of the Python binding:
+ * blosc_dec.c calls them. */
+int mmr_blosclz_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
+                           size_t *written, char *err, size_t errlen);
+int mmr_lz4_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
+                       size_t *written, char *err, size_t errlen);
+int mmr_snappy_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
+                          size_t *written, char *err, size_t errlen);
+int mmr_zlib_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
+                        size_t *written, char *err, size_t errlen);
+
 /* One blosc 1.x chunk into dst[0 .. cap); *written = its nbytes. */
 int mmr_blosc_decompress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap,
                          size_t *written, char *err, size_t errlen);
@@ -46,11 +62,12 @@ size_t mmr_zstd_compress_bound(size_t n);
 int mmr_zstd_compress(const uint8_t *src, size_t n, uint8_t *dst, size_t cap, size_t *written,
                       char *err, size_t errlen);
 
-/* src[0 .. n), elements of typesize bytes, as one blosc 1.x chunk (zstd,
- * bitshuffle) into dst[0 .. cap), cap at least mmr_blosc_compress_bound(n). */
+/* src[0 .. n), elements of typesize bytes, as one blosc 1.x chunk (zstd;
+ * shuffle 0 none, 1 byte shuffle, 2 bitshuffle) into dst[0 .. cap), cap at
+ * least mmr_blosc_compress_bound(n). */
 size_t mmr_blosc_compress_bound(size_t n);
-int mmr_blosc_compress(const uint8_t *src, size_t n, size_t typesize, uint8_t *dst, size_t cap,
-                       size_t *written, char *err, size_t errlen);
+int mmr_blosc_compress(const uint8_t *src, size_t n, size_t typesize, int shuffle, uint8_t *dst,
+                       size_t cap, size_t *written, char *err, size_t errlen);
 
 /* The zstd encoder's working memory (about 1 MB), for a caller that
  * writes many frames on one thread (blosc_enc.c; not an entry of the
@@ -69,8 +86,7 @@ int mmr_jpeg_info(const uint8_t *src, size_t n, int *height, int *width,
 
 /* A JPEG image into dst (height x width x components uint8, row-major;
  * three components as RGB); cap = dst's size in bytes. fancy = 1:
- * libjpeg's triangular chroma upsampling; 0: each chroma sample repeated
- * over the pixels it covers. */
+ * libjpeg's chroma upsampling; 0: OpenCV's (swscale's) chroma. */
 int mmr_jpeg_decode(const uint8_t *src, size_t n, uint8_t *dst, size_t cap, int fancy,
                     char *err, size_t errlen);
 

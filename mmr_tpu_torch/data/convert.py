@@ -17,7 +17,8 @@ host-side tooling off the training path:
 Videos are Motion-JPEG AVI read by :class:`mmr_tpu_torch.data.video.
 VideoReader` (the JAX package's ``cv2.VideoCapture``; other codecs raise
 ``NotImplementedError`` naming their fourcc) with OpenCV's chroma
-upsampling (``fancy_upsampling=False``: each chroma sample repeated), so
+(``fancy_upsampling=False``: repeated samples at 4:2:2 and 4:2:0, swscale's
+cubic resampling at the other layouts), so
 the frames the reference trains on come out within a few levels of
 OpenCV's FFmpeg decode at sharp colour edges too; masks are PNG decoded by
 :mod:`mmr_tpu_torch.data.png`. The random draws (the coordinates sampled

@@ -1,9 +1,10 @@
 """The port's host-side codecs (``mmr_tpu_torch/csrc/host/*.c``): zstd
-frames and c-blosc 1.x chunks over zstd, both ways (the encoders write the
-reference's one setting, blosc-zstd clevel 3 with bitshuffle), and
-baseline JPEG decoded as libjpeg-turbo decodes it. They run on the CPU,
-where the JAX package's codecs run too (c-blosc inside tensorstore, FFmpeg
-inside OpenCV).
+frames both ways; c-blosc 1.x chunks read over every compressor tensorstore
+writes (blosclz, lz4, lz4hc, snappy, zlib, zstd) and written over zstd
+(the reference's setting, clevel 3, with bitshuffle, byte shuffle or none);
+and Huffman-coded JPEG, baseline and progressive, decoded as libjpeg-turbo
+decodes it. They run on the CPU, where the JAX package's codecs run too
+(c-blosc inside tensorstore, FFmpeg inside OpenCV).
 
 The library is built at first use by the C compiler (``cc``, or ``$CC``)
 into ``mmr_tpu_torch/_build/`` under a name keyed on a hash of the sources
@@ -48,7 +49,7 @@ SIGNATURES = {
     "mmr_zstd_decompress": [ctypes.c_char_p, _N, _P, _N, _NP, ctypes.c_char_p, _N],
     "mmr_blosc_decompress": [ctypes.c_char_p, _N, _P, _N, _NP, ctypes.c_char_p, _N],
     "mmr_zstd_compress": [_P, _N, _P, _N, _NP, ctypes.c_char_p, _N],
-    "mmr_blosc_compress": [_P, _N, _N, _P, _N, _NP, ctypes.c_char_p, _N],
+    "mmr_blosc_compress": [_P, _N, _N, ctypes.c_int, _P, _N, _NP, ctypes.c_char_p, _N],
     "mmr_jpeg_info": [ctypes.c_char_p, _N, _IP, _IP, _IP, ctypes.c_char_p, _N],
     "mmr_jpeg_decode": [ctypes.c_char_p, _N, _P, _N, ctypes.c_int, ctypes.c_char_p, _N],
 }
@@ -56,6 +57,8 @@ SIGNATURES = {
 BOUNDS = {"mmr_zstd_compress": "mmr_zstd_compress_bound",
           "mmr_blosc_compress": "mmr_blosc_compress_bound"}
 _CORRUPT, _UNSUPPORTED, _NOMEM = 1, 2, 3
+# zarr's blosc ``shuffle`` names, as the encoder's argument
+SHUFFLES = {"noshuffle": 0, "shuffle": 1, "bitshuffle": 2}
 _ERRLEN = 512
 
 
@@ -64,7 +67,7 @@ def _cc_compile(sources: list[Path], tmp_lib: Path) -> None:
     if not cc:
         raise RuntimeError(
             "no C compiler: the host decoders of mmr_tpu_torch (csrc/host/*.c: "
-            "zstd, blosc, JPEG) are built at first use with cc (or $CC)")
+            "zstd, blosc, zlib, JPEG) are built at first use with cc (or $CC)")
     t0 = time.perf_counter()
     done = subprocess.run([cc, *CC_FLAGS, "-o", str(tmp_lib), *map(str, sources)],
                           capture_output=True, text=True)
@@ -125,7 +128,8 @@ def zstd_decompress_into(data: bytes, out: np.ndarray, what: str = "zstd data") 
 
 def blosc_decompress_into(data: bytes, out: np.ndarray,
                           what: str = "blosc chunk") -> np.ndarray:
-    """One c-blosc 1.x chunk (zstd streams) into ``out``, which it must fill."""
+    """One c-blosc 1.x chunk (blosclz, lz4, snappy, zlib or zstd streams)
+    into ``out``, which it must fill."""
     _into("mmr_blosc_decompress", data, out, what)
     return out
 
@@ -151,21 +155,30 @@ def zstd_compress(data, what: str = "zstd data") -> bytes:
     return _compress("mmr_zstd_compress", data, what)
 
 
-def blosc_compress(data, typesize: int, what: str = "blosc chunk") -> bytes:
+def blosc_compress(data, typesize: int, what: str = "blosc chunk",
+                   shuffle: str = "bitshuffle") -> bytes:
     """``data`` (bytes or a C-ordered array's bytes, elements of
-    ``typesize`` bytes) as one c-blosc 1.x chunk: zstd, bitshuffle, the
-    block size c-blosc picks at clevel 3."""
-    return _compress("mmr_blosc_compress", data, what, int(typesize))
+    ``typesize`` bytes) as one c-blosc 1.x chunk: zstd, ``shuffle`` (a zarr
+    blosc name: ``bitshuffle``, ``shuffle`` or ``noshuffle``) in its header
+    flags and applied to each block, the block size c-blosc picks at
+    clevel 3."""
+    if shuffle not in SHUFFLES:
+        raise NotImplementedError(f"{what}: blosc shuffle {shuffle!r} (one of {list(SHUFFLES)})")
+    return _compress("mmr_blosc_compress", data, what, int(typesize), SHUFFLES[shuffle])
 
 
 def jpeg_decode(data: bytes, what: str = "JPEG image",
                 fancy_upsampling: bool = True) -> np.ndarray:
-    """A baseline JPEG → (H, W, 3) RGB or (H, W, 1) grey uint8: with
-    ``fancy_upsampling``, the samples libjpeg-turbo gives with its default settings
-    (its triangular chroma upsampling); without, each chroma sample
-    repeated over the 2×1 or 2×2 pixels it covers, as OpenCV's FFmpeg
-    backend gives Motion-JPEG frames (within a few levels: FFmpeg's IDCT
-    and colour conversion round otherwise)."""
+    """A Huffman-coded JPEG (baseline, extended or progressive) → (H, W, 3)
+    RGB or (H, W, 1) grey uint8: with ``fancy_upsampling``, the samples
+    libjpeg-turbo gives with its default settings (its triangular chroma
+    upsampling at 4:2:2, 4:2:0 and 4:4:0, each sample repeated at other
+    ratios); without, the chroma as OpenCV's FFmpeg backend gives
+    Motion-JPEG frames through swscale: each sample repeated at 4:4:4, and at
+    4:2:2 and 4:2:0 of even height, elsewhere resampled by its generic
+    scaler (Keys' cubic, a = -0.6) to half the width and the full height,
+    each pair of pixels sharing one (within a few levels: FFmpeg's IDCT,
+    swscale's fixed point and its colour conversion round otherwise)."""
     lib, data = library(), bytes(data)
     err = ctypes.create_string_buffer(_ERRLEN)
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

@@ -13,14 +13,18 @@ frame before it; a frame past the end reads as ``None`` (``cap.read()``'s
 ``False``).
 
 Only JPEG-in-AVI is decoded: the fourccs ``MJPG``, ``mjpg``, ``AVRn`` and
-``AVDJ``. Any other raises ``NotImplementedError`` naming it. Frames are
-decoded by :func:`mmr_tpu_torch.data.hostlib.jpeg_decode`: by default
-sample for sample as libjpeg-turbo (and PIL) decodes them, with its
-triangular chroma upsampling; with ``fancy_upsampling=False`` each chroma
-sample is repeated over the pixels it covers, as OpenCV's FFmpeg backend
-does, so the frames come within a few levels of ``cv2.VideoCapture``'s
-(FFmpeg rounds its IDCT and colour conversion otherwise) where the
-triangular filter parts from them by tens of levels at sharp colour edges.
+``AVDJ``, frames baseline, extended or progressive (SOF0-SOF2), at any
+sampling whose ratios are whole numbers (4:4:4, 4:2:2, 4:2:0, 4:4:0,
+4:1:1, ...). Any other fourcc raises ``NotImplementedError`` naming it, as
+do lossless, arithmetic-coded and 12-bit frames. Frames are decoded by
+:func:`mmr_tpu_torch.data.hostlib.jpeg_decode`: by default sample for
+sample as libjpeg-turbo (and PIL) decodes them, with its chroma
+upsampling; with ``fancy_upsampling=False`` the chroma comes as OpenCV's
+FFmpeg backend gives it (each sample repeated at 4:2:2 and 4:2:0 of even
+height; swscale's cubic resampling at 4:4:0, 4:1:1 and odd heights), so
+the frames come within a few levels of ``cv2.VideoCapture``'s (FFmpeg
+rounds its IDCT and colour conversion otherwise) where libjpeg's filters
+part from them by tens of levels at sharp colour edges.
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ def _fourcc(raw: bytes) -> str:
 class VideoReader:
     """One AVI file: ``width``, ``height``, ``fourcc``, ``frame_count``;
     :meth:`read` gives frame ``i`` as (H, W, 3) RGB uint8, or None past
-    the last frame; ``fancy_upsampling``: libjpeg's chroma filter (True)
-    or OpenCV's repeated chroma samples (False)."""
+    the last frame; ``fancy_upsampling``: libjpeg's chroma upsampling
+    (True) or OpenCV's chroma (False)."""
 
     def __init__(self, path: str | Path, fancy_upsampling: bool = True):
         self.path = Path(path)

@@ -18,11 +18,14 @@ writes the codecs JAX's ``VideoStore`` writes through tensorstore,
 chunk by chunk with the port's encoders; ``codec="gzip"`` writes ``bytes``
 + ``gzip`` level 1 instead (a comparison copy). :class:`ZarrArray` reads
 ``bytes`` alone, ``bytes`` + ``gzip``, ``bytes`` + ``zstd`` (zarr-python
-3's default) and ``bytes`` + ``blosc`` over zstd, and writes into any of
-them. It takes what the schema holds and nothing more: uint8 and float32,
-the ``/`` chunk key separator, a numeric fill value, blosc over zstd;
-anything else (another codec, another blosc compressor) raises
-``NotImplementedError`` naming it, rather than being misread.
+3's default) and ``bytes`` + ``blosc`` over every compressor tensorstore
+writes (``blosclz``, ``lz4``, ``lz4hc``, ``snappy``, ``zlib``, ``zstd``),
+and writes into any of them but blosc over another compressor than zstd,
+which the reference never writes; a blosc-zstd write keeps the array's
+``shuffle`` and ``typesize``. It takes what the schema holds and nothing
+more: uint8 and float32, the ``/`` chunk key separator, a numeric fill
+value; anything else (another codec, a write into a blosc-lz4 array)
+raises ``NotImplementedError`` naming it, rather than being misread.
 
 Reads decode only the chunks a window touches, each on a shared thread
 pool (``zlib``, the host codecs and file reads release the GIL, so the
@@ -50,6 +53,7 @@ GZIP_LEVEL = 1
 _DTYPES = ("uint8", "float32")
 _COMPRESSORS = ("gzip", "zstd", "blosc")   # the codecs this reader takes after ``bytes``
 _HOST_CODECS = ("zstd", "blosc")           # those the host library decodes and encodes
+_BLOSC_CNAMES = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")   # tensorstore's
 # JAX's ``_array_spec`` codecs as tensorstore writes them into zarr.json
 _BLOSC = {"name": "blosc", "configuration": {"blocksize": 0, "clevel": 3, "cname": "zstd",
                                              "shuffle": "bitshuffle"}}
@@ -133,11 +137,14 @@ class ZarrArray:
         self._codec = names[1] if len(names) == 2 else None
         if self._codec == "blosc":
             config = codecs[1].get("configuration", {})
-            if config.get("cname") != "zstd":
+            self._cname = config.get("cname")
+            self._shuffle = config.get("shuffle", "noshuffle")
+            if self._cname not in _BLOSC_CNAMES:
                 raise NotImplementedError(
-                    f"{self.path}: blosc compressor {config.get('cname')!r} is not "
-                    f"supported (this package reads and writes blosc over zstd, the "
-                    f"reference's)")
+                    f"{self.path}: blosc compressor {self._cname!r} is not supported "
+                    f"(this reader takes {', '.join(_BLOSC_CNAMES)})")
+            if self._shuffle not in hostlib.SHUFFLES:
+                raise NotImplementedError(f"{self.path}: blosc shuffle {self._shuffle!r}")
             self._typesize = int(config.get("typesize") or self.dtype.itemsize)
         if self._codec in _HOST_CODECS:
             hostlib.library()   # built here, on the opener's thread, not on the pool
@@ -221,7 +228,7 @@ class ZarrArray:
             path.unlink(missing_ok=True)   # fill-valued chunks stay absent
             return
         if self._codec == "blosc":
-            data = hostlib.blosc_compress(buf, self._typesize, str(path))
+            data = hostlib.blosc_compress(buf, self._typesize, str(path), self._shuffle)
         elif self._codec == "zstd":
             data = hostlib.zstd_compress(buf, str(path))
         else:
@@ -302,6 +309,10 @@ class ZarrArray:
         """Start writing ``data`` (the region's shape, int-indexed dims
         dropped) at ``index``, a chunk a pool task; chunks the region
         covers in part are read, merged and rewritten. Returns ``wait()``."""
+        if self._codec == "blosc" and self._cname != "zstd":
+            raise NotImplementedError(
+                f"{self.path}: a write with blosc compressor {self._cname!r} (this package "
+                f"writes blosc over zstd, the reference's; it reads the others)")
         region, ints = self._region(index)
         shape = tuple(s.stop - s.start for s in region)
         want = tuple(n for d, n in enumerate(shape) if d not in ints)

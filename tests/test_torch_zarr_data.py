@@ -2,7 +2,7 @@
 the Zarr stores both ways (the port's blosc-zstd stores, with JAX's
 ``zarr.json``, and its gzip copies read by JAX's tensorstore-backed
 ``VideoStore``; tensorstore's gzip, zstd and raw stores read by the port;
-absent chunks as the fill value, blosc-lz4 refused), the window
+absent chunks as the fill value, blosc-lz4 read and its writes refused), the window
 crops, the ``PatchSampler`` (bit-equal batches for three epochs), the
 ``VideoFrameDataset``, ``make_synthetic_dataset``, the split files (byte-
 equal to scikit-learn's), the one-hot codecs and the converter's parts
@@ -178,16 +178,21 @@ def test_tensorstore_store_read_by_port(tmp_path, codecs):
 
 def test_blosc_store_raises(tmp_path):
     """(c) a blosc store of another compressor than the reference's zstd
-    (lz4, written by tensorstore) is refused, naming the compressor; the
-    reference's blosc-zstd stores read (``test_torch_native_data.py``)."""
+    (lz4, written by tensorstore) reads as JAX reads it, through
+    ``VideoStore`` and ``PatchSampler``; a write into it is refused, naming
+    the compressor (the port writes blosc over zstd only, as the
+    reference)."""
+    from mmr_tpu.data.zarr_io import VideoStore as JaxStore
+
     path = tmp_path / "b.zarr"
-    _ts_store(path, np.random.RandomState(2), 2, 40, 40, (32, 32),
+    rng = np.random.RandomState(2)
+    _ts_store(path, rng, 2, 40, 40, (32, 32),
               [BYTES, {"name": "blosc", "configuration": {
                   "cname": "lz4", "clevel": 3, "shuffle": "bitshuffle", "typesize": 4}}])
+    _same_store(VideoStore(path), JaxStore(path))
+    assert len(list(PatchSampler([path], (32, 32), 2, 1).epoch(epoch_seed=0))) == 1
     with pytest.raises(NotImplementedError, match="blosc compressor 'lz4'"):
-        VideoStore(path).read_frames(0, 1)
-    with pytest.raises(NotImplementedError, match="blosc compressor 'lz4'"):
-        PatchSampler([path], (32, 32), 2, 1)
+        VideoStore(path).write_frame(1, *_frame(rng, 40, 40))
 
 
 def test_zarr_array_partial_writes_and_indexing(tmp_path):

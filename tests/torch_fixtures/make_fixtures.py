@@ -9,6 +9,15 @@
   so c-blosc stores those blocks unshuffled), and ``f32_full`` and
   ``u8_full``: one frame in one chunk of the size real stores hold, (3, 1,
   512, 640), cut from the Motion-JPEG fixture's first decoded frame;
+- ``mjpeg_prog_1080.avi``: two 1080×1920 frames, progressive 4:2:2 JPEGs
+  from ``cv2.imencode`` in an ``idx1`` AVI; ``mjpeg_440.avi``,
+  ``mjpeg_411.avi``, ``mjpeg_prog_440.avi``, ``mjpeg_prog_411.avi``: two
+  240×320 frames each, baseline and progressive at 4:4:0 and 4:1:1;
+- ``blosc/<cname>_f32.zarr`` and ``<cname>_u8.zarr`` for blosc's other
+  compressors (blosclz, lz4, lz4hc, snappy, zlib; the shuffles varied), and
+  ``lz4_full.zarr`` and ``zlib_full.zarr``, the full-size chunk of
+  ``f32_full`` again: written by the JAX package's ``VideoStore``
+  (tensorstore) with its compressor set to each;
 - ``records.json``: sha256 of each decoded frame (the port's decode, checked
   equal to PIL's), of each store's arrays and of the ``PatchSampler``
   batches as the JAX package reads them.
@@ -47,6 +56,29 @@ STORES = {   # name: (dtype, frames, height, width, patch)
     "u8_full": ("uint8", 1, 512, 640, (512, 640)),
 }
 FULL_CROP = (284, 640)   # top-left of the *_full frames in the fixture's first frame
+# the Motion-JPEG variants: name -> (frames, height, width, cv2 sampling, progressive)
+MJPEG = {
+    "mjpeg_prog_1080": (2, 1080, 1920, "422", True),
+    "mjpeg_440": (2, 240, 320, "440", False),
+    "mjpeg_411": (2, 240, 320, "411", False),
+    "mjpeg_prog_440": (2, 240, 320, "440", True),
+    "mjpeg_prog_411": (2, 240, 320, "411", True),
+}
+# blosc's other compressors: name -> (cname, shuffle, dtype, frames, height, width, patch)
+OTHER_STORES = {
+    "blosclz_f32": ("blosclz", "shuffle", "float32", 2, 90, 100, (60, 45)),
+    "blosclz_u8": ("blosclz", "bitshuffle", "uint8", 2, 90, 100, (60, 45)),
+    "lz4_f32": ("lz4", "bitshuffle", "float32", 2, 90, 100, (60, 45)),
+    "lz4_u8": ("lz4", "noshuffle", "uint8", 2, 90, 100, (60, 45)),
+    "lz4hc_f32": ("lz4hc", "noshuffle", "float32", 2, 90, 100, (60, 45)),
+    "lz4hc_u8": ("lz4hc", "shuffle", "uint8", 2, 90, 100, (60, 45)),
+    "snappy_f32": ("snappy", "bitshuffle", "float32", 2, 90, 100, (60, 45)),
+    "snappy_u8": ("snappy", "shuffle", "uint8", 2, 90, 100, (60, 45)),
+    "zlib_f32": ("zlib", "shuffle", "float32", 2, 90, 100, (60, 45)),
+    "zlib_u8": ("zlib", "bitshuffle", "uint8", 2, 90, 100, (60, 45)),
+    "lz4_full": ("lz4", "bitshuffle", "float32", 1, 512, 640, (512, 640)),
+    "zlib_full": ("zlib", "bitshuffle", "float32", 1, 512, 640, (512, 640)),
+}
 SAMPLER = {"patch": [64, 64], "batch": 3, "steps": 3, "seed": 11,
            "epoch_seed": 100, "oversample_foreground_percent": 0.5,
            "initial_patch_size": [72, 80]}
@@ -108,33 +140,121 @@ def write_avi(rng) -> tuple[list[str], list[np.ndarray]]:
     return out, frames
 
 
-def write_stores(rng, frames) -> dict:
+def write_store(path: Path, rng, frames, full: bool, dtype, t, h, w, patch) -> dict:
+    """One store written by JAX's ``VideoStore``: frames of ``scene`` (or,
+    ``full``, crops of the Motion-JPEG fixture's frames) and ``masks_for``;
+    its record."""
     from mmr_tpu.data.zarr_io import VideoStore as JaxStore
 
+    store = JaxStore.create(path, t, h, w, patch, image_dtype=np.dtype(dtype))
+    locs = {str(c): [] for c in range(1, N_CLASSES + 1)}
+    for i in range(t):
+        if full:
+            y, x = FULL_CROP
+            rgb = frames[i][y:y + h, x:x + w]
+        else:
+            rgb = scene(rng, h, w, i)
+        img = rgb.transpose(2, 0, 1).astype(np.float32) / 255.0
+        mask = masks_for(h, w, i)
+        store.write_frame(i, img, mask)
+        for c in range(1, N_CLASSES + 1):
+            yx = np.argwhere(mask == c)[:20]
+            locs[str(c)] += [(i, int(y), int(x)) for y, x in yx]
+    store.set_properties({"class_locations": locs})
+    read = JaxStore(path)
+    return {"dtype": dtype, "shape": [t, h, w], "patch": list(patch),
+            "image": sha(np.asarray(read.image[:])), "mask": sha(np.asarray(read.mask[:]))}
+
+
+def write_stores(rng, frames) -> dict:
     root = HERE / "blosc"
-    shutil.rmtree(root, ignore_errors=True)
+    for name in STORES:
+        shutil.rmtree(root / f"{name}.zarr", ignore_errors=True)
+    return {name: write_store(root / f"{name}.zarr", rng, frames, name.endswith("_full"),
+                              dtype, t, h, w, patch)
+            for name, (dtype, t, h, w, patch) in STORES.items()}
+
+
+def write_other_stores(frames) -> dict:
+    """The stores of blosc's other compressors: JAX's ``VideoStore`` with its
+    codec's compressor and shuffle set to each (clevel 5, c-blosc's
+    default), so tensorstore writes every array of the store with it."""
+    import mmr_tpu.data.zarr_io as jax_zarr
+
+    rng = np.random.RandomState(2027)
+    records, saved = {}, jax_zarr._BLOSC
+    try:
+        for name, (cname, shuffle, dtype, t, h, w, patch) in OTHER_STORES.items():
+            jax_zarr._BLOSC = {"name": "blosc", "configuration": {
+                "cname": cname, "clevel": 5, "shuffle": shuffle}}
+            path = HERE / "blosc" / f"{name}.zarr"
+            shutil.rmtree(path, ignore_errors=True)
+            records[name] = {"cname": cname, "shuffle": shuffle,
+                             **write_store(path, rng, frames, name.endswith("_full"), dtype,
+                                           t, h, w, patch)}
+    finally:
+        jax_zarr._BLOSC = saved
+    return records
+
+
+def avi_bytes(frames: list[bytes], w: int, h: int) -> bytes:
+    """A Motion-JPEG AVI of the given JPEG frames: the header list (one
+    ``MJPG`` video stream), a ``movi`` list and an ``idx1`` index whose
+    offsets are taken from the ``movi`` fourcc."""
+    import struct
+
+    def chunk(fcc: bytes, data: bytes) -> bytes:
+        return fcc + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+    def lst(kind: bytes, *parts: bytes) -> bytes:
+        body = kind + b"".join(parts)
+        return b"LIST" + struct.pack("<I", len(body)) + body
+
+    n = len(frames)
+    avih = struct.pack("<14I", 200000, 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0, 0, 1, 5, 0, n,
+                       0, 0, 0, 0, 0, w, h)
+    strf = struct.pack("<Iiihh4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+    movi, idx = b"", b""
+    for f in frames:
+        idx += struct.pack("<4sIII", b"00dc", 0x10, 4 + len(movi), len(f))
+        movi += chunk(b"00dc", f)
+    body = (b"AVI " + lst(b"hdrl", chunk(b"avih", avih),
+                          lst(b"strl", chunk(b"strh", strh), chunk(b"strf", strf)))
+            + lst(b"movi", movi) + chunk(b"idx1", idx))
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def write_mjpeg_variants() -> dict:
+    """The progressive and 4:4:0 / 4:1:1 AVIs: ``scene`` frames encoded by
+    ``cv2.imencode`` (quality 90), each frame's port decode checked equal to
+    PIL's and recorded."""
+    import cv2
+    from PIL import Image
+
+    from mmr_tpu_torch.data.video import VideoReader
+
+    rng = np.random.RandomState(2028)
     records = {}
-    for name, (dtype, t, h, w, patch) in STORES.items():
-        store = JaxStore.create(root / f"{name}.zarr", t, h, w, patch,
-                                image_dtype=np.dtype(dtype))
-        locs = {str(c): [] for c in range(1, N_CLASSES + 1)}
-        for i in range(t):
-            if name.endswith("_full"):
-                y, x = FULL_CROP
-                rgb = frames[i][y:y + h, x:x + w]
-            else:
-                rgb = scene(rng, h, w, i)
-            img = rgb.transpose(2, 0, 1).astype(np.float32) / 255.0
-            mask = masks_for(h, w, i)
-            store.write_frame(i, img, mask)
-            for c in range(1, N_CLASSES + 1):
-                yx = np.argwhere(mask == c)[:20]
-                locs[str(c)] += [(i, int(y), int(x)) for y, x in yx]
-        store.set_properties({"class_locations": locs})
-        read = JaxStore(root / f"{name}.zarr")
-        records[name] = {"dtype": dtype, "shape": [t, h, w], "patch": list(patch),
-                         "image": sha(np.asarray(read.image[:])),
-                         "mask": sha(np.asarray(read.mask[:]))}
+    for name, (n, h, w, sampling, progressive) in MJPEG.items():
+        factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive),
+                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor]
+        jpegs = [cv2.imencode(".jpg", scene(rng, h, w, t)[..., ::-1], params)[1].tobytes()
+                 for t in range(n)]
+        path = HERE / f"{name}.avi"
+        path.write_bytes(avi_bytes(jpegs, w, h))
+        shas = []
+        with VideoReader(path) as video:
+            assert video.frame_count == n and (video.height, video.width) == (h, w)
+            for t in range(n):
+                mine = video.read(t)
+                pil = np.array(Image.open(io.BytesIO(video.frame_bytes(t))))
+                assert np.array_equal(mine, pil), f"{name} frame {t}: port != PIL"
+                shas.append(sha(mine))
+        records[name] = {"file": path.name, "shape": [h, w, 3],
+                         "sampling": f"{sampling[0]}:{sampling[1]}:{sampling[2]}",
+                         "progressive": progressive, "frames": shas}
     return records
 
 
@@ -164,6 +284,8 @@ def main() -> None:
         "sampler": {**SAMPLER, "batches": sampler_records(),
                     "what": "[image, mask] of each batch of JAX's PatchSampler over "
                             "<kind>_a.zarr and <kind>_b.zarr"},
+        "mjpeg": write_mjpeg_variants(),
+        "other_compressors": write_other_stores(frames),
     }
     (HERE / "records.json").write_text(json.dumps(records, indent=1) + "\n")
     total = sum(f.stat().st_size for f in HERE.rglob("*") if f.is_file())
